@@ -1,0 +1,485 @@
+"""Drive the PyTorch/CUDA port on one NVIDIA card and check it end to end.
+
+    python3 chip_smoke.py
+
+Phases, each of which raises on failure (the script then exits non-zero and
+prints no result):
+
+1. the card: ``nvidia-smi``'s name and power limit; no CUDA, no run;
+2. build: every hand-written kernel from ``src/repro_torch/kernels/csrc``
+   into ``build/kernels/``, one nvcc per source, all at once;
+3. kernels: each kernel against its plain PyTorch version on the same CUDA
+   tensors, at the shapes the main path gives it; exact equality (every
+   value is an integer, so the tolerance is 0).  Times from CUDA events
+   (median of single calls) for the kernel, its plain version and one
+   PyTorch call as a yardstick, beside the least time the card could take;
+4. mid-size: the default ``opencyc_like`` and ``merge_like`` profiles on the
+   card equal the same run on the CPU (triples, rho, counters);
+5. full size — the main path: ``opencyc_like`` at OpenCyc's scale (2.4 M
+   explicit triples, 361,200 merged resources) materialised on the card
+   through :class:`repro_torch.TorchEngine`, with the launch counters set to
+   0 just before and read just after; its wall time is the end-to-end
+   number.  Structural checks of the result; two more runs for the wall's
+   spread and one under ``torch.profiler`` for the device's busy time; and
+   the same run on the CPU (the kernels' plain versions) must give the same
+   triples, rho and counters.
+
+Then one JSON line ``{"kernels": [...]}`` and, last, the device line.  The
+full record goes to ``chiprun_out/chip_smoke.json``.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+SCALAR_OPS_PER_S = 67e12   # H100 SXM non-tensor FP32 rate, the ALU stand-in
+KEY_MAX = (1 << 63) - 1
+FULL = dict(n_groups=51600, n_plain=1470000)  # OpenCyc: 2.4 M triples
+FULL_MERGED = 7 * 51600  # group_size 8: seven merges per group
+FULL_RESOURCES = 971865  # resources of that profile at that scale
+FULL_CAP = 1 << 22
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, setup=lambda: (), reps: int = 5) -> float:
+    """Median of single-call CUDA-event times, after one warm-up call;
+    ``setup`` makes fresh arguments outside the timed region."""
+    times = []
+    for i in range(reps + 1):
+        args = setup()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(*args)
+        end.record()
+        torch.cuda.synchronize()
+        if i:
+            times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def max_err(a, b) -> float:
+    if isinstance(a, (tuple, list)):
+        return max(max_err(x, y) for x, y in zip(a, b))
+    if a.shape != b.shape:
+        raise AssertionError(f"shape {tuple(a.shape)} != {tuple(b.shape)}")
+    if a.numel() == 0:
+        return 0.0
+    return float((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+
+
+def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / SCALAR_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def log2c(n: int) -> int:
+    return max(int(n) - 1, 0).bit_length()
+
+
+def packed_keys(gen, n: int, n_ids: int, dev) -> torch.Tensor:
+    spo = torch.randint(0, n_ids, (n, 3), generator=gen, device=dev)
+    return (spo[:, 0] << 42) | (spo[:, 1] << 21) | spo[:, 2]
+
+
+def kernel_phase(ops, ref, records: dict, dev) -> None:
+    """Each kernel against its plain version, at the issue's shapes and at
+    the shapes the full-size main path gives it (``main=True``: the stream
+    of 4 * (out_cap + rewrite_cap) + 1 = 2^25 + 1 keys, the arena of 2^22 + 1
+    rows, rho of 971,865 resources, a pair buffer of out_cap rows)."""
+    from repro_torch.core.uf import merge_pairs_np
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def record(name, shape, err, ms, plain_ms, lib_ms, n_bytes, n_ops,
+               main=False):
+        b_ms, b_by = bound(n_bytes, n_ops)
+        lib = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
+        print(f"  {name} {shape}{' [main path]' if main else ''}: max_abs_err "
+              f"{err} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+              f"{lib}, bound {b_ms:.4f} ms ({b_by})", flush=True)
+        if err != 0:
+            raise AssertionError(f"{name} {shape} differs from its plain version")
+        records.setdefault(name, []).append(dict(
+            shape=shape, main_path=main, max_abs_err=err, ms=ms,
+            plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+        ))
+
+    # 1. stable dedup order: packed keys, duplicates, KEY_MAX tail
+    stream = 4 * (FULL_CAP + FULL_CAP) + 1
+    for n, label in ((1 << 20, "2^20"), (1 << 24, "2^24"),
+                     (stream, "2^25+1")):
+        keys = packed_keys(gen, n, 1 << 8, dev)  # small IDs: many duplicates
+        keys[-(n // 8):] = KEY_MAX
+        keys = keys[torch.randperm(n, generator=gen, device=dev)].contiguous()
+        err = max_err(ops.dedup_order(keys), ref.dedup_order(keys))
+        record("dedup_order", f"n={label}", err,
+               time_ms(lambda: ops.dedup_order(keys)),
+               time_ms(lambda: ref.dedup_order(keys)),
+               time_ms(lambda: torch.sort(keys, stable=True)),
+               12 * n, n * log2c(n), main=n == stream)
+
+    # 2. sorted-key search: 2^22 random queries into a 2^22-key index, and
+    # the membership probe: the sorted stream into the arena index
+    for n, v, label, main in ((1 << 22, 1 << 22, "n=2^22,v=2^22", False),
+                              (stream, FULL_CAP + 1,
+                               "n=2^25+1 sorted,v=2^22+1", True)):
+        keys = torch.sort(packed_keys(gen, v, 1 << 20, dev)).values
+        keys[-(v // 8):] = KEY_MAX
+        hits = keys[torch.randint(0, v, (n // 2,), generator=gen, device=dev)]
+        queries = torch.cat([hits, packed_keys(gen, n - n // 2, 1 << 20, dev)])
+        if main:
+            queries = torch.sort(queries).values
+        err = max_err(ops.search_bounds(queries, keys),
+                      ref.search_bounds(queries, keys))
+        record("search_bounds", label, err,
+               time_ms(lambda: ops.search_bounds(queries, keys)),
+               time_ms(lambda: ref.search_bounds(queries, keys)),
+               time_ms(lambda: torch.searchsorted(keys, queries)),
+               8 * n + 8 * v + 8 * n, 2 * n * log2c(v + 1), main=main)
+    n = v = 1 << 22
+    rows = torch.stack([keys[:v] >> 42, (keys[:v] >> 21) & ((1 << 21) - 1)], dim=1)
+    prefix = rows[torch.randint(0, v, (n,), generator=gen, device=dev)]
+    prefix = prefix.to(torch.int32).contiguous()
+    err = max_err(ops.prefix_range_bounds(prefix, keys),
+                  ref.prefix_range_bounds(prefix, keys))
+    record("search_bounds", "prefix form n=2^22,k=2,v=2^22+1", err,
+           time_ms(lambda: ops.prefix_range_bounds(prefix, keys)),
+           time_ms(lambda: ref.prefix_range_bounds(prefix, keys)),
+           None, 8 * n + 8 * v + 8 * n, 2 * n * log2c(v + 1))
+
+    # 3. rewrite: candidates and the arena sweep under a rho of 971,865
+    # resources merged in 8-cliques (each maps to its minimum)
+    V = FULL_RESOURCES
+    rho = torch.arange(V, dtype=torch.int32, device=dev) // 8 * 8
+    for n, form in ((1 << 22, "normalise"), (FULL_CAP + 1, "sweep")):
+        spo = torch.randint(0, V, (n, 3), generator=gen, device=dev,
+                            dtype=torch.int32)
+        valid = torch.rand(n, generator=gen, device=dev) < 0.9
+        epoch = torch.randint(-1, 8, (n,), generator=gen, device=dev,
+                              dtype=torch.int32)
+        marked = torch.rand(n, generator=gen, device=dev) < 0.1
+        kw = ({"valid": valid} if form == "normalise"
+              else {"epoch": epoch, "marked": marked})
+        err = max(max_err(ops.rewrite_triples(spo, rho), ref.rewrite_triples(spo, rho)),
+                  max_err(ops.rewrite_triples(spo, rho, **kw),
+                          ref.rewrite_triples(spo, rho, **kw)))
+        mask_bytes = n if form == "normalise" else 5 * n
+        record("rewrite_triples", f"{form} n={n},V={V}", err,
+               time_ms(lambda: ops.rewrite_triples(spo, rho, **kw)),
+               time_ms(lambda: ref.rewrite_triples(spo, rho, **kw)),
+               time_ms(lambda: rho[spo.to(torch.int64)]),
+               12 * n + 4 * V + mask_bytes + 12 * n + n, 4 * n,
+               main=form == "sweep")
+
+    # 4. union-find.  Main path: 51,600 8-cliques given as all 64 ordered
+    # pairs each (the idProp rule's output) in a pair buffer of out_cap
+    # rows, over 971,865 resources.  Stress: 2^20 resources whose 8-cliques
+    # are hooked pairwise (x, x+1), plus one 2^16-long chain.
+    g = torch.arange(FULL["n_groups"], device=dev) * 8
+    i, j = torch.meshgrid(torch.arange(8, device=dev), torch.arange(8, device=dev),
+                          indexing="ij")
+    clique = torch.stack([(g[:, None, None] + i).reshape(-1),
+                          (g[:, None, None] + j).reshape(-1)], dim=1)
+    x = torch.arange((1 << 20) - 1, device=dev)
+    chain = (x % 8 != 7) | ((x >= 1 << 18) & (x < (1 << 18) + (1 << 16)))
+    cases = (
+        (V, clique, FULL_CAP, "main: 51,600 8-cliques, all pairs", True),
+        (1 << 20, torch.stack([x, x + 1], dim=1)[chain], None,
+         "stress: 8-cliques pairwise + a 2^16 chain", False),
+    )
+    for V, pairs, width, label, main in cases:
+        pairs = pairs[torch.randperm(pairs.shape[0], generator=gen, device=dev)]
+        pairs = pairs.to(torch.int32)
+        m = width or pairs.shape[0]
+        pv = torch.arange(m, device=dev) < pairs.shape[0]
+        a0 = torch.zeros(m, dtype=torch.int32, device=dev)
+        b0 = torch.zeros(m, dtype=torch.int32, device=dev)
+        a0[: pairs.shape[0]], b0[: pairs.shape[0]] = pairs[:, 1], pairs[:, 0]
+        base = torch.arange(V, dtype=torch.int32, device=dev)
+        merged = []
+        for mod in (ops, ref):
+            rep, a, b = base.clone(), a0.clone(), b0.clone()
+            while int(mod.uf_hook_(rep, a, b, pv)):
+                mod.uf_compress_(rep)
+            merged.append(rep)
+        want, _ = merge_pairs_np(np.arange(V, dtype=np.int32), pairs.cpu().numpy())
+        if max_err(merged[0], merged[1]) or not np.array_equal(
+            merged[0].cpu().numpy(), want
+        ):
+            raise AssertionError(f"merge loop ({label}) differs from its plain version")
+        hooked = base.clone()
+        ref.uf_hook_(hooked, a0.clone(), b0.clone(), pv)  # one hook, uncompressed
+        n_hooked = int((hooked != base).sum())  # the roots that hook writes
+        c_kernel, c_plain = hooked.clone(), hooked.clone()
+        ops.uf_compress_(c_kernel)
+        ref.uf_compress_(c_plain)
+        n_moved = int((c_plain != hooked).sum())  # the entries compress writes
+        # compress reads rep once and writes the entries that move
+        record("uf_compress", f"{label}, V={V}", max_err(c_kernel, c_plain),
+               time_ms(ops.uf_compress_, lambda: (hooked.clone(),)),
+               time_ms(ref.uf_compress_, lambda: (hooked.clone(),)),
+               None, 4 * V + 4 * n_moved, V, main=main)
+        h_kernel = (base.clone(), a0.clone(), b0.clone())
+        h_plain = (base.clone(), a0.clone(), b0.clone())
+        err = max_err((*h_kernel, ops.uf_hook_(*h_kernel, pv)),
+                      (*h_plain, ref.uf_hook_(*h_plain, pv)))
+        # hook reads a, b, valid and rep once, writes a, b back and rep at
+        # the roots it hooks
+        record("uf_hook", f"{label}, V={V}, m={m}", err,
+               time_ms(ops.uf_hook_, lambda: (base.clone(), a0.clone(), b0.clone(), pv)),
+               time_ms(ref.uf_hook_, lambda: (base.clone(), a0.clone(), b0.clone(), pv)),
+               None, 17 * m + 4 * V + 4 * n_hooked, 4 * m, main=main)
+
+
+def result_of(engine_cls, profile: dict, device: str):
+    from repro_torch.core.triples import pack
+    from repro_torch.data.generator import generate
+
+    facts, program, dic = generate(**profile)
+    eng = engine_cls(dic.n_resources, device=device)
+    spo, rep, stats = eng.materialise(facts, program)
+    return np.sort(pack(spo)), rep, stats
+
+
+COUNTERS = ("derivations", "rule_applications", "merged_resources",
+            "reflexive_added", "rounds", "triples_total")
+
+
+def midsize_phase(records: dict) -> None:
+    from repro_torch import TorchEngine
+    from repro_torch.data.generator import PROFILES
+
+    for name in ("opencyc_like", "merge_like"):
+        t0 = time.perf_counter()
+        gpu = result_of(TorchEngine, PROFILES[name], "cuda")
+        t_gpu = time.perf_counter() - t0
+        cpu = result_of(TorchEngine, PROFILES[name], "cpu")
+        if not np.array_equal(gpu[0], cpu[0]):
+            raise AssertionError(f"{name}: triples differ between cuda and cpu")
+        if not np.array_equal(gpu[1], cpu[1]):
+            raise AssertionError(f"{name}: rho differs between cuda and cpu")
+        counters = {k: getattr(gpu[2], k) for k in COUNTERS}
+        for k in COUNTERS:
+            if counters[k] != getattr(cpu[2], k):
+                raise AssertionError(f"{name}: {k} differs between cuda and cpu")
+        print(f"  {name}: cuda == cpu, {counters}, cuda wall {t_gpu:.2f} s",
+              flush=True)
+        records[name] = dict(counters, cuda_wall_s=t_gpu)
+
+
+def fullsize_phase(ops, records: dict) -> dict:
+    from repro_torch import TorchEngine
+    from repro_torch.core.engine import index_invariant_report
+    from repro_torch.core.triples import pack
+    from repro_torch.data.generator import PROFILES, generate
+
+    config = dict(PROFILES["opencyc_like"], **FULL)
+    t0 = time.perf_counter()
+    facts, program, dic = generate(**config)
+    print(f"  generated {facts.shape[0]} triples, {dic.n_resources} resources "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    eng = TorchEngine(dic.n_resources, capacity=FULL_CAP, bind_cap=FULL_CAP,
+                      out_cap=FULL_CAP, rewrite_cap=FULL_CAP, device="cuda")
+    if dic.n_resources != FULL_RESOURCES:
+        raise AssertionError(f"{dic.n_resources} resources, want {FULL_RESOURCES}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    state = eng.materialise_state(facts, program)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    stats = state.stats
+
+    rho = torch.from_numpy(eng.state_rep(state))
+    if stats.merged_resources != FULL_MERGED:
+        raise AssertionError(f"merged_resources {stats.merged_resources} != {FULL_MERGED}")
+    members = np.asarray([
+        [dic.id_of(f":e{g}_{i}") for i in range(config["group_size"])]
+        for g in range(config["n_groups"])
+    ])
+    if not (rho.numpy()[members] == members.min(axis=1, keepdims=True)).all():
+        raise AssertionError("a group does not map to its minimum member")
+    if not torch.equal(rho[rho.to(torch.int64)], rho):
+        raise AssertionError("rho is not idempotent")
+    live = eng.state_triples(state)
+    if not (rho.numpy()[live] == live).all():
+        raise AssertionError("a live row holds a non-representative ID")
+    problems = index_invariant_report(state)
+    if problems:
+        raise AssertionError(f"index invariant: {problems}")
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the main path: {missing}")
+    del state
+
+    # the wall's spread over two more runs, then the device's share from a
+    # separate run under torch.profiler (which adds host cost to every launch)
+    repeat_walls = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        again = eng.materialise_state(facts, program)
+        torch.cuda.synchronize()
+        repeat_walls.append(time.perf_counter() - t0)
+        del again
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        again = eng.materialise_state(facts, program)
+        torch.cuda.synchronize()
+        profiled_wall = time.perf_counter() - t0
+    del again
+    busy = device_time(prof, profiled_wall)
+    busy["share_of_unprofiled_wall"] = busy["busy_ms"] / 1e3 / wall
+
+    # the same run on the host's CPU, through the kernels' plain versions
+    t0 = time.perf_counter()
+    cpu_eng = TorchEngine(dic.n_resources, capacity=FULL_CAP, bind_cap=FULL_CAP,
+                          out_cap=FULL_CAP, rewrite_cap=FULL_CAP, device="cpu")
+    cpu_state = cpu_eng.materialise_state(facts, program)
+    cpu_wall = time.perf_counter() - t0
+    if not np.array_equal(np.sort(pack(live)),
+                          np.sort(pack(cpu_eng.state_triples(cpu_state)))):
+        raise AssertionError("full size: triples differ between cuda and cpu")
+    if not np.array_equal(rho.numpy(), cpu_eng.state_rep(cpu_state)):
+        raise AssertionError("full size: rho differs between cuda and cpu")
+    for k in COUNTERS:
+        if getattr(stats, k) != getattr(cpu_state.stats, k):
+            raise AssertionError(f"full size: {k} differs between cuda and cpu")
+    print(f"  cuda == cpu at full size (cpu wall {cpu_wall:.1f} s)", flush=True)
+    out = dict(
+        explicit_triples=int(facts.shape[0]), resources=int(dic.n_resources),
+        wall_s=wall, repeat_wall_s=repeat_walls,
+        profiled_wall_s=profiled_wall,
+        rounds=stats.rounds, triples_total=stats.triples_total,
+        triples_unmarked=stats.triples_unmarked, derivations=stats.derivations,
+        rule_applications=stats.rule_applications,
+        merged_resources=stats.merged_resources,
+        capacity_restarts=stats.capacity_retries,
+        caps=dict(capacity=eng.capacity, bind_cap=eng.bind_cap,
+                  out_cap=eng.out_cap, rewrite_cap=eng.rewrite_cap),
+        max_memory_allocated=peak, launches=launches,
+        device_time=busy, cpu_wall_s=cpu_wall,
+    )
+    print(f"  {json.dumps(out)}", flush=True)
+    records["fullsize"] = out
+    return launches
+
+
+# device kernel names of each port kernel (csrc/*.cu)
+KERNEL_OF = {
+    "tile_sort": "dedup_order", "merge_pass": "dedup_order",
+    "search_kernel": "search_bounds", "rewrite_kernel": "rewrite_triples",
+    "halve_kernel": "uf_compress", "finish_kernel": "uf_compress",
+    "refresh_kernel": "uf_hook", "link_kernel": "uf_hook",
+}
+
+
+def device_time(prof, wall_s: float) -> dict:
+    """Device time of the profiled run: per port kernel, the rest of
+    PyTorch's kernels (glue) by name, and the busy share of the wall time."""
+    by_kernel: dict = {}
+    glue: dict = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue  # host-side events; their kernels are listed on their own
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        port = next((k for n, k in KERNEL_OF.items() if n in e.key), None)
+        bucket, key = (by_kernel, port) if port else (glue, e.key[:80])
+        bucket[key] = bucket.get(key, 0.0) + us / 1e3
+    busy_ms = sum(by_kernel.values()) + sum(glue.values())
+    top_glue = dict(sorted(glue.items(), key=lambda kv: -kv[1])[:12])
+    return dict(busy_ms=busy_ms, busy_share=busy_ms / 1e3 / wall_s,
+                port_kernels_ms=by_kernel, glue_ms_total=sum(glue.values()),
+                glue_top_ms=top_glue)
+
+
+SOURCES = {  # kernel -> (source, TPU kernel it replaces)
+    "dedup_order": ("dedup_order.cu", "src/repro/kernels/dedup.py:94"),
+    "search_bounds": ("search_bounds.cu", "src/repro/kernels/bsearch.py:49"),
+    "rewrite_triples": ("rewrite_triples.cu",
+                        "src/repro/kernels/rewrite_triples.py:45"),
+    "uf_compress": ("union_find.cu", "src/repro/kernels/pointer_jump.py:47"),
+    "uf_hook": ("union_find.cu", "src/repro/kernels/pointer_jump.py:47"),
+}
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: no CUDA device")
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _build, ops, ref
+
+    card = card_line()
+    print(card, flush=True)
+
+    records: dict = {"card": card, "torch": torch.__version__,
+                     "cuda": torch.version.cuda}
+    print("build:", flush=True)
+    built = _build.build_all(verbose=True)
+    for name, text in built["ptxas"].items():
+        for line in text.splitlines():
+            if "Used" in line or "spill" in line:
+                print(f"  {name}: {line.strip()}")
+    print(f"  built {built['built']} in {built['seconds']:.1f} s", flush=True)
+    records["build_s"] = built["seconds"]
+
+    print("kernels (kernel == plain version on the card):", flush=True)
+    kernel_records: dict = {}
+    kernel_phase(ops, ref, kernel_records, "cuda")
+    records["kernels"] = kernel_records
+
+    print("mid-size (cuda == cpu):", flush=True)
+    midsize_phase(records)
+
+    print("full size (main path):", flush=True)
+    launches = fullsize_phase(ops, records)
+
+    line = []
+    for name, (source, replaces) in SOURCES.items():
+        r = next(e for e in kernel_records[name] if e["main_path"])
+        line.append(dict(
+            name=name, route="cuda",
+            source=f"src/repro_torch/kernels/csrc/{source}", replaces=replaces,
+            launches=launches[name], max_abs_err=r["max_abs_err"],
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"],
+        ))
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke.json").write_text(json.dumps(records, indent=1))
+    print(card_line())
+    print(json.dumps({"kernels": line}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+
+
+if __name__ == "__main__":
+    main()

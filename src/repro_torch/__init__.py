@@ -1,0 +1,12 @@
+"""PyTorch/CUDA port of the sameAs-rewriting materialisation engine.
+
+``repro_torch`` sits beside the JAX package ``repro``, which stays the
+reference.  It imports ``torch`` and numpy, never ``jax`` and nothing of
+``repro``.  This slice ports the REW base materialisation
+(:class:`repro_torch.core.engine.TorchEngine`) with hand-written CUDA
+kernels for Hopper (:mod:`repro_torch.kernels`).
+"""
+
+from repro_torch.core.engine import CapacityError, Contradiction, TorchEngine
+
+__all__ = ["CapacityError", "Contradiction", "TorchEngine"]

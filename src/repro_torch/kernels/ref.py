@@ -1,0 +1,86 @@
+"""Plain PyTorch versions of the hand-written kernels.
+
+Each function computes exactly what its CUDA kernel computes, on the same
+arguments, with the same in-place contract.  :mod:`repro_torch.kernels.ops`
+runs these for tensors on the CPU; ``chip_smoke.py`` holds every kernel
+against them on the card.
+"""
+
+from __future__ import annotations
+
+import torch
+
+MAX_ID = (1 << 21) - 1
+
+
+def dedup_order(keys: torch.Tensor) -> torch.Tensor:
+    """Stable ascending permutation of int64 ``keys`` as int32."""
+    return torch.argsort(keys, stable=True).to(torch.int32)
+
+
+def search_bounds(queries: torch.Tensor, keys: torch.Tensor):
+    """``(#{keys < q}, #{keys <= q})`` per int64 query, as int32."""
+    lo = torch.searchsorted(keys, queries, side="left")
+    hi = torch.searchsorted(keys, queries, side="right")
+    return lo.to(torch.int32), hi.to(torch.int32)
+
+
+def prefix_range_bounds(prefix_cols: torch.Tensor, keys: torch.Tensor):
+    """Half-open ``[start, end)`` of the keys carrying each (n, k) prefix:
+    the lower bound of the prefix packed with zeros and the upper bound of
+    the prefix packed with the maximal 21-bit ID."""
+    pc = prefix_cols.to(torch.int64)
+    k = pc.shape[1]
+    lo = torch.zeros(pc.shape[0], dtype=torch.int64, device=pc.device)
+    hi = torch.zeros_like(lo)
+    for j in range(3):
+        lo = (lo << 21) | (pc[:, j] if j < k else 0)
+        hi = (hi << 21) | (pc[:, j] if j < k else MAX_ID)
+    start = torch.searchsorted(keys, lo, side="left")
+    end = torch.searchsorted(keys, hi, side="right")
+    return start.to(torch.int32), end.to(torch.int32)
+
+
+def rewrite_triples(spo, rho, valid=None, epoch=None, marked=None):
+    """``(rho[spo], changed)`` with the kernel's clamping and optional masks.
+
+    ``valid`` zeroes the rows it excludes and clears their flag; ``epoch``
+    and ``marked`` restrict the flag to live rows (the store sweep).
+    """
+    idx = spo.to(torch.int64).clamp_(0, rho.shape[0] - 1)
+    out = rho[idx]
+    if valid is not None:
+        out = torch.where(valid[:, None], out, 0)
+    changed = (out != spo).any(dim=1)
+    if valid is not None:
+        changed &= valid
+    if epoch is not None:
+        changed &= (epoch >= 0) & ~marked
+    return out.to(torch.int32), changed
+
+
+def uf_compress_(rep: torch.Tensor) -> None:
+    """Compress ``rep`` in place to the fixpoint of ``rep = rep[rep]``."""
+    while True:
+        nxt = rep[rep.to(torch.int64)]
+        if torch.equal(nxt, rep):
+            return
+        rep.copy_(nxt)
+
+
+def uf_hook_(rep, a, b, valid) -> torch.Tensor:
+    """Refresh pairs to their roots, then min-hook those still apart.
+
+    In place on ``rep``, ``a`` and ``b``; returns a (1,) int32 flag that is
+    1 iff some valid pair joined two roots.
+    """
+    a.copy_(rep[a.to(torch.int64)])
+    b.copy_(rep[b.to(torch.int64)])
+    lo = torch.minimum(a, b)
+    hi = torch.maximum(a, b)
+    active = valid & (lo != hi)
+    # inactive rows scatter rep[0] into slot 0: a no-op under amin
+    tgt = torch.where(active, hi, 0).to(torch.int64)
+    val = torch.where(active, lo, rep[0])
+    rep.scatter_reduce_(0, tgt, val, "amin", include_self=True)
+    return active.any().to(torch.int32).reshape(1)

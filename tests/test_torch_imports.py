@@ -1,0 +1,72 @@
+"""The port stands alone: it imports torch and numpy, never jax and nothing
+of the JAX package, and it never falls back to the CPU unasked."""
+
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+MODULES = [
+    "repro_torch", "repro_torch.core.engine", "repro_torch.core.uf",
+    "repro_torch.core.rules", "repro_torch.core.terms",
+    "repro_torch.core.triples", "repro_torch.core.stats",
+    "repro_torch.kernels.ops", "repro_torch.kernels.ref",
+    "repro_torch.kernels.merge", "repro_torch.kernels._build",
+    "repro_torch.data.generator", "repro_torch.data.datasets", "chip_smoke",
+]
+
+
+def test_imports_with_jax_and_repro_blocked():
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        f"sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]\n"
+        "import importlib\n"
+        f"for m in {MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.'))\n"
+        "               for k, v in sys.modules.items() if v is not None)\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+FORBIDDEN = re.compile(
+    r"^\s*(import\s+(jax|repro)\b(?!_torch)|from\s+(jax|repro)(\.|\s)(?!_torch))",
+    re.M,
+)
+
+
+@pytest.mark.parametrize(
+    "path",
+    sorted(str(p.relative_to(ROOT)) for p in (ROOT / "src" / "repro_torch").rglob("*.py"))
+    + ["chip_smoke.py"],
+)
+def test_no_jax_or_repro_import_in_source(path):
+    text = (ROOT / path).read_text()
+    assert not FORBIDDEN.search(text), FORBIDDEN.search(text).group(0)
+
+
+def test_engine_without_a_card_raises_unless_cpu_is_asked(monkeypatch):
+    from repro_torch.core.engine import TorchEngine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        TorchEngine(16)
+    assert TorchEngine(16, device="cpu").device.type == "cpu"
+
+
+def test_state_loader_has_no_default_device():
+    from repro_torch.core.engine import state_from_arrays
+    from repro_torch.core.rules import Program
+
+    with pytest.raises(TypeError):
+        state_from_arrays({}, Program([]), 0)  # the caller names the device
