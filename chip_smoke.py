@@ -9,21 +9,33 @@ prints no result):
 2. build: every hand-written kernel from ``src/repro_torch/kernels/csrc``
    into ``build/kernels/``, one nvcc per source, all at once;
 3. kernels: each kernel against its plain PyTorch version on the same CUDA
-   tensors, at the shapes the main path gives it; exact equality (every
-   value is an integer, so the tolerance is 0).  Times from CUDA events
-   (median of single calls) for the kernel, its plain version and one
-   PyTorch call as a yardstick, beside the least time the card could take;
+   tensors, at the shapes its path gives it; exact equality for the integer
+   kernels, stated tolerances for flash attention and the FM interaction.
+   Times from CUDA events (median of single calls) for the kernel, its
+   plain version and one PyTorch call as a yardstick, beside the least
+   time the card could take;
 4. mid-size: the default ``opencyc_like`` and ``merge_like`` profiles on the
    card equal the same run on the CPU (triples, rho, counters);
-5. full size — the main path: ``opencyc_like`` at OpenCyc's scale (2.4 M
-   explicit triples, 361,200 merged resources) materialised on the card
-   through :class:`repro_torch.TorchEngine`, with the launch counters set to
-   0 just before and read just after; its wall time is the end-to-end
+5. REW at full size: ``opencyc_like`` at OpenCyc's scale (2.4 M explicit
+   triples, 361,200 merged resources) materialised on the card through
+   :class:`repro_torch.TorchEngine`; its wall time is the end-to-end
    number.  Structural checks of the result; two more runs for the wall's
    spread and one under ``torch.profiler`` for the device's busy time; and
    the same run on the CPU (the kernels' plain versions) must give the same
-   triples, rho and counters.
+   triples, rho and counters;
+6. LM serving at full width: SmolLM-135M (random weights from seed 0) with
+   the flash kernel behind ``ServeEngine`` (16 slots, 1024 rows) answers 64
+   requests of 32-512 prompt tokens and 32 new tokens; wall, tokens per
+   second, peak memory, then a profiled rerun for the device's and the flash
+   kernel's share; the card's teacher-forced logits of two requests equal
+   the CPU's within a stated tolerance;
+7. FM serving at full scale: the Criteo-scale FM (33,763,328 table rows)
+   with the FM kernel serves a batch of 512 and one of 262,144 through a
+   rho made by the port's union-find from seeded merge pairs; merged IDs
+   score the same, and the card equals the CPU at batch 512.
 
+Each path's launch counters are set to 0 just before its run and read just
+after.
 Then one JSON line ``{"kernels": [...]}`` and, last, the device line.  The
 full record goes to ``chiprun_out/chip_smoke.json``.
 """
@@ -37,19 +49,25 @@ import sys
 import time
 from pathlib import Path
 
+import dataclasses
+
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 SCALAR_OPS_PER_S = 67e12   # H100 SXM non-tensor FP32 rate, the ALU stand-in
+BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
 KEY_MAX = (1 << 63) - 1
 FULL = dict(n_groups=51600, n_plain=1470000)  # OpenCyc: 2.4 M triples
 FULL_MERGED = 7 * 51600  # group_size 8: seven merges per group
 FULL_RESOURCES = 971865  # resources of that profile at that scale
 FULL_CAP = 1 << 22
+REW_KERNELS = ("dedup_order", "search_bounds", "rewrite_triples", "uf_compress",
+               "uf_hook")
 
 
 def card_line() -> str:
@@ -88,9 +106,10 @@ def max_err(a, b) -> float:
     return float((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
 
-def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def bound(n_bytes: float, n_ops: float,
+          ops_per_s: float = SCALAR_OPS_PER_S) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / SCALAR_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -103,6 +122,26 @@ def packed_keys(gen, n: int, n_ids: int, dev) -> torch.Tensor:
     return (spo[:, 0] << 42) | (spo[:, 1] << 21) | spo[:, 2]
 
 
+def recorder(records: dict):
+    """``record(...)``: print one kernel measurement, fail if the kernel
+    and its plain version differ by more than ``tol``, and keep it."""
+    def record(name, shape, err, ms, plain_ms, lib_ms, n_bytes, n_ops,
+               main=False, tol=0.0, ops_per_s=SCALAR_OPS_PER_S):
+        b_ms, b_by = bound(n_bytes, n_ops, ops_per_s)
+        lib = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
+        print(f"  {name} {shape}{' [main path]' if main else ''}: max_abs_err "
+              f"{err} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+              f"{lib}, bound {b_ms:.4f} ms ({b_by})", flush=True)
+        if not err <= tol:
+            raise AssertionError(f"{name} {shape} differs from its plain version "
+                                 f"by {err} > {tol}")
+        records.setdefault(name, []).append(dict(
+            shape=shape, main_path=main, max_abs_err=err, tol=tol, ms=ms,
+            plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+        ))
+    return record
+
+
 def kernel_phase(ops, ref, records: dict, dev) -> None:
     """Each kernel against its plain version, at the issue's shapes and at
     the shapes the full-size main path gives it (``main=True``: the stream
@@ -112,19 +151,7 @@ def kernel_phase(ops, ref, records: dict, dev) -> None:
 
     gen = torch.Generator(device=dev).manual_seed(0)
 
-    def record(name, shape, err, ms, plain_ms, lib_ms, n_bytes, n_ops,
-               main=False):
-        b_ms, b_by = bound(n_bytes, n_ops)
-        lib = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
-        print(f"  {name} {shape}{' [main path]' if main else ''}: max_abs_err "
-              f"{err} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-              f"{lib}, bound {b_ms:.4f} ms ({b_by})", flush=True)
-        if err != 0:
-            raise AssertionError(f"{name} {shape} differs from its plain version")
-        records.setdefault(name, []).append(dict(
-            shape=shape, main_path=main, max_abs_err=err, ms=ms,
-            plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-        ))
+    record = recorder(records)
 
     # 1. stable dedup order: packed keys, duplicates, KEY_MAX tail
     stream = 4 * (FULL_CAP + FULL_CAP) + 1
@@ -253,6 +280,295 @@ def kernel_phase(ops, ref, records: dict, dev) -> None:
                None, 17 * m + 4 * V + 4 * n_hooked, 4 * m, main=main)
 
 
+def float_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    if a.shape != b.shape or a.dtype != b.dtype:
+        raise AssertionError(f"{a.shape} {a.dtype} != {b.shape} {b.dtype}")
+    return float((a.float() - b.float()).abs().max())
+
+
+FLASH_TOL = 2e-2   # bf16 outputs of magnitude < 4: one rounding apart at most
+FM_TOL_REL = 1e-5  # f32 sums in another order
+
+
+def serving_kernel_phase(ops, ref, records: dict, dev) -> None:
+    """Flash attention at SmolLM-135M's heads (9 over 3 KV heads, D 64,
+    bf16): the server's prefill of 512 tokens (the main path's shape: the
+    server prefills each request alone), a prefill of 32,768 tokens
+    (``prefill_32k``'s length) and a decode step of 16 rows against a
+    1,024-row cache at q_offset 700; the FM interaction at the FM's
+    ``serve_p99`` and ``serve_bulk`` batches (39 fields, K 10, f32)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    record = recorder(records)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    h, kv, d = 9, 3, 64
+    for b, s, t, off, label, main in (
+        (1, 512, 512, 0, "prefill (1, 512, 9/3, 64)", True),
+        (1, 32768, 32768, 0, "prefill (1, 32768, 9/3, 64)", False),
+        (16, 1, 1024, 700, "decode (16, 1, T 1024, 9/3, 64) at q_offset 700", False),
+    ):
+        q = torch.randn(b, s, h, d, generator=gen, device=dev).to(torch.bfloat16)
+        k = torch.randn(b, t, kv, d, generator=gen, device=dev).to(torch.bfloat16)
+        v = torch.randn(b, t, kv, d, generator=gen, device=dev).to(torch.bfloat16)
+        err = float_err(ops.flash_attention(q, k, v, q_offset=off),
+                        ref.flash_attention(q, k, v, q_offset=off))
+        lib_ms = None
+        if off == 0:  # SDPA's causal mask is aligned top-left: offset 0 only
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                              SDPBackend.EFFICIENT_ATTENTION]):
+                lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True))
+        # admitted keys per query: min(T, q_offset + i + 1); the bytes are
+        # q and out once and the K/V rows the mask admits once
+        keys = sum(min(t, off + i + 1) for i in range(s))
+        need = min(t, off + s)
+        n_bytes = 2 * (2 * b * s * h * d + 2 * b * need * kv * d)
+        record("flash_attention", label, err,
+               time_ms(lambda: ops.flash_attention(q, k, v, q_offset=off)),
+               time_ms(lambda: ref.flash_attention(q, k, v, q_offset=off)),
+               lib_ms, n_bytes, 4 * d * h * b * keys, main=main, tol=FLASH_TOL,
+               ops_per_s=BF16_FLOPS_PER_S)
+        del q, k, v
+    for b, label, main in ((512, "serve_p99 (512, 39, 10)", False),
+                           (262_144, "serve_bulk (262144, 39, 10)", True)):
+        x = torch.randn(b, 39, 10, generator=gen, device=dev) * 0.5
+        want = ref.fm_interact(x)
+        err = float_err(ops.fm_interact(x), want)
+        record("fm_interact", label, err,
+               time_ms(lambda: ops.fm_interact(x)),
+               time_ms(lambda: ref.fm_interact(x)),
+               None, 4 * b * 390 + 4 * b, 3 * b * 390, main=main,
+               tol=FM_TOL_REL * max(1.0, float(want.abs().max())))
+
+
+LM_REQUESTS, LM_SLOTS, LM_MAX_LEN, LM_NEW = 64, 16, 1024, 32
+LM_LOGIT_TOL = 0.25  # bf16 logits below 8 after 30 bf16 layers: 8 units in the last place
+
+
+def _tree_to(tree: dict, dev) -> dict:
+    return {k: _tree_to(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}
+
+
+def _teacher_forced_logits(lm, params, cfg, req) -> torch.Tensor:
+    """Prefill the prompt, then feed the request's own generated tokens one
+    decode step at a time (scalar positions: the flash kernel on the card);
+    the logits of every step, f32 on the host."""
+    dev = params["embed"].device
+    logits, cache = lm.prefill(params, cfg, torch.tensor([req.prompt], device=dev))
+    plen = len(req.prompt)
+    arena = lm.init_cache(cfg, 1, plen + len(req.out), device=dev)
+    for key in arena:
+        arena[key][:, :, :plen] = cache[key]
+    out = [logits[0, -1].float().cpu()]
+    for i, tok in enumerate(req.out[:-1]):
+        logits, arena = lm.decode_step(params, cfg, arena,
+                                       torch.tensor([tok], device=dev), plen + i)
+        out.append(logits[0].float().cpu())
+    return torch.stack(out)
+
+
+def lm_serving_phase(ops, records: dict) -> int:
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as lm
+    from repro_torch.serve import Request, ServeEngine
+
+    cfg = dataclasses.replace(get_arch("smollm-135m").config, attn_impl="flash")
+    params = lm.init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    n_params = sum(t.numel() for t in [params["embed"], params["final_norm"],
+                                       *params["layers"].values()])
+    if n_params != cfg.param_count():
+        raise AssertionError(f"{n_params} parameters, want {cfg.param_count()}")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(2, cfg.vocab, int(n)).tolist()
+               for n in rng.integers(32, 513, LM_REQUESTS)]
+
+    def serve(n_requests: int):
+        eng = ServeEngine(params, cfg, n_slots=LM_SLOTS, max_len=LM_MAX_LEN, eos_id=-1)
+        for i, p in enumerate(prompts[:n_requests]):
+            eng.submit(Request(uid=i, prompt=p, max_new=LM_NEW))
+        return eng
+
+    warm = serve(2)  # first-call costs (cuBLAS handles, the kernel's module)
+    warm.run()
+    torch.cuda.synchronize()
+    del warm
+    eng = serve(LM_REQUESTS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    if sorted(r.uid for r in done) != list(range(LM_REQUESTS)):
+        raise AssertionError("not every request finished")
+    if any(len(r.out) != LM_NEW for r in done):
+        raise AssertionError("a request stopped short of max_new")
+    if any(not 0 <= t < cfg.vocab for r in done for t in r.out):
+        raise AssertionError("a token outside the vocabulary")
+    if launches["flash_attention"] != LM_REQUESTS * cfg.n_layers:
+        raise AssertionError(f"flash launches {launches['flash_attention']}, want "
+                             f"{LM_REQUESTS * cfg.n_layers}")
+    st = eng.stats
+    outs = {r.uid: r.out for r in done}
+
+    # the first wave of the traffic (one request per slot) again, under
+    # torch.profiler, for the device's busy share and the flash kernel's
+    again = serve(LM_SLOTS)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        again_done = again.run()
+        torch.cuda.synchronize()
+        profiled_wall = time.perf_counter() - t0
+    busy = device_time(prof, profiled_wall)
+    if busy["busy_ms"] <= 0:
+        raise AssertionError("torch.profiler saw no device time")
+    flash_ms = busy["port_kernels_ms"].get("flash_attention", 0.0)
+    busy["flash_share_of_wall"] = flash_ms / 1e3 / profiled_wall
+    busy["flash_share_of_busy"] = flash_ms / busy["busy_ms"]
+    same_tokens = all(outs[r.uid] == r.out for r in again_done)
+
+    # card against CPU: teacher-forced logits of the shortest and the longest
+    # request
+    by_len = sorted(done, key=lambda r: len(r.prompt))
+    cpu_params = _tree_to(params, "cpu")
+    t0 = time.perf_counter()
+    errs = []
+    for req in (by_len[0], by_len[-1]):
+        card = _teacher_forced_logits(lm, params, cfg, req)
+        host = _teacher_forced_logits(lm, cpu_params, cfg, req)
+        errs.append(float((card - host).abs().max()))
+        if not errs[-1] <= LM_LOGIT_TOL:
+            raise AssertionError(f"request {req.uid}: card and CPU logits differ by "
+                                 f"{errs[-1]} > {LM_LOGIT_TOL}")
+        if not torch.isfinite(card).all():
+            raise AssertionError("non-finite logits")
+    cpu_s = time.perf_counter() - t0
+    gen_tokens = LM_REQUESTS * LM_NEW
+    out = dict(
+        config=cfg.name, params=n_params, requests=LM_REQUESTS, slots=LM_SLOTS,
+        max_len=LM_MAX_LEN, max_new=LM_NEW,
+        prompt_tokens=st.prefill_tokens, wall_s=wall,
+        generated_tokens_per_s=gen_tokens / wall,
+        prefill_s=st.prefill_seconds,
+        prefill_tokens_per_s=st.prefill_tokens / st.prefill_seconds,
+        decode_steps=st.decode_steps, decode_tokens=st.decode_tokens,
+        decode_s=st.decode_seconds,
+        decode_tokens_per_s=st.decode_tokens / st.decode_seconds,
+        arena_bytes=sum(t.numel() * t.element_size() for t in eng.cache.values()),
+        max_memory_allocated=peak, launches=launches,
+        profiled_requests=LM_SLOTS, profiled_wall_s=profiled_wall,
+        profiled_same_tokens=same_tokens,
+        device_time=busy,
+        teacher_forced=dict(uids=[by_len[0].uid, by_len[-1].uid],
+                            prompt_lens=[len(by_len[0].prompt), len(by_len[-1].prompt)],
+                            max_abs_err=errs, tol=LM_LOGIT_TOL, cpu_s=cpu_s),
+    )
+    print(f"  {json.dumps(out)}", flush=True)
+    records["lm_serving"] = out
+    return launches["flash_attention"]
+
+
+FM_MERGE_PAIRS = 1 << 20
+
+
+def fm_serving_phase(ops, records: dict) -> int:
+    from repro_torch.configs import get_arch
+    from repro_torch.core.uf import merge_pairs
+    from repro_torch.models import recsys
+
+    spec = get_arch("fm")
+    cfg = dataclasses.replace(spec.config, use_pallas=True)
+    rpf = cfg.rows_per_field
+    params = recsys.init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    table_bytes = params["table"].numel() * 4
+    rng = np.random.default_rng(0)
+    field = rng.integers(0, cfg.n_fields, FM_MERGE_PAIRS)
+    a, b = rng.integers(0, rpf, (2, FM_MERGE_PAIRS)) + field * rpf
+    pairs = torch.from_numpy(np.stack([a, b], axis=1).astype(np.int32)).cuda()
+    rep = torch.arange(cfg.n_rows, dtype=torch.int32, device="cuda")
+    t0 = time.perf_counter()
+    rho = merge_pairs(rep, pairs, torch.ones(FM_MERGE_PAIRS, dtype=torch.bool,
+                                             device="cuda"))
+    torch.cuda.synchronize()
+    merge_s = time.perf_counter() - t0
+    merged = rho != rep
+    n_merged = int(merged.sum())
+    if not torch.equal(rho[rho.long()], rho) or not (rho <= rep).all():
+        raise AssertionError("rho is not a compressed min-representative map")
+    if not torch.equal(rho.long() // rpf, rep.long() // rpf):
+        raise AssertionError("rho merges rows of two fields")
+
+    batches = {}
+    for name in ("serve_p99", "serve_bulk"):
+        n = spec.shape(name).dims["batch"]
+        ids = rng.integers(0, rpf, (n, cfg.n_fields)).astype(np.int32)
+        batches[name] = {"ids": torch.from_numpy(ids).cuda(), "rho": rho}
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    scores, times = {}, {}
+    for name, batch in batches.items():
+        recsys.serve_step(params, cfg, batch)  # warm-up, outside the times
+        walls = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            scores[name] = recsys.serve_step(params, cfg, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        times[name] = walls
+    launches = dict(ops.LAUNCHES)
+    if launches["fm_interact"] != 12:
+        raise AssertionError(f"fm_interact launches {launches['fm_interact']}, want 12")
+    for name, sc in scores.items():
+        n = batches[name]["ids"].shape[0]
+        if sc.shape != (n,) or not torch.isfinite(sc).all() or \
+                not ((sc > 0) & (sc < 1)).all():
+            raise AssertionError(f"{name}: scores out of (0, 1) or misshaped")
+
+    # merged IDs score the same: members of merged cliques against their
+    # representatives, one member per row in a seeded batch
+    merged_ids = torch.nonzero(merged).flatten()
+    pick = torch.randperm(merged_ids.numel(), device="cuda",
+                          generator=torch.Generator(device="cuda").manual_seed(1))
+    members = merged_ids[pick[:512]]
+    ids = batches["serve_p99"]["ids"][:members.numel()].clone()
+    rep_ids = ids.clone()
+    rows = torch.arange(members.numel(), device="cuda")
+    field = members // rpf
+    ids[rows, field] = (members % rpf).to(torch.int32)
+    rep_ids[rows, field] = (rho[members].long() % rpf).to(torch.int32)
+    sa = recsys.serve_step(params, cfg, {"ids": ids, "rho": rho})
+    sb = recsys.serve_step(params, cfg, {"ids": rep_ids, "rho": rho})
+    if not torch.equal(sa, sb):
+        raise AssertionError("merged IDs score differently from their representatives")
+
+    # card against CPU at batch 512
+    t0 = time.perf_counter()
+    cpu_params = _tree_to(params, "cpu")
+    host = recsys.serve_step(cpu_params, cfg, _tree_to(batches["serve_p99"], "cpu"))
+    cpu_s = time.perf_counter() - t0
+    err = float((scores["serve_p99"].cpu() - host).abs().max())
+    if not torch.allclose(scores["serve_p99"].cpu(), host, rtol=1e-5, atol=1e-6):
+        raise AssertionError(f"FM: card and CPU differ by {err}")
+    out = dict(
+        config=cfg.name, n_rows=cfg.n_rows, table_bytes=table_bytes,
+        merge_pairs=FM_MERGE_PAIRS, merged_rows=n_merged, merge_s=merge_s,
+        serve_wall_s={k: statistics.median(v) for k, v in times.items()},
+        serve_walls_s=times,
+        rows_per_s={k: batches[k]["ids"].shape[0] / statistics.median(v)
+                    for k, v in times.items()},
+        launches=launches, merged_checked=int(members.numel()),
+        card_vs_cpu_max_abs_err=err, cpu_s=cpu_s,
+    )
+    print(f"  {json.dumps(out)}", flush=True)
+    records["fm_serving"] = out
+    return launches["fm_interact"]
+
+
 def result_of(engine_cls, profile: dict, device: str):
     from repro_torch.core.triples import pack
     from repro_torch.data.generator import generate
@@ -332,7 +648,7 @@ def fullsize_phase(ops, records: dict) -> dict:
     problems = index_invariant_report(state)
     if problems:
         raise AssertionError(f"index invariant: {problems}")
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in REW_KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
     del state
@@ -395,6 +711,7 @@ KERNEL_OF = {
     "search_kernel": "search_bounds", "rewrite_kernel": "rewrite_triples",
     "halve_kernel": "uf_compress", "finish_kernel": "uf_compress",
     "refresh_kernel": "uf_hook", "link_kernel": "uf_hook",
+    "flash_kernel": "flash_attention", "fm_kernel": "fm_interact",
 }
 
 
@@ -426,6 +743,9 @@ SOURCES = {  # kernel -> (source, TPU kernel it replaces)
                         "src/repro/kernels/rewrite_triples.py:45"),
     "uf_compress": ("union_find.cu", "src/repro/kernels/pointer_jump.py:47"),
     "uf_hook": ("union_find.cu", "src/repro/kernels/pointer_jump.py:47"),
+    "flash_attention": ("flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:90"),
+    "fm_interact": ("fm_interact.cu", "src/repro/kernels/fm_interact.py:27"),
 }
 
 
@@ -437,6 +757,9 @@ def main() -> None:
 
     card = card_line()
     print(card, flush=True)
+    # the plain versions' f32 products in full f32, not TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     records: dict = {"card": card, "torch": torch.__version__,
                      "cuda": torch.version.cuda}
@@ -449,17 +772,30 @@ def main() -> None:
     print(f"  built {built['built']} in {built['seconds']:.1f} s", flush=True)
     records["build_s"] = built["seconds"]
 
-    print("kernels (kernel == plain version on the card):", flush=True)
+    t_start = time.perf_counter()
+
+    def phase(title: str) -> None:
+        print(f"{title} [{time.perf_counter() - t_start:.0f} s]", flush=True)
+
+    phase("kernels (kernel == plain version on the card):")
     kernel_records: dict = {}
     kernel_phase(ops, ref, kernel_records, "cuda")
+    serving_kernel_phase(ops, ref, kernel_records, "cuda")
     records["kernels"] = kernel_records
 
-    print("mid-size (cuda == cpu):", flush=True)
+    phase("mid-size (cuda == cpu):")
     midsize_phase(records)
 
-    print("full size (main path):", flush=True)
+    phase("REW at full size (main path):")
     launches = fullsize_phase(ops, records)
 
+    phase("LM serving at full width (SmolLM-135M, flash):")
+    launches["flash_attention"] = lm_serving_phase(ops, records)
+
+    phase("FM serving at full scale (Criteo-scale FM, rho):")
+    launches["fm_interact"] = fm_serving_phase(ops, records)
+
+    phase("done:")
     line = []
     for name, (source, replaces) in SOURCES.items():
         r = next(e for e in kernel_records[name] if e["main_path"])

@@ -2,9 +2,11 @@
 
 ``repro_torch`` sits beside the JAX package ``repro``, which stays the
 reference.  It imports ``torch`` and numpy, never ``jax`` and nothing of
-``repro``.  This slice ports the REW base materialisation
-(:class:`repro_torch.core.engine.TorchEngine`) with hand-written CUDA
-kernels for Hopper (:mod:`repro_torch.kernels`).
+``repro``.  Ported so far, with hand-written CUDA kernels for Hopper
+(:mod:`repro_torch.kernels`): the REW base materialisation
+(:class:`repro_torch.core.engine.TorchEngine`), LM serving
+(:mod:`repro_torch.serve`, :mod:`repro_torch.models.transformer`) and FM
+serving (:mod:`repro_torch.models.recsys`).
 """
 
 from repro_torch.core.engine import CapacityError, Contradiction, TorchEngine

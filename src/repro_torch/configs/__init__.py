@@ -1,0 +1,40 @@
+"""Architecture registry of the port: ``get_arch(name)`` returns the
+ArchSpec of a ported architecture.
+
+The reference (``repro.configs``) registers eleven; the port has the two
+whose model code it carries.  Any other name raises ``KeyError`` naming the
+ROADMAP item that ports it.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+from .base import ArchSpec
+
+_ALIASES = {
+    "qwen3-moe-235b-a22b": "qwen3_moe_235b",
+    "deepseek-moe-16b": "deepseek_moe_16b",
+    "qwen2-1.5b": "qwen2_1p5b",
+    "smollm-135m": "smollm_135m",
+    "starcoder2-15b": "starcoder2_15b",
+}
+_PORTED = ("smollm_135m", "fm")
+_MOE = "ROADMAP Queue 1 item 8b (MoE: models/moe.py)"
+_GNN = "ROADMAP Queue 1 item 8c (GNNs)"
+_DENSE = "ROADMAP Queue 1 item 8e (the other dense LM configs)"
+_LATER = {
+    "qwen3_moe_235b": _MOE, "deepseek_moe_16b": _MOE,
+    "qwen2_1p5b": _DENSE, "starcoder2_15b": _DENSE,
+    "dimenet": _GNN, "egnn": _GNN, "gatedgcn": _GNN, "pna": _GNN,
+    "sameas_rew": "ROADMAP Queue 1 item 7 (tooling: the engine's cells); "
+                  "the engine itself is repro_torch.TorchEngine",
+}
+
+
+def get_arch(name: str) -> ArchSpec:
+    module = _ALIASES.get(name, name.replace("-", "_").replace(".", "p"))
+    if module not in _PORTED:
+        where = _LATER.get(module, "no ROADMAP item: the reference has no such arch")
+        raise KeyError(f"{name!r} is not ported yet: {where}")
+    return importlib.import_module(f"repro_torch.configs.{module}").SPEC

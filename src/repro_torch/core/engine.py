@@ -38,6 +38,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from repro_torch.device import resolve
 from repro_torch.kernels import ops
 from repro_torch.kernels.merge import merge_sorted
 
@@ -588,14 +589,7 @@ class TorchEngine:
         delta_window: int = 4096,
         device: str | torch.device = "cuda",
     ) -> None:
-        device = torch.device(device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "TorchEngine: no CUDA device; pass device='cpu' to run on the CPU"
-            )
-        if device.type not in ("cuda", "cpu"):
-            raise ValueError(f"TorchEngine runs on cuda or cpu, not {device}")
-        self.device = device
+        self.device = resolve(device, "TorchEngine")
         self.n_resources = n_resources
         self.capacity = capacity
         self.bind_cap = bind_cap

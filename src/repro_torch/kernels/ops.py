@@ -1,11 +1,13 @@
 """Dispatchers for the hand-written kernels.
 
-Every function checks its tensors (device, dtype, shape, contiguity) and
-then runs the CUDA kernel for tensors on the card or the plain version
-(:mod:`repro_torch.kernels.ref`) for tensors on the CPU.  There is no other
-route: a CUDA tensor gets the kernel or an exception, never the plain
-version.  ``LAUNCHES`` counts, per kernel, the calls that launched it on the
-card — the proof that a run went through the kernels.
+Every function checks its tensors (device, dtype, shape, contiguity or
+strides) and then runs the CUDA kernel for tensors on the card or the plain
+version (:mod:`repro_torch.kernels.ref`) for tensors on the CPU.  There is
+no other route: a CUDA tensor gets the kernel or an exception, never the
+plain version.  ``LAUNCHES`` counts, per kernel, the calls that launched it
+on the card — the proof that a run went through the kernels.  The kernels
+serve three paths: REW materialisation (dedup, search, rewrite, union-find),
+LM serving (flash attention) and FM serving (the FM interaction).
 
 Kernel launches use PyTorch's current stream, allocate nothing inside the
 kernel (outputs and scratch come from ``torch.empty`` here) and never
@@ -22,7 +24,7 @@ from . import ref
 from ._build import library
 
 KERNELS = ("dedup_order", "search_bounds", "rewrite_triples",
-           "uf_compress", "uf_hook")
+           "uf_compress", "uf_hook", "flash_attention", "fm_interact")
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 _P = ctypes.c_void_p
@@ -38,10 +40,17 @@ _ENTRIES = {
                         (_P, _N, _P, _N, _P, _P, _P, _P, _P)),
     "uf_compress": ("union_find", "uf_compress", (_P, _N)),
     "uf_hook": ("union_find", "uf_hook", (_P, _N, _P, _P, _P, _N, _P)),
+    "flash_attention": ("flash_attention", "flash_attention",
+                        (_P, _P, _P, _P, _N, _N, _N, _N, _N, _N, _N, _N, _N,
+                         _N, _N, _N, _N, _N, ctypes.c_int, _N, ctypes.c_float,
+                         ctypes.c_int, ctypes.c_int)),
+    "fm_interact": ("fm_interact", "fm_interact",
+                    (_P, _P, _N, ctypes.c_int, ctypes.c_int, ctypes.c_int)),
 }
 
 
 def reset_launches() -> None:
+    """Set every kernel's launch count to 0 (all three paths)."""
     for k in LAUNCHES:
         LAUNCHES[k] = 0
 
@@ -213,3 +222,72 @@ def uf_hook_(rep: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     _launch("uf_hook", rep.device, rep.data_ptr(), rep.shape[0], a.data_ptr(),
             b.data_ptr(), valid.data_ptr(), a.shape[0], flag.data_ptr())
     return flag
+
+
+FLASH_HEAD_DIMS = (64, 128)
+_FLOATS = (torch.float32, torch.bfloat16)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, q_offset: int = 0) -> torch.Tensor:
+    """GQA attention forward: q (B,S,H,D), k/v (B,T,KV,D) -> (B,S,H,D) in
+    q's dtype (f32 or bf16), f32 math; query head h reads KV head
+    h // (H/KV); causal masks key j for query i where q_offset + i < j.
+
+    The kernel reads the tensors in place through their strides (a layer
+    of the KV arena needs no copy); it wants the last dimension contiguous,
+    16-byte aligned rows and D in ``FLASH_HEAD_DIMS``.
+    """
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dim() != 4 or t.dtype not in _FLOATS:
+            raise TypeError(f"{name}: want a 4-d float32 or bfloat16 tensor, "
+                            f"got {t.dim()}-d {t.dtype}")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise TypeError(f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
+    b, s, h, d = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if kv == 0 or h % kv:
+        raise ValueError(f"{h} query heads do not divide into {kv} KV heads")
+    q_offset = int(q_offset)
+    if q_offset < 0:
+        raise ValueError(f"q_offset must be >= 0, got {q_offset}")
+    if not _on_card(q, k, v):
+        return ref.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+    if d not in FLASH_HEAD_DIMS:
+        raise ValueError(f"flash kernel: head dim {d} not in {FLASH_HEAD_DIMS}")
+    vec = 16 // q.element_size()
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.stride(3) != 1 or any(st % vec for st in x.stride()[:3]) \
+                or x.data_ptr() % 16:
+            raise ValueError(f"flash kernel: {name} needs a contiguous last "
+                             "dimension and 16-byte aligned rows")
+    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    if out.numel() == 0 or t == 0:
+        return out.zero_()
+    _launch("flash_attention", q.device, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), out.data_ptr(), b, s, t, h, kv,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            int(causal), q_offset, 1.0 / d**0.5, d,
+            int(q.dtype == torch.bfloat16))
+    return out
+
+
+def fm_interact(x: torch.Tensor) -> torch.Tensor:
+    """FM second-order term: (B, F, K) field embeddings -> (B,) as
+    ``0.5 * sum_k((sum_f x)^2 - sum_f x^2)``, f32 math, x's dtype."""
+    if x.dim() != 3 or x.dtype not in _FLOATS:
+        raise TypeError(f"x: want a 3-d float32 or bfloat16 tensor, "
+                        f"got {x.dim()}-d {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+    if not _on_card(x):
+        return ref.fm_interact(x)
+    b, f, k = x.shape
+    out = torch.empty(b, dtype=x.dtype, device=x.device)
+    if b == 0:
+        return out
+    _launch("fm_interact", x.device, x.data_ptr(), out.data_ptr(), b, f, k,
+            int(x.dtype == torch.bfloat16))
+    return out

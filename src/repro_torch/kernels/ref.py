@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 MAX_ID = (1 << 21) - 1
+NEG_INF = -1e30
 
 
 def dedup_order(keys: torch.Tensor) -> torch.Tensor:
@@ -84,3 +85,44 @@ def uf_hook_(rep, a, b, valid) -> torch.Tensor:
     val = torch.where(active, lo, rep[0])
     rep.scatter_reduce_(0, tgt, val, "amin", include_self=True)
     return active.any().to(torch.int32).reshape(1)
+
+
+def flash_attention(q, k, v, causal: bool = True, q_offset: int = 0):
+    """GQA attention forward, q (B,S,H,D) and k/v (B,T,KV,D) -> (B,S,H,D).
+
+    Query head h reads KV head h // (H/KV).  Scores in f32 from the inputs
+    cast to f32, scaled by 1/sqrt(D), masked with -1e30 where causal and
+    q_offset + i < j; the softmax in f32, ``acc / max(l, 1e-30)``, cast to
+    q's dtype.  Query rows go in blocks of about 2^26 scores, so a 32k
+    prefill never holds its whole (S, T) score matrix.
+    """
+    b, s, h, d = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    scale = 1.0 / d**0.5
+    kf, vf = k.float(), v.float()
+    k_pos = torch.arange(t, device=q.device)
+    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    step = max(1, (1 << 26) // (b * h * t))
+    for s0 in range(0, s, step):
+        qf = q[:, s0:s0 + step].float()
+        n = qf.shape[1]
+        scores = torch.einsum("bskgd,btkd->bkgst", qf.reshape(b, n, kv, g, d), kf)
+        scores = scores * scale
+        if causal:
+            q_pos = q_offset + s0 + torch.arange(n, device=q.device)
+            scores = torch.where(q_pos[:, None] >= k_pos[None, :], scores, NEG_INF)
+        p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+        l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)  # (b, kv, g, n, 1)
+        o = torch.einsum("bkgst,btkd->bskgd", p, vf) / l.permute(0, 3, 1, 2, 4)
+        out[:, s0:s0 + n] = o.reshape(b, n, h, d).to(q.dtype)
+    return out
+
+
+def fm_interact(x: torch.Tensor) -> torch.Tensor:
+    """(B, F, K) -> (B,): ``0.5 * sum_k((sum_f x)^2 - sum_f x^2)`` in f32,
+    cast to x's dtype."""
+    xf = x.float()
+    s = xf.sum(dim=1)
+    sq = (xf * xf).sum(dim=1)
+    return (0.5 * (s * s - sq).sum(dim=1)).to(x.dtype)

@@ -1,0 +1,98 @@
+"""Factorisation Machine (Rendle, ICDM'10) over one large embedding arena.
+
+The port of ``repro.models.recsys`` for serving.  Lookups gather rows of
+one table (per-field offsets into the arena); the pairwise interaction uses
+the O(F*K) sum-square trick, through the ``fm_interact`` kernel when
+``use_pallas`` is set (the field keeps the reference's name so that configs
+carry over; here it means the hand-written CUDA kernel).
+
+owl:sameAs integration: an optional ``rho`` row remap unifies equivalent
+IDs (merged user/item registrations) before lookup — one extra gather,
+after which merged IDs share one embedding row.
+
+Everything runs where the parameters lie.  ``loss_fn`` waits for the
+training slice and ``param_shardings`` for the multi-GPU slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.device import resolve
+from repro_torch.kernels import ops
+from repro_torch.models.transformer import params_from_numpy
+
+__all__ = ["FMConfig", "forward", "init_params", "params_from_numpy",
+           "retrieval_scores", "serve_step"]
+
+
+@dataclasses.dataclass(frozen=True)
+class FMConfig:
+    name: str = "fm"
+    n_fields: int = 39
+    embed_dim: int = 10
+    rows_per_field: int = 865_707  # ~33.8M total rows, Criteo-scale
+    use_pallas: bool = False  # True: the fm_interact kernel
+
+    @property
+    def n_rows(self) -> int:
+        # padded to a multiple of 2048, as the reference pads its
+        # row-sharded table
+        raw = self.n_fields * self.rows_per_field
+        return (raw + 2047) // 2048 * 2048
+
+    def param_count(self) -> int:
+        return self.n_rows * (self.embed_dim + 1) + 1
+
+
+def init_params(gen: torch.Generator, cfg: FMConfig,
+                device: str | torch.device = "cuda") -> dict:
+    """Table rows normal * 0.01 drawn from ``gen`` (on its own device),
+    zero first-order weights and bias, all f32 on ``device``."""
+    device = resolve(device, "init_params")
+    table = torch.randn((cfg.n_rows, cfg.embed_dim), generator=gen,
+                        device=gen.device, dtype=torch.float32) * 0.01
+    return {
+        "table": table.to(device),
+        "w1": torch.zeros((cfg.n_rows,), dtype=torch.float32, device=device),
+        "bias": torch.zeros((), dtype=torch.float32, device=device),
+    }
+
+
+def _row_ids(cfg: FMConfig, ids: torch.Tensor) -> torch.Tensor:
+    offsets = torch.arange(cfg.n_fields, dtype=torch.int32, device=ids.device)
+    return ids.to(torch.int32) + offsets[None, :] * cfg.rows_per_field
+
+
+def forward(params, cfg: FMConfig, batch: dict) -> torch.Tensor:
+    """batch: ids (B, F) int per-field categorical IDs; optional rho row
+    remap (n_rows,) from the sameAs engine.  Returns logits (B,)."""
+    rows = _row_ids(cfg, batch["ids"]).to(torch.int64)
+    rho = batch.get("rho")
+    if rho is not None:
+        rows = rho[rows].to(torch.int64)  # ID unification via the representative map
+    emb = params["table"][rows]  # (B, F, K)
+    if cfg.use_pallas:
+        second = ops.fm_interact(emb)
+    else:
+        s = emb.sum(dim=1)
+        second = 0.5 * ((s * s) - (emb * emb).sum(dim=1)).sum(dim=-1)
+    first = params["w1"][rows].sum(dim=1)
+    return params["bias"] + first + second
+
+
+def serve_step(params, cfg: FMConfig, batch: dict) -> torch.Tensor:
+    return torch.sigmoid(forward(params, cfg, batch))
+
+
+def retrieval_scores(params, cfg: FMConfig, user_ids: torch.Tensor,
+                     cand_rows: torch.Tensor) -> torch.Tensor:
+    """Score one user's field-bag embedding against N candidate rows:
+    batched dot, not a loop (the ``retrieval_cand`` shape)."""
+    rows = _row_ids(cfg, user_ids).to(torch.int64)  # (1, F)
+    q = params["table"][rows[0]].sum(dim=0)  # (K,)
+    cand_rows = cand_rows.to(torch.int64)
+    cand = params["table"][cand_rows]  # (N, K)
+    return cand @ q + params["w1"][cand_rows]

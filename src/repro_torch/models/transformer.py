@@ -1,0 +1,273 @@
+"""Decoder-only LM, dense: GQA (+ optional QKV bias), RoPE, SwiGLU, tied
+embeddings.  The port of ``repro.models.transformer`` for serving:
+
+  * ``forward``     — full-sequence hidden states,
+  * ``prefill``     — full-sequence forward building a KV cache,
+  * ``decode_step`` — one new token against a static-size KV cache.
+
+Parameters keep the reference's pytree: ``{"embed", "final_norm",
+"layers": {name: (L, ...) stacked tensor}}``, so a reference checkpoint
+carries over through :func:`params_from_numpy`.  The layers run as a loop
+over the stacked tensors.  MoE configs, ``loss_fn`` and ``param_shardings``
+wait for later slices (ROADMAP Queue 1 item 8).
+
+Where the reference returns a fresh cache (JAX arrays are immutable),
+``decode_step`` and ``_layer`` write the new K/V into the given cache in
+place and return it: the arena is the largest tensor of a server.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve
+
+from .layers import DTYPE, apply_rope, gqa_attention, rms_norm, rope_angles, swiglu
+
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv: int
+    d_head: int
+    d_ff: int
+    vocab: int
+    qkv_bias: bool = False
+    rope_theta: float = 1e6
+    # MoE (0 experts = dense)
+    n_experts: int = 0
+    top_k: int = 0
+    n_shared: int = 0
+    d_expert: int = 0
+    capacity_factor: float = 1.25
+    attn_chunk: int = 1024
+    attn_impl: str = "xla_chunked"  # "flash" = the hand-written CUDA kernel
+    # training-side fields, kept so that the reference's configs carry over
+    remat: bool = True
+    remat_group: int = 1
+    n_token_shards: int = 1
+    dp_axes: tuple = ()
+    ep_axis: str | None = None
+    fsdp: bool = False
+
+    @property
+    def is_moe(self) -> bool:
+        return self.n_experts > 0
+
+    def param_count(self) -> int:
+        d, l = self.d_model, self.n_layers
+        attn = d * self.n_heads * self.d_head + 2 * d * self.n_kv * self.d_head
+        attn += self.n_heads * self.d_head * d
+        if self.is_moe:
+            ffn = 3 * d * self.d_expert * (self.n_experts + self.n_shared)
+            ffn += d * self.n_experts  # router
+        else:
+            ffn = 3 * d * self.d_ff
+        return l * (attn + ffn + 2 * d) + self.vocab * d + d
+
+
+def _dense_only(cfg: LMConfig) -> None:
+    if cfg.is_moe:
+        raise NotImplementedError(
+            f"{cfg.name} is a mixture of experts; the MoE layer (models/moe.py) "
+            "is not ported yet: ROADMAP Queue 1 item 8b"
+        )
+
+
+# ---------------------------------------------------------------------------
+# parameters
+# ---------------------------------------------------------------------------
+
+def init_params(gen: torch.Generator, cfg: LMConfig,
+                device: str | torch.device = "cuda") -> dict:
+    """Random weights drawn from ``gen`` (on its own device), placed on
+    ``device``: normal / sqrt(fan_in) in f32, stored in bf16; norms are
+    ones in f32.  The draws differ from ``jax.random``'s; tests carry the
+    reference's weights with :func:`params_from_numpy` instead."""
+    _dense_only(cfg)
+    device = resolve(device, "init_params")
+
+    def norm(shape, fan_in):
+        x = torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
+        return (x * fan_in**-0.5).to(DTYPE).to(device)
+
+    d, l = cfg.d_model, cfg.n_layers
+    hq, hkv = cfg.n_heads * cfg.d_head, cfg.n_kv * cfg.d_head
+    embed = norm((cfg.vocab, d), d)
+    layer = {
+        "attn_norm": torch.ones((l, d), dtype=torch.float32, device=device),
+        "wq": norm((l, d, hq), d),
+        "wk": norm((l, d, hkv), d),
+        "wv": norm((l, d, hkv), d),
+        "wo": norm((l, hq, d), hq),
+        "ffn_norm": torch.ones((l, d), dtype=torch.float32, device=device),
+    }
+    if cfg.qkv_bias:
+        layer["bq"] = torch.zeros((l, hq), dtype=DTYPE, device=device)
+        layer["bk"] = torch.zeros((l, hkv), dtype=DTYPE, device=device)
+        layer["bv"] = torch.zeros((l, hkv), dtype=DTYPE, device=device)
+    layer["w_gate"] = norm((l, d, cfg.d_ff), d)
+    layer["w_in"] = norm((l, d, cfg.d_ff), d)
+    layer["w_out"] = norm((l, cfg.d_ff, d), cfg.d_ff)
+    return {
+        "embed": embed,
+        "final_norm": torch.ones((d,), dtype=torch.float32, device=device),
+        "layers": layer,
+    }
+
+
+def params_from_numpy(tree, device: str | torch.device):
+    """The reference's parameter pytree, as numpy arrays
+    (``jax.tree.map(np.asarray, params)``), as the port's tensors on
+    ``device``.  bf16 arrays (numpy dtype ``bfloat16`` from ml_dtypes) pass
+    through their 16-bit pattern.  ``device`` has no default."""
+    device = resolve(device, "params_from_numpy")
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    arr = np.array(tree)  # a writable copy; torch.from_numpy needs one
+    if arr.dtype.name == "bfloat16":
+        t = torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(arr)
+    return t.to(device)
+
+
+def layer_params(params: dict, i: int) -> dict:
+    """Layer ``i``'s slice of the stacked layer tensors (views)."""
+    return {k: v[i] for k, v in params["layers"].items()}
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+def _write_cache(cache: torch.Tensor, new: torch.Tensor, q_offset) -> None:
+    """Write ``new`` (B, s, KV, Dh) into ``cache`` (B, T, KV, Dh) at
+    position ``q_offset`` (scalar, or (B,) per slot), in place.  Like
+    ``jax.lax.dynamic_update_slice``, the start is clamped to [0, T - s] so
+    that the update fits."""
+    b, s = new.shape[:2]
+    t = cache.shape[1]
+    new = new.to(cache.dtype)
+    if isinstance(q_offset, torch.Tensor) and q_offset.dim() >= 1:
+        start = q_offset.reshape(b).to(device=cache.device, dtype=torch.int64)
+        rows = start.clamp(0, t - s)[:, None] + torch.arange(s, device=cache.device)
+        cache[torch.arange(b, device=cache.device)[:, None], rows] = new
+    else:
+        start = min(max(int(q_offset), 0), t - s)
+        cache[:, start:start + s] = new
+
+
+def _layer(cfg: LMConfig, x, lp, cos, sin, q_offset, k_cache=None, v_cache=None):
+    """One decoder block.  If k_cache/v_cache (B,T,KV,Dh) are given, the new
+    K/V are written into them at ``q_offset`` first (in place) and
+    attention runs over the whole (masked) cache; returns (x', aux,
+    (k_out, v_out)) where k_out is the updated cache (or the fresh K/V when
+    no cache)."""
+    b, s, d = x.shape
+    h = rms_norm(x, lp["attn_norm"])
+    q = h @ lp["wq"].to(h.dtype)
+    k = h @ lp["wk"].to(h.dtype)
+    v = h @ lp["wv"].to(h.dtype)
+    if cfg.qkv_bias:
+        q = q + lp["bq"].to(h.dtype)
+        k = k + lp["bk"].to(h.dtype)
+        v = v + lp["bv"].to(h.dtype)
+    q = q.reshape(b, s, cfg.n_heads, cfg.d_head)
+    k = k.reshape(b, s, cfg.n_kv, cfg.d_head)
+    v = v.reshape(b, s, cfg.n_kv, cfg.d_head)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    if k_cache is not None:
+        _write_cache(k_cache, k, q_offset)
+        _write_cache(v_cache, v, q_offset)
+        k, v = k_cache.to(k.dtype), v_cache.to(v.dtype)
+        k_new, v_new = k_cache, v_cache
+    else:
+        k_new, v_new = k, v
+    attn = gqa_attention(
+        q, k, v, causal=True, q_offset=q_offset, chunk=cfg.attn_chunk,
+        impl=cfg.attn_impl,
+    )
+    x = x + attn.reshape(b, s, -1) @ lp["wo"].to(x.dtype)
+
+    h = rms_norm(x, lp["ffn_norm"])
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    out = swiglu(h, lp["w_gate"], lp["w_in"], lp["w_out"])
+    return x + out, aux, (k_new, v_new)
+
+
+def _embed(params, tokens: torch.Tensor) -> torch.Tensor:
+    return params["embed"].to(DTYPE)[tokens.to(torch.int64)]
+
+
+def forward(params, cfg: LMConfig, tokens: torch.Tensor):
+    """tokens (B, S) -> hidden (B, S, D), aux loss sum."""
+    _dense_only(cfg)
+    s = tokens.shape[1]
+    x = _embed(params, tokens)
+    cos, sin = rope_angles(torch.arange(s, device=x.device), cfg.d_head, cfg.rope_theta)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(cfg.n_layers):
+        x, a, _ = _layer(cfg, x, layer_params(params, i), cos, sin, q_offset=0)
+        aux = aux + a
+    return rms_norm(x, params["final_norm"]), aux
+
+
+def logits_of(params, hidden):
+    return hidden @ params["embed"].to(hidden.dtype).T
+
+
+# ---------------------------------------------------------------------------
+# serving
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: LMConfig, batch: int, max_len: int,
+               device: str | torch.device = "cuda") -> dict:
+    device = resolve(device, "init_cache")
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv, cfg.d_head)
+    return {"k": torch.zeros(shape, dtype=DTYPE, device=device),
+            "v": torch.zeros(shape, dtype=DTYPE, device=device)}
+
+
+def prefill(params, cfg: LMConfig, tokens: torch.Tensor):
+    """Full forward that also returns the per-layer KV cache (L,B,S,..);
+    runs where ``params`` and ``tokens`` lie."""
+    _dense_only(cfg)
+    b, s = tokens.shape
+    x = _embed(params, tokens)
+    cos, sin = rope_angles(torch.arange(s, device=x.device), cfg.d_head, cfg.rope_theta)
+    shape = (cfg.n_layers, b, s, cfg.n_kv, cfg.d_head)
+    cache = {"k": torch.empty(shape, dtype=DTYPE, device=x.device),
+             "v": torch.empty(shape, dtype=DTYPE, device=x.device)}
+    for i in range(cfg.n_layers):
+        x, _, (k, v) = _layer(cfg, x, layer_params(params, i), cos, sin, q_offset=0)
+        cache["k"][i] = k
+        cache["v"][i] = v
+    hidden = rms_norm(x, params["final_norm"])
+    return logits_of(params, hidden[:, -1:, :]), cache
+
+
+def decode_step(params, cfg: LMConfig, cache: dict, token: torch.Tensor, pos):
+    """One decode step: token (B,), pos a scalar int (current length).
+
+    The cache has static length T; entries at >= pos are masked by
+    causality (q_offset = pos).  Writes the new K/V into ``cache`` in place;
+    returns (logits (B,V), cache).
+    """
+    _dense_only(cfg)
+    x = _embed(params, token)[:, None, :]  # (B,1,D)
+    pos = int(pos)
+    cos, sin = rope_angles(torch.tensor([pos], device=x.device), cfg.d_head,
+                           cfg.rope_theta)
+    for i in range(cfg.n_layers):
+        x, _, _ = _layer(cfg, x, layer_params(params, i), cos, sin, q_offset=pos,
+                         k_cache=cache["k"][i], v_cache=cache["v"][i])
+    hidden = rms_norm(x, params["final_norm"])
+    return logits_of(params, hidden)[:, 0, :], cache

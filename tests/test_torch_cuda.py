@@ -1,9 +1,14 @@
-"""The hand-written kernels and the engine on the card: each kernel equals
-its plain version on the same CUDA tensors, and a run on the card equals
-the run on the CPU.  Needs an NVIDIA card with nvcc; skipped elsewhere.
+"""The hand-written kernels, the engine and the two serving paths on the
+card: each kernel equals its plain version on the same CUDA tensors
+(exactly for the integer kernels; for flash attention within 2e-2 in bf16
+and 1e-5 in f32, for the FM interaction within rtol 1e-5), and a run on the
+card equals the run on the CPU.  Needs an NVIDIA card with nvcc; skipped
+elsewhere.
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -12,7 +17,10 @@ import torch
 from repro_torch.core.engine import TorchEngine
 from repro_torch.core.triples import pack
 from repro_torch.data.generator import PROFILES, generate
+from repro_torch.configs import get_arch
 from repro_torch.kernels import ops, ref
+from repro_torch.models import recsys, transformer as lm
+from repro_torch.serve import Request, ServeEngine
 
 pytestmark = pytest.mark.cuda
 KEY_MAX = (1 << 63) - 1
@@ -101,3 +109,97 @@ def test_engine_on_card_equals_cpu(dev, name):
     np.testing.assert_array_equal(np.sort(pack(spo)), np.sort(pack(cspo)))
     np.testing.assert_array_equal(rep, crep)
     assert stats.as_dict() | {"wall_seconds": 0} == cstats.as_dict() | {"wall_seconds": 0}
+
+
+@pytest.mark.parametrize("b,s,t,h,kv,d,causal,q_offset", [
+    (1, 200, 200, 9, 3, 64, True, 0),      # SmolLM prefill
+    (4, 1, 300, 9, 3, 64, True, 211),      # decode row at an offset
+    (2, 33, 77, 8, 2, 128, True, 5),       # D 128, ragged tiles
+    (2, 70, 70, 4, 4, 64, False, 0),       # not causal
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention(dev, b, s, t, h, kv, d, causal, q_offset, dtype):
+    g = torch.Generator(device=dev).manual_seed(s + t)
+    q = torch.randn(b, s, h, d, generator=g, device=dev).to(dtype)
+    k = torch.randn(b, t, kv, d, generator=g, device=dev).to(dtype)
+    v = torch.randn(b, t, kv, d, generator=g, device=dev).to(dtype)
+    before = ops.LAUNCHES["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+    want = ref.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    atol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+
+def test_flash_attention_reads_a_cache_layer_in_place(dev):
+    """A layer of the (L, B, T, KV, D) arena and a transposed K are read
+    through their strides."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    arena = torch.randn(2, 4, 64, 3, 64, generator=g, device=dev).to(torch.bfloat16)
+    q = torch.randn(4, 1, 9, 64, generator=g, device=dev).to(torch.bfloat16)
+    torch.testing.assert_close(ops.flash_attention(q, arena[1], arena[0], q_offset=40),
+                               ref.flash_attention(q, arena[1], arena[0], q_offset=40),
+                               atol=2e-2, rtol=0)
+    with pytest.raises(ValueError):  # head dims other than 64 and 128
+        ops.flash_attention(q[..., :32], arena[1][..., :32], arena[0][..., :32])
+
+
+@pytest.mark.parametrize("b,f,k", [(512, 39, 10), (1000, 26, 16), (100, 7, 40)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fm_interact(dev, b, f, k, dtype):
+    g = torch.Generator(device=dev).manual_seed(b)
+    x = torch.randn(b, f, k, generator=g, device=dev).to(dtype)
+    got, want = ops.fm_interact(x), ref.fm_interact(x)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    else:  # one bf16 rounding of the output apart at most
+        torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7, atol=1e-3)
+
+
+def _to(tree: dict, dev) -> dict:
+    return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
+
+
+def test_lm_serving_on_card_equals_cpu(dev):
+    """SmolLM-135M's widths at 2 layers with the flash kernel: the card's
+    prefill and teacher-forced decode logits equal the CPU's within 0.1
+    (bf16 logits below 8), and the server runs every request."""
+    cfg = dataclasses.replace(get_arch("smollm-135m").config, n_layers=2,
+                              attn_impl="flash")
+    params = lm.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    card = _to(params, dev)
+    prompt = torch.arange(2, 40).reshape(1, -1)
+    tokens = [5, 77, 1234]
+    logits = {}
+    for name, p in (("cuda", card), ("cpu", params)):
+        d = p["embed"].device
+        out, cache = lm.prefill(p, cfg, prompt.to(d))
+        arena = lm.init_cache(cfg, 1, 64, device=d)
+        for key in arena:
+            arena[key][:, :, :prompt.shape[1]] = cache[key]
+        seq = [out[0, -1].float().cpu()]
+        for i, tok in enumerate(tokens):
+            out, arena = lm.decode_step(p, cfg, arena, torch.tensor([tok], device=d),
+                                        prompt.shape[1] + i)
+            seq.append(out[0].float().cpu())
+        logits[name] = torch.stack(seq)
+    torch.testing.assert_close(logits["cuda"], logits["cpu"], atol=0.1, rtol=0)
+    before = ops.LAUNCHES["flash_attention"]
+    eng = ServeEngine(card, cfg, n_slots=2, max_len=64, eos_id=-1)
+    for i in range(3):
+        eng.submit(Request(uid=i, prompt=list(range(2, 10 + i)), max_new=4))
+    assert len(eng.run()) == 3
+    assert ops.LAUNCHES["flash_attention"] == before + 3 * cfg.n_layers
+
+
+def test_fm_on_card_equals_cpu(dev):
+    cfg = dataclasses.replace(get_arch("fm").reduced, use_pallas=True)
+    params = recsys.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.rows_per_field, (64, cfg.n_fields)).astype(np.int32))
+    want = recsys.serve_step(params, cfg, {"ids": ids})
+    before = ops.LAUNCHES["fm_interact"]
+    got = recsys.serve_step(_to(params, dev), cfg,
+                            {"ids": ids.to(dev)})
+    assert ops.LAUNCHES["fm_interact"] == before + 1
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-6)

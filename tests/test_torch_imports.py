@@ -16,7 +16,12 @@ MODULES = [
     "repro_torch.core.triples", "repro_torch.core.stats",
     "repro_torch.kernels.ops", "repro_torch.kernels.ref",
     "repro_torch.kernels.merge", "repro_torch.kernels._build",
-    "repro_torch.data.generator", "repro_torch.data.datasets", "chip_smoke",
+    "repro_torch.data.generator", "repro_torch.data.datasets",
+    "repro_torch.device", "repro_torch.configs", "repro_torch.configs.base",
+    "repro_torch.configs.smollm_135m", "repro_torch.configs.fm",
+    "repro_torch.models", "repro_torch.models.layers",
+    "repro_torch.models.transformer", "repro_torch.models.recsys",
+    "repro_torch.serve", "repro_torch.serve.engine", "chip_smoke",
 ]
 
 
@@ -70,3 +75,30 @@ def test_state_loader_has_no_default_device():
 
     with pytest.raises(TypeError):
         state_from_arrays({}, Program([]), 0)  # the caller names the device
+
+
+def test_serving_entry_points_without_a_card_raise_unless_cpu_is_asked(monkeypatch):
+    from repro_torch.configs import get_arch
+    from repro_torch.models import recsys, transformer as lm
+    from repro_torch.serve import ServeEngine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    lm_cfg, fm_cfg = get_arch("smollm-135m").reduced, get_arch("fm").reduced
+    gen = torch.Generator().manual_seed(0)
+    for init, cfg in ((lm.init_params, lm_cfg), (recsys.init_params, fm_cfg)):
+        with pytest.raises(RuntimeError):
+            init(gen, cfg)
+    with pytest.raises(RuntimeError):
+        lm.init_cache(lm_cfg, 1, 8)
+    with pytest.raises(TypeError):
+        lm.params_from_numpy({})  # the caller names the device
+    with pytest.raises(TypeError):
+        recsys.params_from_numpy({})
+    params = lm.init_params(gen, lm_cfg, device="cpu")
+    with pytest.raises(RuntimeError):
+        ServeEngine(params, lm_cfg, n_slots=1, max_len=8)
+    eng = ServeEngine(params, lm_cfg, n_slots=1, max_len=8, device="cpu")
+    assert eng.device.type == "cpu" and eng.cache["k"].device.type == "cpu"
+    fm_params = recsys.init_params(gen, fm_cfg, device="cpu")
+    ids = torch.zeros((2, fm_cfg.n_fields), dtype=torch.int32)
+    assert recsys.serve_step(fm_params, fm_cfg, {"ids": ids}).device.type == "cpu"
