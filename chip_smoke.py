@@ -10,10 +10,12 @@ prints no result):
    into ``build/kernels/``, one nvcc per source, all at once;
 3. kernels: each kernel against its plain PyTorch version on the same CUDA
    tensors, at the shapes its path gives it; exact equality for the integer
-   kernels, stated tolerances for flash attention and the FM interaction.
-   Times from CUDA events (median of single calls) for the kernel, its
-   plain version and one PyTorch call as a yardstick, beside the least
-   time the card could take;
+   kernels, stated tolerances for flash attention, the FM interaction, the
+   segment sum (on the OpenCyc-scale KG's real in-edges, its hub included;
+   also bit equality from run to run) and the embedding bag.  Times from
+   CUDA events (median of single calls) for the kernel, its plain version
+   and one PyTorch call as a yardstick, beside the least time the card
+   could take;
 4. mid-size: the default ``opencyc_like`` and ``merge_like`` profiles on the
    card equal the same run on the CPU (triples, rho, counters);
 5. REW at full size: ``opencyc_like`` at OpenCyc's scale (2.4 M explicit
@@ -29,10 +31,22 @@ prints no result):
    second, peak memory, then a profiled rerun for the device's and the flash
    kernel's share; the card's teacher-forced logits of two requests equal
    the CPU's within a stated tolerance;
-7. FM serving at full scale: the Criteo-scale FM (33,763,328 table rows)
-   with the FM kernel serves a batch of 512 and one of 262,144 through a
-   rho made by the port's union-find from seeded merge pairs; merged IDs
-   score the same, and the card equals the CPU at batch 512.
+7. FM serving at full scale: the Criteo-scale FM (33,763,328 table rows,
+   seeded non-zero first-order weights) with the FM kernel and the
+   embedding bag serves a batch of 512 and one of 262,144 through a rho
+   made by the port's union-find from seeded merge pairs, and scores one
+   user against 1,000,000 candidates; merged IDs score the same, and the
+   card equals the CPU at batch 512 and on the candidates;
+8. GNN inference on the sameAs-deduplicated KG: GatedGCN and PNA at full
+   width against the CPU on ``full_graph_sm`` (2,708 nodes, 10,556
+   edges); the mid-size ``opencyc_like`` KG's graph deduplicated on the
+   card equals the CPU's exactly and GatedGCN on it agrees with the CPU;
+   then at full size, from phase 5's facts and rho, the raw graph (2.4 M
+   edges) and the deduplicated one: the dedup's time, GatedGCN at full
+   width (16 layers) on both (wall, edges/s, peak memory, in-degree),
+   a profiled rerun for the segment sum's share, PNA on the deduplicated
+   graph; 32 segment-sum launches a GatedGCN forward, and two card runs
+   bit-equal.
 
 Each path's launch counters are set to 0 just before its run and read just
 after.
@@ -66,6 +80,7 @@ FULL = dict(n_groups=51600, n_plain=1470000)  # OpenCyc: 2.4 M triples
 FULL_MERGED = 7 * 51600  # group_size 8: seven merges per group
 FULL_RESOURCES = 971865  # resources of that profile at that scale
 FULL_CAP = 1 << 22
+FULL_EDGES = 2398800  # explicit triples of that profile: the KG graph's edges
 REW_KERNELS = ("dedup_order", "search_bounds", "rewrite_triples", "uf_compress",
                "uf_hook")
 
@@ -342,13 +357,90 @@ def serving_kernel_phase(ops, ref, records: dict, dev) -> None:
                tol=FM_TOL_REL * max(1.0, float(want.abs().max())))
 
 
+SUM_TOL_REL = 1e-5  # f32 sums in another order: of the sum of |terms|
+SECTOR = 32  # bytes: the least a random read moves from device memory
+
+
+def _sum_err(got, want, abs_sum) -> tuple[float, float]:
+    """The largest absolute difference of two f32 sums of the same terms,
+    and the limit it is held to: ``SUM_TOL_REL`` of the largest sum of
+    |terms|.  Raises if any value differs by more than ``SUM_TOL_REL`` of
+    its own sum of |terms| (plus 1e-6)."""
+    diff = (got.float() - want.float()).abs()
+    if not bool((diff <= SUM_TOL_REL * abs_sum + 1e-6).all()):
+        raise AssertionError(f"sum differs by {float(diff.max())}, beyond "
+                             f"{SUM_TOL_REL} of its sum of |terms|")
+    return float(diff.max()), SUM_TOL_REL * float(abs_sum.max()) + 1e-6
+
+
+def segment_bag_kernel_phase(ops, ref, records: dict, dst, dev) -> None:
+    """The segment sum at the GNN path's shapes: the OpenCyc-scale KG's
+    2,398,800 edges (``dst``, its real destinations, one node holding
+    412,800 of them) into 971,865 nodes, at GatedGCN's width 70 (the main
+    path), PNA's 75 and the degree counts' 1, with the plan built once as
+    the forward builds it; two calls must give the same bits.  The
+    embedding bag at the FM's shapes: the first-order term of a
+    ``serve_bulk`` batch, 262,144 x 39 ids into the (33,763,328, 1)
+    weights (the main path), and the retrieval query, 1 x 39 ids into the
+    (33,763,328, 10) table."""
+    from repro_torch.configs import get_arch
+
+    record = recorder(records)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    seg = torch.from_numpy(dst).to(dev)
+    n, e = FULL_RESOURCES, seg.shape[0]
+    plan = ops.segment_plan(seg, n)
+    idx = seg.to(torch.int64)
+    for k, main in ((70, True), (75, False), (1, False)):
+        x = torch.randn(e, k, generator=gen, device=dev)
+        got = ops.segment_sum(x, seg, n, plan=plan)
+        if not torch.equal(got, ops.segment_sum(x, seg, n, plan=plan)):
+            raise AssertionError("segment_sum: two calls on the same inputs differ")
+        err, tol = _sum_err(got, ref.segment_sum(x, seg, n),
+                            ref.segment_sum(x.abs(), seg, n))
+        del got
+        record("segment_sum", f"KG in-edges E={e}, n={n}, K={k} f32", err,
+               time_ms(lambda: ops.segment_sum(x, seg, n, plan=plan)),
+               time_ms(lambda: ref.segment_sum(x, seg, n)),
+               time_ms(lambda: torch.zeros((n, k), device=dev).index_add_(0, idx, x)),
+               4 * e * k + 4 * e + 4 * n * k, e * k, main=main, tol=tol)
+        del x
+    del plan, idx, seg
+
+    rows = get_arch("fm").config.n_rows  # the FM's padded table
+    w1 = torch.randn(rows, 1, generator=gen, device=dev) * 0.01
+    table = torch.randn(rows, 10, generator=gen, device=dev) * 0.01
+    for b, tab, label, main in (
+        (262_144, w1, "serve_bulk first order (262144, 39) into (33763328, 1)", True),
+        (1, table, "retrieval query (1, 39) into (33763328, 10)", False),
+    ):
+        k = tab.shape[1]
+        ids = torch.randint(0, rows, (b, 39), generator=gen, device=dev,
+                            dtype=torch.int32)
+        err, tol = _sum_err(ops.embedding_bag(ids, tab), ref.embedding_bag(ids, tab),
+                            ref.embedding_bag(ids, tab.abs()))
+        # a random row read moves whole 32-byte sectors: ceil(4K / 32) of them
+        row_bytes = -(-4 * k // SECTOR) * SECTOR
+        record("embedding_bag", label, err,
+               time_ms(lambda: ops.embedding_bag(ids, tab)),
+               time_ms(lambda: ref.embedding_bag(ids, tab)),
+               time_ms(lambda: F.embedding_bag(ids, tab, mode="sum")),
+               4 * b * 39 + row_bytes * b * 39 + 4 * b * k, b * 39 * k,
+               main=main, tol=tol)
+    del w1, table
+
+
 LM_REQUESTS, LM_SLOTS, LM_MAX_LEN, LM_NEW = 64, 16, 1024, 32
 LM_LOGIT_TOL = 0.25  # bf16 logits below 8 after 30 bf16 layers: 8 units in the last place
 
 
-def _tree_to(tree: dict, dev) -> dict:
-    return {k: _tree_to(v, dev) if isinstance(v, dict) else v.to(dev)
-            for k, v in tree.items()}
+def _tree_to(tree, dev):
+    """A parameter tree (dicts, lists, tuples of tensors) on ``dev``."""
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_to(v, dev) for v in tree)
+    return tree.to(dev)
 
 
 def _teacher_forced_logits(lm, params, cfg, req) -> torch.Tensor:
@@ -484,7 +576,10 @@ def fm_serving_phase(ops, records: dict) -> int:
     spec = get_arch("fm")
     cfg = dataclasses.replace(spec.config, use_pallas=True)
     rpf = cfg.rows_per_field
-    params = recsys.init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = recsys.init_params(gen, cfg)
+    # non-zero first-order weights, so that their bag counts in the scores
+    params["w1"] = torch.randn(cfg.n_rows, generator=gen, device="cuda") * 0.01
     table_bytes = params["table"].numel() * 4
     rng = np.random.default_rng(0)
     field = rng.integers(0, cfg.n_fields, FM_MERGE_PAIRS)
@@ -520,9 +615,25 @@ def fm_serving_phase(ops, records: dict) -> int:
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
         times[name] = walls
+    # one user against the retrieval_cand candidates
+    n_cand = spec.shape("retrieval_cand").dims["n_candidates"]
+    user = torch.from_numpy(rng.integers(0, rpf, (1, cfg.n_fields)).astype(np.int32)).cuda()
+    cand = torch.from_numpy(rng.integers(0, cfg.n_rows, n_cand).astype(np.int32)).cuda()
+    recsys.retrieval_scores(params, cfg, user, cand)  # warm-up
+    retrieval_walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        retrieval = recsys.retrieval_scores(params, cfg, user, cand)
+        torch.cuda.synchronize()
+        retrieval_walls.append(time.perf_counter() - t0)
     launches = dict(ops.LAUNCHES)
     if launches["fm_interact"] != 12:
         raise AssertionError(f"fm_interact launches {launches['fm_interact']}, want 12")
+    if launches["embedding_bag"] != 12 + 6:  # a bag per serve_step and per query
+        raise AssertionError(f"embedding_bag launches {launches['embedding_bag']}, "
+                             "want 18")
+    if retrieval.shape != (n_cand,) or not torch.isfinite(retrieval).all():
+        raise AssertionError("retrieval scores misshaped or not finite")
     for name, sc in scores.items():
         n = batches[name]["ids"].shape[0]
         if sc.shape != (n,) or not torch.isfinite(sc).all() or \
@@ -554,6 +665,10 @@ def fm_serving_phase(ops, records: dict) -> int:
     err = float((scores["serve_p99"].cpu() - host).abs().max())
     if not torch.allclose(scores["serve_p99"].cpu(), host, rtol=1e-5, atol=1e-6):
         raise AssertionError(f"FM: card and CPU differ by {err}")
+    host_retrieval = recsys.retrieval_scores(cpu_params, cfg, user.cpu(), cand.cpu())
+    retrieval_err = float((retrieval.cpu() - host_retrieval).abs().max())
+    if not torch.allclose(retrieval.cpu(), host_retrieval, rtol=1e-5, atol=1e-6):
+        raise AssertionError(f"FM retrieval: card and CPU differ by {retrieval_err}")
     out = dict(
         config=cfg.name, n_rows=cfg.n_rows, table_bytes=table_bytes,
         merge_pairs=FM_MERGE_PAIRS, merged_rows=n_merged, merge_s=merge_s,
@@ -561,12 +676,186 @@ def fm_serving_phase(ops, records: dict) -> int:
         serve_walls_s=times,
         rows_per_s={k: batches[k]["ids"].shape[0] / statistics.median(v)
                     for k, v in times.items()},
+        retrieval_candidates=n_cand,
+        retrieval_wall_s=statistics.median(retrieval_walls),
+        retrieval_walls_s=retrieval_walls,
         launches=launches, merged_checked=int(members.numel()),
-        card_vs_cpu_max_abs_err=err, cpu_s=cpu_s,
+        card_vs_cpu_max_abs_err=err, retrieval_card_vs_cpu_max_abs_err=retrieval_err,
+        cpu_s=cpu_s,
     )
     print(f"  {json.dumps(out)}", flush=True)
     records["fm_serving"] = out
-    return launches["fm_interact"]
+    return launches
+
+
+# of the largest |logit|: f32 sums and products in other orders.  Measured
+# on an NVIDIA H100 80GB HBM3 at 700 W: at most 4.9e-5 (PNA on
+# full_graph_sm, logits up to 5.2), 7.6e-6 for GatedGCN's 16 layers; both
+# computations are deterministic, so the error does not move between runs.
+GNN_TOL_REL = 1e-4
+
+
+def _check_logits(card: torch.Tensor, host: torch.Tensor, label: str) -> float:
+    """The card's logits are finite and within ``GNN_TOL_REL`` of the
+    CPU's (relative to the largest CPU logit, at least 1)."""
+    card = card.cpu()
+    if card.shape != host.shape or not torch.isfinite(card).all():
+        raise AssertionError(f"{label}: logits misshaped or not finite")
+    err = float((card - host).abs().max())
+    limit = GNN_TOL_REL * max(1.0, float(host.abs().max()))
+    print(f"  {label}: card vs cpu max_abs_err {err:.3g} (limit {limit:.3g})",
+          flush=True)
+    if not err <= limit:
+        raise AssertionError(f"{label}: card and CPU logits differ by {err} > {limit}")
+    return err
+
+
+def _synced_walls(fn, reps: int = 3):
+    """``fn()`` once to warm up, then ``reps`` runs each ending in a
+    synchronise: the outputs and the host walls."""
+    fn()
+    torch.cuda.synchronize()
+    outs, walls = [], []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        outs.append(fn())
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return outs, walls
+
+
+def gnn_phase(ops, records: dict, kg: dict) -> int:
+    """Phase 8; returns the segment sum's launches on the main path (the
+    full-size dedup and one GatedGCN forward on its graph)."""
+    from repro_torch import TorchEngine
+    from repro_torch.configs import get_arch
+    from repro_torch.data.generator import PROFILES, generate
+    from repro_torch.data.graphs import build_graph_from_kg, dedup_graph, graph_to, random_graph
+    from repro_torch.models.gnn import gatedgcn, pna
+
+    errs = {}
+    # 1. full width on full_graph_sm, card against CPU, the same weights
+    dims = get_arch("gatedgcn").shape("full_graph_sm").dims
+    for name, mod in (("gatedgcn", gatedgcn), ("pna", pna)):
+        cfg = get_arch(name).config
+        graph = random_graph(np.random.default_rng(0), dims["n_nodes"], dims["n_edges"],
+                             dims["d_feat"], cfg.n_classes)
+        params = mod.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+        host = mod.forward(params, cfg, graph_to(graph, "cpu"))
+        card = mod.forward(_tree_to(params, "cuda"), cfg, graph_to(graph, "cuda"))
+        errs[f"{name} full_graph_sm"] = _check_logits(card, host, f"{name} full_graph_sm")
+
+    # 2. the mid-size KG: rho, the deduplicated graph and GatedGCN at full
+    # width (16 node features, as examples/kg_dedup_gnn.py gives them)
+    cfg = dataclasses.replace(get_arch("gatedgcn").config, d_in=16)
+    facts, program, dic = generate(**PROFILES["opencyc_like"])
+    reps = [TorchEngine(dic.n_resources, device=d).materialise(facts, program)[1]
+            for d in ("cuda", "cpu")]
+    if not np.array_equal(reps[0], reps[1]):
+        raise AssertionError("mid-size KG: rho differs between cuda and cpu")
+    graph = build_graph_from_kg(facts, dic.n_resources, 16, np.random.default_rng(0))
+    card_dd, host_dd = dedup_graph(graph, reps[0], "cuda"), dedup_graph(graph, reps[1], "cpu")
+    for key in host_dd:
+        if not torch.equal(card_dd[key].cpu(), host_dd[key]):
+            raise AssertionError(f"mid-size KG: deduplicated {key} differs from the CPU's")
+    params = gatedgcn.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    card_params = _tree_to(params, "cuda")
+    mid = dict(edges=int(graph["edge_index"].shape[1]),
+               dedup_edges=int(host_dd["edge_index"].shape[1]))
+    for label, card_g, host_g in (("raw", graph_to(graph, "cuda"), graph_to(graph, "cpu")),
+                                  ("dedup", card_dd, host_dd)):
+        errs[f"gatedgcn mid-size KG {label}"] = _check_logits(
+            gatedgcn.forward(card_params, cfg, card_g),
+            gatedgcn.forward(params, cfg, host_g), f"gatedgcn mid-size KG {label}")
+
+    # 3. full size, from phase 5's facts and rho
+    n = kg["dic"].n_resources
+    t0 = time.perf_counter()
+    graph = build_graph_from_kg(kg["facts"], n, 16, np.random.default_rng(0))
+    raw = graph_to(graph, "cuda")
+    build_s = time.perf_counter() - t0
+    if raw["edge_index"].shape[1] != FULL_EDGES:
+        raise AssertionError(f"raw graph: {raw['edge_index'].shape[1]} edges")
+    rho = torch.from_numpy(kg["rho"]).cuda()
+    params = gatedgcn.init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    gatedgcn.forward(params, cfg, raw)  # first-call costs, outside the count
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    dedup = dedup_graph(raw, rho, "cuda")
+    logits = gatedgcn.forward(params, cfg, dedup)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    want = dict(segment_sum=2 * cfg.n_layers, rewrite_triples=1, dedup_order=2,
+                search_bounds=1)
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"main path launches {launches}, want {want}")
+    if not torch.isfinite(logits).all():
+        raise AssertionError("full size: non-finite logits")
+    dd_outs, dedup_walls = _synced_walls(lambda: dedup_graph(raw, rho, "cuda"))
+    if not all(torch.equal(d["edge_index"], dedup["edge_index"]) for d in dd_outs):
+        raise AssertionError("dedup_graph differs between runs")
+    del dd_outs
+
+    runs = {}
+    for label, g in (("raw", raw), ("dedup", dedup)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        outs, walls = _synced_walls(lambda: gatedgcn.forward(params, cfg, g))
+        peak = torch.cuda.max_memory_allocated()
+        if not torch.isfinite(outs[0]).all():
+            raise AssertionError(f"{label}: non-finite logits")
+        if not all(torch.equal(o, outs[0]) for o in outs):
+            raise AssertionError(f"{label}: two card forwards differ")
+        e = int(g["edge_index"].shape[1])
+        deg = torch.bincount(g["edge_index"][1].to(torch.int64), minlength=n)
+        wall = statistics.median(walls)
+        runs[label] = dict(edges=e, max_in_degree=int(deg.max()),
+                           nodes_with_in_edges=int((deg > 0).sum()),
+                           wall_s=wall, walls_s=walls, edges_per_s=e / wall,
+                           max_memory_allocated=peak)
+        del outs
+    if not torch.equal(logits, gatedgcn.forward(params, cfg, dedup)):
+        raise AssertionError("dedup: the main path's forward differs from a rerun")
+
+    # the forward on the deduplicated graph again, under torch.profiler
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        gatedgcn.forward(params, cfg, dedup)
+        torch.cuda.synchronize()
+        profiled_wall = time.perf_counter() - t0
+    busy = device_time(prof, profiled_wall)
+    if busy["busy_ms"] <= 0:
+        raise AssertionError("torch.profiler saw no device time")
+    busy["segment_sum_share_of_busy"] = (
+        busy["port_kernels_ms"].get("segment_sum", 0.0) / busy["busy_ms"])
+
+    # PNA at full width on the deduplicated graph
+    pcfg = dataclasses.replace(get_arch("pna").config, d_in=16)
+    pparams = pna.init_params(torch.Generator(device="cuda").manual_seed(0), pcfg)
+    before = ops.LAUNCHES["segment_sum"]
+    torch.cuda.reset_peak_memory_stats()
+    pouts, pwalls = _synced_walls(lambda: pna.forward(pparams, pcfg, dedup))
+    per_forward = (ops.LAUNCHES["segment_sum"] - before) / 4
+    if per_forward != 8 * pcfg.n_layers + 1:
+        raise AssertionError(f"PNA: {per_forward} segment sums a forward")
+    if not all(torch.isfinite(o).all() for o in pouts):
+        raise AssertionError("PNA: non-finite logits")
+    live = int((rho == torch.arange(n, dtype=torch.int32, device="cuda")).sum())
+    out = dict(
+        card_vs_cpu_max_abs_err=errs, tol_rel=GNN_TOL_REL, midsize_kg=mid,
+        nodes=n, live_nodes=live, graph_build_s=build_s,
+        dedup_wall_s=statistics.median(dedup_walls), dedup_walls_s=dedup_walls,
+        gatedgcn=dict(config=cfg.name, n_layers=cfg.n_layers, d_hidden=cfg.d_hidden,
+                      d_in=cfg.d_in, **{label: r for label, r in runs.items()}),
+        pna=dict(config=pcfg.name, n_layers=pcfg.n_layers, d_hidden=pcfg.d_hidden,
+                 edges=runs["dedup"]["edges"], wall_s=statistics.median(pwalls),
+                 walls_s=pwalls, segment_sums_per_forward=per_forward,
+                 max_memory_allocated=torch.cuda.max_memory_allocated()),
+        launches=launches, profiled_wall_s=profiled_wall, device_time=busy,
+    )
+    print(f"  {json.dumps(out)}", flush=True)
+    records["gnn"] = out
+    return launches["segment_sum"]
 
 
 def result_of(engine_cls, profile: dict, device: str):
@@ -605,17 +894,29 @@ def midsize_phase(records: dict) -> None:
         records[name] = dict(counters, cuda_wall_s=t_gpu)
 
 
-def fullsize_phase(ops, records: dict) -> dict:
-    from repro_torch import TorchEngine
-    from repro_torch.core.engine import index_invariant_report
-    from repro_torch.core.triples import pack
+def full_kg() -> dict:
+    """The OpenCyc-scale KG (phase 5's input; its edges are phase 8's
+    graph and phase 3's segment ids), generated once on the host."""
     from repro_torch.data.generator import PROFILES, generate
 
     config = dict(PROFILES["opencyc_like"], **FULL)
     t0 = time.perf_counter()
     facts, program, dic = generate(**config)
+    gen_s = time.perf_counter() - t0
     print(f"  generated {facts.shape[0]} triples, {dic.n_resources} resources "
-          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+          f"in {gen_s:.1f} s", flush=True)
+    if facts.shape[0] != FULL_EDGES:
+        raise AssertionError(f"{facts.shape[0]} triples, want {FULL_EDGES}")
+    return dict(facts=facts, program=program, dic=dic, config=config, gen_s=gen_s)
+
+
+def fullsize_phase(ops, records: dict, kg: dict) -> dict:
+    """REW at full size on ``kg``; leaves the card's rho in ``kg["rho"]``."""
+    from repro_torch import TorchEngine
+    from repro_torch.core.engine import index_invariant_report
+    from repro_torch.core.triples import pack
+
+    facts, program, dic, config = kg["facts"], kg["program"], kg["dic"], kg["config"]
     eng = TorchEngine(dic.n_resources, capacity=FULL_CAP, bind_cap=FULL_CAP,
                       out_cap=FULL_CAP, rewrite_cap=FULL_CAP, device="cuda")
     if dic.n_resources != FULL_RESOURCES:
@@ -686,6 +987,7 @@ def fullsize_phase(ops, records: dict) -> dict:
         if getattr(stats, k) != getattr(cpu_state.stats, k):
             raise AssertionError(f"full size: {k} differs between cuda and cpu")
     print(f"  cuda == cpu at full size (cpu wall {cpu_wall:.1f} s)", flush=True)
+    kg["rho"] = rho.numpy()
     out = dict(
         explicit_triples=int(facts.shape[0]), resources=int(dic.n_resources),
         wall_s=wall, repeat_wall_s=repeat_walls,
@@ -712,6 +1014,8 @@ KERNEL_OF = {
     "halve_kernel": "uf_compress", "finish_kernel": "uf_compress",
     "refresh_kernel": "uf_hook", "link_kernel": "uf_hook",
     "flash_kernel": "flash_attention", "fm_kernel": "fm_interact",
+    "seg_chunk_kernel": "segment_sum", "seg_carry_kernel": "segment_sum",
+    "bag_kernel": "embedding_bag",
 }
 
 
@@ -746,6 +1050,8 @@ SOURCES = {  # kernel -> (source, TPU kernel it replaces)
     "flash_attention": ("flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:90"),
     "fm_interact": ("fm_interact.cu", "src/repro/kernels/fm_interact.py:27"),
+    "segment_sum": ("segment_sum.cu", "src/repro/kernels/segment_sum.py:43"),
+    "embedding_bag": ("embedding_bag.cu", "src/repro/kernels/embedding_bag.py:44"),
 }
 
 
@@ -779,21 +1085,29 @@ def main() -> None:
 
     phase("kernels (kernel == plain version on the card):")
     kernel_records: dict = {}
+    kg = full_kg()
     kernel_phase(ops, ref, kernel_records, "cuda")
     serving_kernel_phase(ops, ref, kernel_records, "cuda")
+    segment_bag_kernel_phase(ops, ref, kernel_records,
+                             kg["facts"][:, 2].astype(np.int32), "cuda")
     records["kernels"] = kernel_records
 
     phase("mid-size (cuda == cpu):")
     midsize_phase(records)
 
     phase("REW at full size (main path):")
-    launches = fullsize_phase(ops, records)
+    launches = fullsize_phase(ops, records, kg)
 
     phase("LM serving at full width (SmolLM-135M, flash):")
     launches["flash_attention"] = lm_serving_phase(ops, records)
 
     phase("FM serving at full scale (Criteo-scale FM, rho):")
-    launches["fm_interact"] = fm_serving_phase(ops, records)
+    fm_launches = fm_serving_phase(ops, records)
+    for name in ("fm_interact", "embedding_bag"):
+        launches[name] = fm_launches[name]
+
+    phase("GNN inference on the sameAs-deduplicated KG (GatedGCN, PNA):")
+    launches["segment_sum"] = gnn_phase(ops, records, kg)
 
     phase("done:")
     line = []

@@ -5,8 +5,10 @@ reference.  It imports ``torch`` and numpy, never ``jax`` and nothing of
 ``repro``.  Ported so far, with hand-written CUDA kernels for Hopper
 (:mod:`repro_torch.kernels`): the REW base materialisation
 (:class:`repro_torch.core.engine.TorchEngine`), LM serving
-(:mod:`repro_torch.serve`, :mod:`repro_torch.models.transformer`) and FM
-serving (:mod:`repro_torch.models.recsys`).
+(:mod:`repro_torch.serve`, :mod:`repro_torch.models.transformer`), FM
+serving (:mod:`repro_torch.models.recsys`) and GNN inference on a
+sameAs-deduplicated graph (:mod:`repro_torch.models.gnn`,
+:mod:`repro_torch.data.graphs`).
 """
 
 from repro_torch.core.engine import CapacityError, Contradiction, TorchEngine

@@ -1,7 +1,7 @@
 """Architecture registry of the port: ``get_arch(name)`` returns the
 ArchSpec of a ported architecture.
 
-The reference (``repro.configs``) registers eleven; the port has the two
+The reference (``repro.configs``) registers eleven; the port has the four
 whose model code it carries.  Any other name raises ``KeyError`` naming the
 ROADMAP item that ports it.
 """
@@ -19,14 +19,14 @@ _ALIASES = {
     "smollm-135m": "smollm_135m",
     "starcoder2-15b": "starcoder2_15b",
 }
-_PORTED = ("smollm_135m", "fm")
+_PORTED = ("smollm_135m", "fm", "gatedgcn", "pna")
 _MOE = "ROADMAP Queue 1 item 8b (MoE: models/moe.py)"
-_GNN = "ROADMAP Queue 1 item 8c (GNNs)"
+_GNN = "ROADMAP Queue 1 item 8c (GNNs: egnn, dimenet)"
 _DENSE = "ROADMAP Queue 1 item 8e (the other dense LM configs)"
 _LATER = {
     "qwen3_moe_235b": _MOE, "deepseek_moe_16b": _MOE,
     "qwen2_1p5b": _DENSE, "starcoder2_15b": _DENSE,
-    "dimenet": _GNN, "egnn": _GNN, "gatedgcn": _GNN, "pna": _GNN,
+    "dimenet": _GNN, "egnn": _GNN,
     "sameas_rew": "ROADMAP Queue 1 item 7 (tooling: the engine's cells); "
                   "the engine itself is repro_torch.TorchEngine",
 }

@@ -1,7 +1,8 @@
 """ArchSpec: a model configuration with its reduced twin and its shapes.
 
 A copy of ``repro.configs.base`` (the port imports nothing of ``repro``),
-limited to the families the port serves: the LM and the recsys shapes.
+limited to the families the port runs: the LM, the GNN and the recsys
+shapes.
 
 Each shape entry:
   kind   — 'train', 'prefill'/'decode'/'serve', 'retrieval',
@@ -26,7 +27,7 @@ class ShapeSpec:
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
     name: str
-    family: str  # 'lm' | 'recsys'
+    family: str  # 'lm' | 'gnn' | 'recsys'
     config: Any
     reduced: Any
     shapes: tuple[ShapeSpec, ...]
@@ -49,6 +50,30 @@ LM_SHAPES = (
         dict(seq_len=524288, global_batch=1),
         skip="pure full-attention arch: long_500k designated for sub-quadratic "
         "attention per assignment (DESIGN.md §4)",
+    ),
+)
+
+GNN_SHAPES = (
+    ShapeSpec(
+        "full_graph_sm", "train",
+        dict(n_nodes=2708, n_edges=10556, d_feat=1433),
+    ),
+    ShapeSpec(
+        "minibatch_lg", "train",
+        dict(
+            n_nodes=232_965, n_edges=114_615_892, batch_nodes=1024,
+            fanout=(15, 10),
+            # sampled-subgraph caps: 1024 seeds, 15 then 10 neighbours
+            sub_nodes=1024 * (1 + 15 + 150), sub_edges=1024 * 15 + 1024 * 15 * 10,
+        ),
+    ),
+    ShapeSpec(
+        "ogb_products", "train",
+        dict(n_nodes=2_449_029, n_edges=61_859_140, d_feat=100),
+    ),
+    ShapeSpec(
+        "molecule", "train",
+        dict(n_nodes=30, n_edges=64, batch=128),
     ),
 )
 

@@ -6,8 +6,10 @@ version (:mod:`repro_torch.kernels.ref`) for tensors on the CPU.  There is
 no other route: a CUDA tensor gets the kernel or an exception, never the
 plain version.  ``LAUNCHES`` counts, per kernel, the calls that launched it
 on the card — the proof that a run went through the kernels.  The kernels
-serve three paths: REW materialisation (dedup, search, rewrite, union-find),
-LM serving (flash attention) and FM serving (the FM interaction).
+serve four paths: REW materialisation (dedup, search, rewrite, union-find),
+LM serving (flash attention), FM serving (the FM interaction and the
+embedding bag) and GNN inference (the segment sum, with its plan built by
+dedup and search, and the graph's sameAs dedup by rewrite and dedup).
 
 Kernel launches use PyTorch's current stream, allocate nothing inside the
 kernel (outputs and scratch come from ``torch.empty`` here) and never
@@ -17,6 +19,7 @@ synchronise; a non-zero ``cudaGetLastError`` after a launch raises.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -24,7 +27,8 @@ from . import ref
 from ._build import library
 
 KERNELS = ("dedup_order", "search_bounds", "rewrite_triples",
-           "uf_compress", "uf_hook", "flash_attention", "fm_interact")
+           "uf_compress", "uf_hook", "flash_attention", "fm_interact",
+           "segment_sum", "embedding_bag")
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 _P = ctypes.c_void_p
@@ -46,11 +50,17 @@ _ENTRIES = {
                          ctypes.c_int, ctypes.c_int)),
     "fm_interact": ("fm_interact", "fm_interact",
                     (_P, _P, _N, ctypes.c_int, ctypes.c_int, ctypes.c_int)),
+    "segment_sum": ("segment_sum", "segment_sum",
+                    (_P, _P, _P, _P, _N, _N, ctypes.c_int, ctypes.c_int, _P, _P,
+                     ctypes.c_int)),
+    "embedding_bag": ("embedding_bag", "embedding_bag",
+                      (_P, _P, _N, ctypes.c_int, _N, ctypes.c_int, _P,
+                       ctypes.c_int)),
 }
 
 
 def reset_launches() -> None:
-    """Set every kernel's launch count to 0 (all three paths)."""
+    """Set every kernel's launch count to 0 (all paths)."""
     for k in LAUNCHES:
         LAUNCHES[k] = 0
 
@@ -228,6 +238,14 @@ FLASH_HEAD_DIMS = (64, 128)
 _FLOATS = (torch.float32, torch.bfloat16)
 
 
+def _check_float(t: torch.Tensor, name: str, ndim: int) -> None:
+    if t.dim() != ndim or t.dtype not in _FLOATS:
+        raise TypeError(f"{name}: want a {ndim}-d float32 or bfloat16 tensor, "
+                        f"got {t.dim()}-d {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, q_offset: int = 0) -> torch.Tensor:
     """GQA attention forward: q (B,S,H,D), k/v (B,T,KV,D) -> (B,S,H,D) in
@@ -277,11 +295,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def fm_interact(x: torch.Tensor) -> torch.Tensor:
     """FM second-order term: (B, F, K) field embeddings -> (B,) as
     ``0.5 * sum_k((sum_f x)^2 - sum_f x^2)``, f32 math, x's dtype."""
-    if x.dim() != 3 or x.dtype not in _FLOATS:
-        raise TypeError(f"x: want a 3-d float32 or bfloat16 tensor, "
-                        f"got {x.dim()}-d {x.dtype}")
-    if not x.is_contiguous():
-        raise ValueError("x must be contiguous")
+    _check_float(x, "x", 3)
     if not _on_card(x):
         return ref.fm_interact(x)
     b, f, k = x.shape
@@ -290,4 +304,97 @@ def fm_interact(x: torch.Tensor) -> torch.Tensor:
         return out
     _launch("fm_interact", x.device, x.data_ptr(), out.data_ptr(), b, f, k,
             int(x.dtype == torch.bfloat16))
+    return out
+
+
+
+SEGMENT_CHUNK = 256  # sorted rows a warp of the segment-sum kernel walks
+
+
+@dataclasses.dataclass(frozen=True)
+class SegmentPlan:
+    """The order in which :func:`segment_sum` visits the rows of one
+    segment-id array, built once per graph by :func:`segment_plan`."""
+
+    perm: torch.Tensor     # (E,) int32: a stable ascending sort of seg
+    seg: torch.Tensor      # (E,) int32: seg[perm]
+    offsets: torch.Tensor  # (n_segments + 1,) int32: #{seg < s}
+    n_segments: int
+
+
+def segment_plan(seg: torch.Tensor, n_segments: int) -> SegmentPlan:
+    """The plan of (E,) int32 segment ids: their stable sort (the
+    ``dedup_order`` kernel) and each segment's first sorted position (the
+    ``search_bounds`` kernel).  Rows outside [0, n_segments) sort before
+    ``offsets[0]`` or from ``offsets[n_segments]`` on."""
+    _check(seg, "seg", torch.int32, 1)
+    if n_segments < 0:
+        raise ValueError(f"n_segments must be >= 0, got {n_segments}")
+    keys = seg.to(torch.int64)
+    perm = dedup_order(keys)
+    sorted_keys = keys[perm.to(torch.int64)]
+    bounds = torch.arange(n_segments + 1, dtype=torch.int64, device=seg.device)
+    offsets = searchsorted(sorted_keys, bounds, side="left")
+    return SegmentPlan(perm, sorted_keys.to(torch.int32), offsets, n_segments)
+
+
+def segment_sum(x: torch.Tensor, seg: torch.Tensor, n_segments: int,
+                plan: SegmentPlan | None = None) -> torch.Tensor:
+    """(E, K) rows summed by (E,) int32 segment id into (n_segments, K):
+    rows whose id lies outside [0, n_segments) are dropped, empty segments
+    are zero; f32 sums, x's dtype (f32 or bf16).
+
+    On the card the kernel visits the rows in ``plan``'s order
+    (:func:`segment_plan` of ``seg``; built here when it is not given), and
+    two calls on the same inputs give the same bits."""
+    _check_float(x, "x", 2)
+    _check(seg, "seg", torch.int32, 1)
+    e, k = x.shape
+    if seg.shape[0] != e:
+        raise ValueError(f"seg has {seg.shape[0]} rows, x {e}")
+    if n_segments < 0:
+        raise ValueError(f"n_segments must be >= 0, got {n_segments}")
+    if plan is not None and (plan.n_segments != n_segments
+                             or plan.perm.shape[0] != e):
+        raise ValueError(f"plan of {plan.perm.shape[0]} rows and "
+                         f"{plan.n_segments} segments for {e} rows and "
+                         f"{n_segments} segments")
+    if not _on_card(x, seg):
+        return ref.segment_sum(x, seg, n_segments)
+    if e >= 1 << 31:
+        raise ValueError(f"segment_sum kernel: {e} rows, want < 2^31")
+    if plan is None:
+        plan = segment_plan(seg, n_segments)
+    if plan.perm.device != x.device:
+        raise ValueError(f"plan on {plan.perm.device}, x on {x.device}")
+    out = torch.empty((n_segments, k), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    n_chunks = -(-e // SEGMENT_CHUNK)
+    carry = torch.empty(max(n_chunks, 1) * 2 * k, dtype=torch.float32,
+                        device=x.device)
+    _launch("segment_sum", x.device, x.data_ptr(), plan.perm.data_ptr(),
+            plan.seg.data_ptr(), plan.offsets.data_ptr(), e, n_segments, k,
+            SEGMENT_CHUNK, out.data_ptr(), carry.data_ptr(),
+            int(x.dtype == torch.bfloat16))
+    return out
+
+
+def embedding_bag(ids: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """(B, F) int32 ids into a (V, K) table -> (B, K): ``out[b] = sum_f
+    table[ids[b, f]]``; an id outside [0, V) adds zero.  f32 sums, the
+    table's dtype (f32 or bf16)."""
+    _check(ids, "ids", torch.int32, 2)
+    _check_float(table, "table", 2)
+    v, k = table.shape
+    if v == 0:
+        raise ValueError("table is empty")
+    if not _on_card(ids, table):
+        return ref.embedding_bag(ids, table)
+    b, f = ids.shape
+    out = torch.empty((b, k), dtype=table.dtype, device=table.device)
+    if out.numel() == 0:
+        return out
+    _launch("embedding_bag", table.device, ids.data_ptr(), table.data_ptr(),
+            b, f, v, k, out.data_ptr(), int(table.dtype == torch.bfloat16))
     return out

@@ -119,6 +119,28 @@ def flash_attention(q, k, v, causal: bool = True, q_offset: int = 0):
     return out
 
 
+def segment_sum(x: torch.Tensor, seg: torch.Tensor, n_segments: int) -> torch.Tensor:
+    """(E, K) rows summed by segment id into (n_segments, K): ``out[s]`` is
+    the sum of the rows whose ``seg`` is s.  Rows whose id lies outside
+    [0, n_segments) are dropped; empty segments are zero.  f32 sums, cast
+    to x's dtype."""
+    keep = (seg >= 0) & (seg < n_segments)
+    out = torch.zeros((n_segments, x.shape[1]), dtype=torch.float32, device=x.device)
+    out.index_add_(0, seg[keep].to(torch.int64), x[keep].float())
+    return out.to(x.dtype)
+
+
+def embedding_bag(ids: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """(B, F) ids into a (V, K) table -> (B, K): ``out[b] = sum_f
+    table[ids[b, f]]``, where an id outside [0, V) adds zero (it is neither
+    clamped nor wrapped).  f32 sums, cast to the table's dtype."""
+    v = table.shape[0]
+    on_table = (ids >= 0) & (ids < v)
+    rows = table[ids.to(torch.int64).clamp(0, v - 1)].float()
+    rows = torch.where(on_table[..., None], rows, 0.0)
+    return rows.sum(dim=1).to(table.dtype)
+
+
 def fm_interact(x: torch.Tensor) -> torch.Tensor:
     """(B, F, K) -> (B,): ``0.5 * sum_k((sum_f x)^2 - sum_f x^2)`` in f32,
     cast to x's dtype."""

@@ -1,1 +1,2 @@
-"""Template models of the port: the dense decoder-only LM and the FM."""
+"""Template models of the port: the dense decoder-only LM, the FM and the
+GNNs (GatedGCN, PNA)."""

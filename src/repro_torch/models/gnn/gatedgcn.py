@@ -1,0 +1,78 @@
+"""GatedGCN (Bresson & Laurent, arXiv:1711.07553; benchmark config from
+arXiv:2003.00982): edge-gated message passing with residuals.
+
+    e'_ij = A h_i + B h_j + C e_ij
+    eta_ij = sigma(e'_ij) / (sum_j' sigma(e'_ij') + eps)
+    h'_i  = U h_i + sum_j eta_ij * (V h_j)
+
+The port of ``repro.models.gnn.gatedgcn`` for inference: both sums over
+the in-edges of a node go through the ``segment_sum`` kernel, two launches
+a layer, with one segment plan of ``dst`` for the whole forward.  LayerNorm
+replaces BatchNorm, as in the reference.  ``loss_fn`` waits for the
+training slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.device import resolve
+from repro_torch.kernels import ops
+
+from .common import init_mlp, layer_norm, mlp, seg_sum
+
+
+@dataclasses.dataclass(frozen=True)
+class GatedGCNConfig:
+    name: str = "gatedgcn"
+    n_layers: int = 16
+    d_hidden: int = 70
+    d_in: int = 1433
+    d_edge_in: int = 1
+    n_classes: int = 40
+
+
+def init_params(gen: torch.Generator, cfg: GatedGCNConfig,
+                device: str | torch.device = "cuda") -> dict:
+    """Weights normal * fan_in^-0.5 from ``gen``, zero biases, f32 on
+    ``device``."""
+    device = resolve(device, "init_params")
+    h = cfg.d_hidden
+
+    def lin(a, b):
+        return init_mlp(gen, [a, b], device=device)[0]
+
+    return {
+        "embed_x": init_mlp(gen, [cfg.d_in, h], device=device),
+        "embed_e": init_mlp(gen, [cfg.d_edge_in, h], device=device),
+        "layers": [{name: lin(h, h) for name in "ABCUV"}
+                   for _ in range(cfg.n_layers)],
+        "head": init_mlp(gen, [h, h, cfg.n_classes], device=device),
+    }
+
+
+def forward(params, cfg: GatedGCNConfig, batch: dict) -> torch.Tensor:
+    """batch: x (N, d_in), edge_attr (E, d_edge_in), edge_index (2, E)
+    int32 (row 0 the sources, row 1 the destinations).  Returns logits
+    (N, n_classes).  One segment plan of the destinations serves every
+    segment sum of the forward."""
+    x = mlp(params["embed_x"], batch["x"])
+    e = mlp(params["embed_e"], batch["edge_attr"])
+    dst = batch["edge_index"][1]
+    src_i, dst_i = batch["edge_index"][0].to(torch.int64), dst.to(torch.int64)
+    n = x.shape[0]
+    plan = ops.segment_plan(dst, n)
+    for lp in params["layers"]:
+        (aw, ab), (bw, bb), (cw, cb) = lp["A"], lp["B"], lp["C"]
+        (uw, ub), (vw, vb) = lp["U"], lp["V"]
+        e_new = x[dst_i] @ aw + x[src_i] @ bw + e @ cw + (ab + bb + cb)
+        gate = torch.sigmoid(e_new.float()).to(x.dtype)
+        msg = gate * (x[src_i] @ vw + vb)
+        den = seg_sum(gate, dst, n, plan) + 1e-6
+        agg = seg_sum(msg, dst, n, plan) / den
+        x = x + F.silu(layer_norm(x @ uw + ub + agg))
+        e = e + F.silu(layer_norm(e_new))
+    return mlp(params["head"], x)

@@ -2,9 +2,11 @@
 
 The port of ``repro.models.recsys`` for serving.  Lookups gather rows of
 one table (per-field offsets into the arena); the pairwise interaction uses
-the O(F*K) sum-square trick, through the ``fm_interact`` kernel when
-``use_pallas`` is set (the field keeps the reference's name so that configs
-carry over; here it means the hand-written CUDA kernel).
+the O(F*K) sum-square trick.  When ``use_pallas`` is set (the field keeps
+the reference's name so that configs carry over; here it means the
+hand-written CUDA kernels) the interaction goes through ``fm_interact`` and
+the field bags (the first-order term and the retrieval query) through
+``embedding_bag``.
 
 owl:sameAs integration: an optional ``rho`` row remap unifies equivalent
 IDs (merged user/item registrations) before lookup — one extra gather,
@@ -34,7 +36,7 @@ class FMConfig:
     n_fields: int = 39
     embed_dim: int = 10
     rows_per_field: int = 865_707  # ~33.8M total rows, Criteo-scale
-    use_pallas: bool = False  # True: the fm_interact kernel
+    use_pallas: bool = False  # True: the fm_interact and embedding_bag kernels
 
     @property
     def n_rows(self) -> int:
@@ -79,7 +81,10 @@ def forward(params, cfg: FMConfig, batch: dict) -> torch.Tensor:
     else:
         s = emb.sum(dim=1)
         second = 0.5 * ((s * s) - (emb * emb).sum(dim=1)).sum(dim=-1)
-    first = params["w1"][rows].sum(dim=1)
+    if cfg.use_pallas:  # the bag of first-order weights: a table of width 1
+        first = ops.embedding_bag(rows.to(torch.int32), params["w1"][:, None])[:, 0]
+    else:
+        first = params["w1"][rows].sum(dim=1)
     return params["bias"] + first + second
 
 
@@ -91,8 +96,11 @@ def retrieval_scores(params, cfg: FMConfig, user_ids: torch.Tensor,
                      cand_rows: torch.Tensor) -> torch.Tensor:
     """Score one user's field-bag embedding against N candidate rows:
     batched dot, not a loop (the ``retrieval_cand`` shape)."""
-    rows = _row_ids(cfg, user_ids).to(torch.int64)  # (1, F)
-    q = params["table"][rows[0]].sum(dim=0)  # (K,)
+    rows = _row_ids(cfg, user_ids)  # (1, F)
+    if cfg.use_pallas:
+        q = ops.embedding_bag(rows, params["table"])[0]  # (K,)
+    else:
+        q = params["table"][rows[0].to(torch.int64)].sum(dim=0)
     cand_rows = cand_rows.to(torch.int64)
     cand = params["table"][cand_rows]  # (N, K)
     return cand @ q + params["w1"][cand_rows]

@@ -126,10 +126,14 @@ def params_from_numpy(tree, device: str | torch.device):
     """The reference's parameter pytree, as numpy arrays
     (``jax.tree.map(np.asarray, params)``), as the port's tensors on
     ``device``.  bf16 arrays (numpy dtype ``bfloat16`` from ml_dtypes) pass
-    through their 16-bit pattern.  ``device`` has no default."""
+    through their 16-bit pattern.  Dicts, lists and tuples keep their
+    structure (the GNNs' MLPs are lists of ``(w, b)`` tuples).  ``device``
+    has no default."""
     device = resolve(device, "params_from_numpy")
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_from_numpy(v, device) for v in tree)
     arr = np.array(tree)  # a writable copy; torch.from_numpy needs one
     if arr.dtype.name == "bfloat16":
         t = torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)

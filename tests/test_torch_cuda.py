@@ -1,9 +1,10 @@
-"""The hand-written kernels, the engine and the two serving paths on the
-card: each kernel equals its plain version on the same CUDA tensors
+"""The hand-written kernels, the engine, the two serving paths and the GNNs
+on the card: each kernel equals its plain version on the same CUDA tensors
 (exactly for the integer kernels; for flash attention within 2e-2 in bf16
-and 1e-5 in f32, for the FM interaction within rtol 1e-5), and a run on the
-card equals the run on the CPU.  Needs an NVIDIA card with nvcc; skipped
-elsewhere.
+and 1e-5 in f32, for the FM interaction within rtol 1e-5; for the segment
+sum and the embedding bag within 1e-5 of the sum of the absolute values
+summed, f32 sums in another order), and a run on the card equals the run on
+the CPU.  Needs an NVIDIA card with nvcc; skipped elsewhere.
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -19,7 +20,9 @@ from repro_torch.core.triples import pack
 from repro_torch.data.generator import PROFILES, generate
 from repro_torch.configs import get_arch
 from repro_torch.kernels import ops, ref
+from repro_torch.data.graphs import build_graph_from_kg, dedup_graph, graph_to, random_graph
 from repro_torch.models import recsys, transformer as lm
+from repro_torch.models.gnn import gatedgcn, pna
 from repro_torch.serve import Request, ServeEngine
 
 pytestmark = pytest.mark.cuda
@@ -156,8 +159,13 @@ def test_fm_interact(dev, b, f, k, dtype):
         torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7, atol=1e-3)
 
 
-def _to(tree: dict, dev) -> dict:
-    return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
+def _to(tree, dev):
+    """A parameter tree (dicts, lists, tuples of tensors) on ``dev``."""
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to(v, dev) for v in tree)
+    return tree.to(dev)
 
 
 def test_lm_serving_on_card_equals_cpu(dev):
@@ -203,3 +211,88 @@ def test_fm_on_card_equals_cpu(dev):
                             {"ids": ids.to(dev)})
     assert ops.LAUNCHES["fm_interact"] == before + 1
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-6)
+
+
+def _close_to_sum(got, want, abs_sum, rel):
+    """|got - want| within ``rel`` of the sum of absolute values summed:
+    the bound on two f32 sums of the same terms in different orders."""
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= rel * abs_sum.float() + 1e-6).all()), float(err.max())
+
+
+@pytest.mark.parametrize("e,n,k,skew", [
+    (100_000, 5_000, 70, True),    # GatedGCN's width, one segment of a third
+    (100_000, 5_000, 1, True),     # degree counts
+    (50_000, 20_000, 75, False),   # PNA's width, many empty segments
+    (3_000, 40, 200, False),       # wider than the kernel's 128 register columns
+    (1, 3, 8, False),
+    (0, 3, 8, False),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_segment_sum(dev, e, n, k, skew, dtype):
+    rng = np.random.default_rng(e + n + k)
+    seg = rng.integers(-2, n + 2, e).astype(np.int32)  # some out of range
+    if skew:
+        seg[rng.random(e) < 1 / 3] = 17
+    seg_t = torch.from_numpy(seg).to(dev)
+    x = torch.from_numpy(rng.normal(size=(e, k)).astype(np.float32)).to(dev).to(dtype)
+    plan = ops.segment_plan(seg_t, n)
+    before = ops.LAUNCHES["segment_sum"]
+    got = ops.segment_sum(x, seg_t, n, plan=plan)
+    again = ops.segment_sum(x, seg_t, n, plan=plan)
+    assert ops.LAUNCHES["segment_sum"] == before + 2
+    assert torch.equal(got, again)  # no atomics: the same bits every run
+    want = ref.segment_sum(x, seg_t, n)
+    abs_sum = ref.segment_sum(x.float().abs(), seg_t, n)
+    rel = 1e-5 if dtype == torch.float32 else 2 ** -7  # one bf16 rounding apart
+    assert got.dtype == dtype and got.shape == (n, k)
+    _close_to_sum(got, want, abs_sum, rel)
+    assert torch.equal(ops.segment_sum(x, seg_t, n), got)  # the plan built inside
+
+
+@pytest.mark.parametrize("b,f,v,k", [(4096, 39, 100_000, 1), (1, 39, 100_000, 10),
+                                     (1000, 26, 5000, 16), (64, 3, 50, 130)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_embedding_bag(dev, b, f, v, k, dtype):
+    rng = np.random.default_rng(b + f + k)
+    ids = rng.integers(0, v, (b, f)).astype(np.int32)
+    ids[rng.random((b, f)) < 0.05] = rng.choice([-1, v, v + 7, -(1 << 30)])
+    ids_t = torch.from_numpy(ids).to(dev)
+    table = torch.from_numpy(rng.normal(size=(v, k)).astype(np.float32)).to(dev).to(dtype)
+    before = ops.LAUNCHES["embedding_bag"]
+    got = ops.embedding_bag(ids_t, table)
+    assert ops.LAUNCHES["embedding_bag"] == before + 1
+    want = ref.embedding_bag(ids_t, table)
+    abs_sum = ref.embedding_bag(ids_t, table.float().abs())
+    assert got.dtype == dtype and got.shape == (b, k)
+    _close_to_sum(got, want, abs_sum, 1e-5 if dtype == torch.float32 else 2 ** -7)
+
+
+@pytest.mark.parametrize("name", ["gatedgcn", "pna"])
+def test_gnn_on_card_equals_cpu(dev, name):
+    """Full width, 2 layers, on a random graph of 2,000 nodes: the card's
+    logits equal the CPU's within 1e-4, two card runs are bit-equal, and
+    every segment sum goes through the kernel."""
+    mod = {"gatedgcn": gatedgcn, "pna": pna}[name]
+    cfg = dataclasses.replace(get_arch(name).config, n_layers=2)
+    graph = random_graph(np.random.default_rng(0), 2000, 8000, cfg.d_in, cfg.n_classes)
+    params = mod.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    want = mod.forward(params, cfg, graph_to(graph, "cpu"))
+    card = _to(params, dev)
+    before = ops.LAUNCHES["segment_sum"]
+    got = mod.forward(card, cfg, graph_to(graph, dev))
+    again = mod.forward(card, cfg, graph_to(graph, dev))
+    per_forward = 2 * cfg.n_layers if name == "gatedgcn" else 8 * cfg.n_layers + 1
+    assert ops.LAUNCHES["segment_sum"] == before + 2 * per_forward
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+def test_dedup_graph_on_card_equals_cpu(dev):
+    facts, program, dic = generate(**PROFILES["opencyc_like"])
+    _, rep, _ = TorchEngine(dic.n_resources, device=dev).materialise(facts, program)
+    graph = build_graph_from_kg(facts, dic.n_resources, 16, np.random.default_rng(0))
+    card = dedup_graph(graph, rep, dev)
+    host = dedup_graph(graph, rep, "cpu")
+    for key in host:
+        assert torch.equal(card[key].cpu(), host[key]), key

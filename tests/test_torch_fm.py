@@ -94,15 +94,39 @@ def test_forward_and_serve_step(model, use_pallas, with_rho):
         np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
 
 
-def test_retrieval_scores(model):
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_retrieval_scores(model, use_pallas):
     jcfg, jparams, params = model
     ids = _batch(jcfg, 1, 3)
     cand = np.random.default_rng(4).integers(0, jcfg.n_rows, 50).astype(np.int32)
     want = np.asarray(jfm.retrieval_scores(jparams, jcfg, jnp.asarray(ids),
                                            jnp.asarray(cand)))
-    got = fm.retrieval_scores(params, _port_cfg(jcfg), torch.from_numpy(ids),
-                              torch.from_numpy(cand))
+    got = fm.retrieval_scores(params, _port_cfg(jcfg, use_pallas=use_pallas),
+                              torch.from_numpy(ids), torch.from_numpy(cand))
     np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+
+
+def test_field_bags_go_through_embedding_bag(model, monkeypatch):
+    """Under ``use_pallas`` the first-order term is one bag of the (V, 1)
+    weights per row and the retrieval query one bag of the table; without
+    it neither calls the kernel."""
+    jcfg, _, params = model
+    calls = []
+    real = ops.embedding_bag
+
+    def spy(ids, table):
+        calls.append((tuple(ids.shape), tuple(table.shape)))
+        return real(ids, table)
+
+    monkeypatch.setattr(ops, "embedding_bag", spy)
+    ids = torch.from_numpy(_batch(jcfg, 5, 8))
+    cand = torch.arange(10, dtype=torch.int32)
+    for use_pallas in (False, True):
+        cfg = _port_cfg(jcfg, use_pallas=use_pallas)
+        fm.serve_step(params, cfg, {"ids": ids})
+        fm.retrieval_scores(params, cfg, ids[:1], cand)
+    f, k = jcfg.n_fields, jcfg.embed_dim
+    assert calls == [((5, f), (jcfg.n_rows, 1)), ((1, f), (jcfg.n_rows, k))]
 
 
 @pytest.mark.parametrize("b,f,k", [(3, 5, 4), (300, 39, 10), (1024, 26, 16)])

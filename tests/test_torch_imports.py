@@ -21,7 +21,11 @@ MODULES = [
     "repro_torch.configs.smollm_135m", "repro_torch.configs.fm",
     "repro_torch.models", "repro_torch.models.layers",
     "repro_torch.models.transformer", "repro_torch.models.recsys",
-    "repro_torch.serve", "repro_torch.serve.engine", "chip_smoke",
+    "repro_torch.serve", "repro_torch.serve.engine",
+    "repro_torch.configs.gatedgcn", "repro_torch.configs.pna",
+    "repro_torch.models.gnn", "repro_torch.models.gnn.common",
+    "repro_torch.models.gnn.gatedgcn", "repro_torch.models.gnn.pna",
+    "repro_torch.data.graphs", "chip_smoke",
 ]
 
 
@@ -102,3 +106,29 @@ def test_serving_entry_points_without_a_card_raise_unless_cpu_is_asked(monkeypat
     fm_params = recsys.init_params(gen, fm_cfg, device="cpu")
     ids = torch.zeros((2, fm_cfg.n_fields), dtype=torch.int32)
     assert recsys.serve_step(fm_params, fm_cfg, {"ids": ids}).device.type == "cpu"
+
+
+def test_gnn_entry_points_without_a_card_raise_unless_cpu_is_asked(monkeypatch):
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.graphs import dedup_graph, graph_to, random_graph
+    from repro_torch.models.gnn import gatedgcn, pna
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    gen = torch.Generator().manual_seed(0)
+    for mod, name in ((gatedgcn, "gatedgcn"), (pna, "pna")):
+        cfg = get_arch(name).reduced
+        with pytest.raises(RuntimeError):
+            mod.init_params(gen, cfg)
+        assert mod.init_params(gen, cfg, device="cpu")["head"][0][0].device.type == "cpu"
+    graph = random_graph(np.random.default_rng(0), 8, 20, 4, 2)
+    rho = np.arange(8, dtype=np.int32)
+    with pytest.raises(RuntimeError):
+        dedup_graph(graph, rho)
+    with pytest.raises(RuntimeError):
+        graph_to(graph, "cuda")
+    assert dedup_graph(graph, rho, "cpu")["edge_index"].device.type == "cpu"
+    for name in ("egnn", "dimenet"):
+        with pytest.raises(KeyError, match="8c"):
+            get_arch(name)

@@ -1,10 +1,15 @@
 """The port's kernels (plain versions, via ``ops`` on CPU tensors) against
 the reference's oracles (``repro.kernels.ref``) and its Pallas kernels in
-interpret mode (``repro.kernels.ops``), bit for bit.
+interpret mode (``repro.kernels.ops``).
 
 Inputs come from numpy seeds and include duplicates, the KEY_MAX tail, the
-21-bit ID boundary and sizes that are no multiple of any block.  Every
-value is an integer, so every comparison is exact.
+21-bit ID boundary and sizes that are no multiple of any block.  The
+integer kernels (dedup, search, rewrite, union-find) are compared bit for
+bit.  The two float kernels, ``segment_sum`` and ``embedding_bag``, sum in
+f32 in another order than XLA, and take the reference's own sweeps and
+tolerances (``tests/test_kernels.py``); their rows with ids out of range
+are held against the Pallas kernels only, which drop those ids, where
+``repro.kernels.ref.embedding_bag_ref`` clamps them.
 """
 
 import jax
@@ -218,6 +223,114 @@ def test_uf_hook_is_pointer_jump_then_scatter_min(v, m):
     assert int(flag) == int(active.any())
 
 
+SWEEP_DTYPES = {"float32": (jnp.float32, torch.float32),
+                "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _to_torch(a) -> torch.Tensor:
+    """A numpy or jax array as a CPU tensor (bf16 through its bit pattern)."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+# the reference's sweep (tests/test_kernels.py), plus K = 1 (the FM's
+# first-order weights) and one bag of the FM's retrieval query
+@pytest.mark.parametrize("b,f,v,k", [(4, 3, 50, 8), (130, 39, 1000, 10),
+                                     (64, 26, 513, 16), (300, 39, 777, 1),
+                                     (1, 39, 2000, 10)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_embedding_bag_sweep(b, f, v, k, dtype):
+    jdt, tdt = SWEEP_DTYPES[dtype]
+    rng = np.random.default_rng(b * 7 + f + v + k)
+    ids = jnp.asarray(rng.integers(0, v, (b, f)), jnp.int32)
+    table = jnp.asarray(rng.normal(size=(v, k)), jdt)
+    got = ops.embedding_bag(_to_torch(ids), _to_torch(table))
+    assert got.dtype == tdt and got.shape == (b, k)
+    rtol = 1e-6 if dtype == "float32" else 5e-2
+    for want in (jops.embedding_bag(ids, table), jref.embedding_bag_ref(ids, table)):
+        np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                                   rtol=rtol, atol=1e-3)
+
+
+@pytest.mark.parametrize("k", [1, 10])
+def test_embedding_bag_off_table_ids_add_zero(k):
+    """Ids below 0 or at or above V add zero, as in the Pallas kernel;
+    ``embedding_bag_ref`` would clamp the high ones and wrap the negative
+    ones instead (the difference is pinned here)."""
+    rng = np.random.default_rng(k)
+    v = 6
+    table = rng.normal(size=(v, k)).astype(np.float32)
+    ids = rng.integers(0, v, (40, 5)).astype(np.int32)
+    ids[0] = [0, 6, 1, -1, 2]
+    ids[1:, 0] = rng.choice([-7, -1, 6, 100, 1 << 30], 39)
+    got = ops.embedding_bag(torch.from_numpy(ids), torch.from_numpy(table)).numpy()
+    want = np.asarray(jops.embedding_bag(jnp.asarray(ids), jnp.asarray(table)))
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(got[0], table[[0, 1, 2]].sum(axis=0), rtol=1e-6, atol=1e-6)
+    clamped = np.asarray(jref.embedding_bag_ref(jnp.asarray(ids[:1]), jnp.asarray(table)))
+    assert not np.allclose(clamped[0], got[0])
+
+
+# the reference's sweep, plus K = 1 (degree counts) and the GNN widths 70
+# and 75, which are no multiple of 32
+@pytest.mark.parametrize("n,s,k", [(10, 4, 8), (1000, 100, 16), (513, 700, 4),
+                                   (600, 50, 1), (300, 40, 70), (300, 40, 75)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_segment_sum_sweep(n, s, k, dtype):
+    jdt, tdt = SWEEP_DTYPES[dtype]
+    rng = np.random.default_rng(n + s + k)
+    x = jnp.asarray(rng.normal(size=(n, k)), jdt)
+    seg = jnp.asarray(rng.integers(0, s, n), jnp.int32)
+    got = ops.segment_sum(_to_torch(x), _to_torch(seg), s)
+    assert got.dtype == tdt and got.shape == (s, k)
+    # the reference's oracle in f32: both kernels accumulate in f32
+    expected = jref.segment_sum_ref(x.astype(jnp.float32), seg, s)
+    tol = dict(rtol=1e-5, atol=1e-2) if dtype == "float32" else dict(rtol=1e-1, atol=1e-1)
+    for want in (jops.segment_sum(x, seg, s), expected):
+        np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), **tol)
+
+
+def test_segment_sum_drops_out_of_range_segments():
+    """Rows whose segment id is below 0 or at or above n are dropped, as
+    the Pallas kernel drops them; empty segments are zero."""
+    rng = np.random.default_rng(11)
+    n, e, k = 9, 200, 5
+    x = rng.normal(size=(e, k)).astype(np.float32)
+    seg = rng.integers(-3, n + 4, e).astype(np.int32)
+    seg[seg == 4] = 5  # segment 4 stays empty
+    got = ops.segment_sum(torch.from_numpy(x), torch.from_numpy(seg), n).numpy()
+    want = np.asarray(jops.segment_sum(jnp.asarray(x), jnp.asarray(seg), n))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    assert (got[4] == 0).all()
+    keep = (seg >= 0) & (seg < n)
+    np.testing.assert_allclose(got.sum(axis=0), x[keep].sum(axis=0), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("skew", [False, True])
+def test_segment_plan_is_a_stable_sort_and_its_offsets(skew):
+    """The plan equals ``np.argsort(seg, kind="stable")`` and
+    ``np.searchsorted``; with one segment taking a third of the rows the
+    sums still equal the reference's."""
+    rng = np.random.default_rng(12 + skew)
+    n, e = 400, 3000
+    seg = rng.integers(-2, n + 2, e).astype(np.int32)
+    if skew:
+        seg[rng.random(e) < 1 / 3] = 123
+    plan = ops.segment_plan(torch.from_numpy(seg), n)
+    order = np.argsort(seg, kind="stable")
+    np.testing.assert_array_equal(plan.perm.numpy(), order)
+    np.testing.assert_array_equal(plan.seg.numpy(), seg[order])
+    np.testing.assert_array_equal(plan.offsets.numpy(),
+                                  np.searchsorted(seg[order], np.arange(n + 1)))
+    assert plan.perm.dtype == plan.seg.dtype == plan.offsets.dtype == torch.int32
+    x = rng.normal(size=(e, 7)).astype(np.float32)
+    got = ops.segment_sum(torch.from_numpy(x), torch.from_numpy(seg), n, plan=plan)
+    want = np.asarray(jops.segment_sum(jnp.asarray(x), jnp.asarray(seg), n))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-4)
+
+
 def test_cuda_tensors_never_take_the_plain_version():
     """Tensors off the CPU get the kernel or an exception: a meta tensor,
     for which no kernel exists, is refused rather than served by the plain
@@ -227,6 +340,12 @@ def test_cuda_tensors_never_take_the_plain_version():
         ops.dedup_order(keys)
     with pytest.raises(ValueError):
         ops.search_bounds(keys, keys)
+    with pytest.raises(ValueError):
+        ops.segment_sum(torch.zeros((8, 2), device="meta"),
+                        torch.zeros(8, dtype=torch.int32, device="meta"), 4)
+    with pytest.raises(ValueError):
+        ops.embedding_bag(torch.zeros((2, 3), dtype=torch.int32, device="meta"),
+                          torch.zeros((5, 2), device="meta"))
 
 
 def test_wrappers_check_their_inputs():
@@ -241,3 +360,14 @@ def test_wrappers_check_their_inputs():
     with pytest.raises(ValueError):
         ops.prefix_range_bounds(torch.zeros((4, 4), dtype=torch.int32),
                                 torch.zeros(4, dtype=torch.int64))
+    seg = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(TypeError):  # integer values
+        ops.segment_sum(torch.zeros((4, 2), dtype=torch.int32), seg, 3)
+    with pytest.raises(ValueError):  # seg of another length
+        ops.segment_sum(torch.zeros((5, 2)), seg, 3)
+    with pytest.raises(ValueError):  # a plan of another segment count
+        ops.segment_sum(torch.zeros((4, 2)), seg, 3, plan=ops.segment_plan(seg, 2))
+    with pytest.raises(TypeError):  # int64 ids
+        ops.embedding_bag(torch.zeros((2, 3), dtype=torch.int64), torch.zeros((5, 2)))
+    with pytest.raises(ValueError):  # an empty table
+        ops.embedding_bag(torch.zeros((2, 3), dtype=torch.int32), torch.zeros((0, 2)))
