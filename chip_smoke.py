@@ -12,10 +12,15 @@ prints no result):
    tensors, at the shapes its path gives it; exact equality for the integer
    kernels, stated tolerances for flash attention, the FM interaction, the
    segment sum (on the OpenCyc-scale KG's real in-edges, its hub included;
-   also bit equality from run to run) and the embedding bag.  Times from
-   CUDA events (median of single calls) for the kernel, its plain version
-   and one PyTorch call as a yardstick, beside the least time the card
-   could take;
+   also bit equality from run to run) and the embedding bag; the sort also
+   on signed keys and on the GNN plan's destination ids.  Flash (bf16)
+   also within one output rounding of its plain version, and with P.V at
+   more than bf16 precision: fewer of its outputs round otherwise than
+   bf16 of the f32 result than halfway between P split into two bf16
+   halves and P in bf16.  Times from CUDA events (median of single calls)
+   for the kernel, its plain version and one PyTorch call as a yardstick,
+   beside the least time the card could take; for flash and SDPA also
+   the device time a call under torch.profiler;
 4. mid-size: the default ``opencyc_like`` and ``merge_like`` profiles on the
    card equal the same run on the CPU (triples, rho, counters);
 5. REW at full size: ``opencyc_like`` at OpenCyc's scale (2.4 M explicit
@@ -161,7 +166,8 @@ def kernel_phase(ops, ref, records: dict, dev) -> None:
     """Each kernel against its plain version, at the issue's shapes and at
     the shapes the full-size main path gives it (``main=True``: the stream
     of 4 * (out_cap + rewrite_cap) + 1 = 2^25 + 1 keys, the arena of 2^22 + 1
-    rows, rho of 971,865 resources, a pair buffer of out_cap rows)."""
+    rows, rho of 971,865 resources, a pair buffer of out_cap rows); the sort
+    also on 2^24 + 1 keys over the whole signed range."""
     from repro_torch.core.uf import merge_pairs_np
 
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -181,6 +187,18 @@ def kernel_phase(ops, ref, records: dict, dev) -> None:
                time_ms(lambda: ref.dedup_order(keys)),
                time_ms(lambda: torch.sort(keys, stable=True)),
                12 * n, n * log2c(n), main=n == stream)
+    # the whole signed range, LLONG_MIN and -1 among them
+    n = (1 << 24) + 1
+    keys = (torch.randint(-(1 << 31), 1 << 31, (n,), generator=gen, device=dev) << 32
+            | torch.randint(0, 1 << 32, (n,), generator=gen, device=dev))
+    keys[torch.randint(0, n, (n // 64,), generator=gen, device=dev)] = -(1 << 63)
+    keys[torch.randint(0, n, (n // 64,), generator=gen, device=dev)] = -1
+    record("dedup_order", "n=2^24+1 signed", max_err(ops.dedup_order(keys),
+                                                      ref.dedup_order(keys)),
+           time_ms(lambda: ops.dedup_order(keys)),
+           time_ms(lambda: ref.dedup_order(keys)),
+           time_ms(lambda: torch.sort(keys, stable=True)),
+           12 * n, n * log2c(n))
 
     # 2. sorted-key search: 2^22 random queries into a 2^22-key index, and
     # the membership probe: the sorted stream into the arena index
@@ -302,6 +320,67 @@ def float_err(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 FLASH_TOL = 2e-2   # bf16 outputs of magnitude < 4: one rounding apart at most
+FLASH_RTOL = 2.0**-7  # and each value within one bf16 rounding of itself
+FLASH_ATOL = 1e-4     # plus this: well under the spread of a row at 32k keys
+FLASH_REPS = 50       # single calls in a flash time's median: a short call
+                      # is mostly host work, and the host's times spread
+
+
+def flash_scaled_excess(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest |got - want| - FLASH_RTOL |want|: at most FLASH_ATOL."""
+    g, w = got.float(), want.float()
+    return float(((g - w).abs() - FLASH_RTOL * w.abs()).max())
+
+
+def p_rounding_shares(q, k, v, q_offset: int, got: torch.Tensor) -> dict:
+    """Causal attention in f32 by blocks of query rows, three ways: P.V from
+    P in f32, from bf16(P) plus bf16(P - bf16(P)) (the kernel's split) and
+    from bf16(P) alone.  Returns the share of bf16 outputs that round
+    otherwise than bf16 of the f32 result, for ``got`` and both schemes."""
+    b, s, h, d = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    kf, vf = k.float(), v.float()
+    k_pos = torch.arange(t, device=q.device)
+    differ = dict(kernel=0, split=0, bf16=0)
+    step = max(1, (1 << 26) // (b * h * t))
+    for s0 in range(0, s, step):
+        qf = q[:, s0:s0 + step].float()
+        n = qf.shape[1]
+        scores = torch.einsum("bskgd,btkd->bkgst", qf.reshape(b, n, kv, h // kv, d),
+                              kf) / d**0.5
+        q_pos = q_offset + s0 + torch.arange(n, device=q.device)
+        scores = torch.where(q_pos[:, None] >= k_pos[None, :], scores, -1e30)
+        p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+        l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30).permute(0, 3, 1, 2, 4)
+        hi = p.to(torch.bfloat16).float()
+        lo = (p - hi).to(torch.bfloat16).float()
+
+        def out(pv):
+            o = torch.einsum("bkgst,btkd->bskgd", pv, vf) / l
+            return o.reshape(b, n, h, d).to(torch.bfloat16)
+
+        want = out(p)
+        differ["kernel"] += int((got[:, s0:s0 + n] != want).sum())
+        differ["split"] += int((out(hi + lo) != want).sum())
+        differ["bf16"] += int((out(hi) != want).sum())
+    return {key: n / got.numel() for key, n in differ.items()}
+
+
+def device_ms_per_call(fn, calls: int = 50) -> float:
+    """Device time of one call of ``fn``: all its kernels, under
+    torch.profiler, averaged over ``calls`` calls after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    busy = device_time(prof, 1.0)["busy_ms"]
+    if busy <= 0:
+        raise AssertionError("torch.profiler saw no device time")
+    return busy / calls
+
+
 FM_TOL_REL = 1e-5  # f32 sums in another order
 
 
@@ -311,7 +390,9 @@ def serving_kernel_phase(ops, ref, records: dict, dev) -> None:
     server prefills each request alone), a prefill of 32,768 tokens
     (``prefill_32k``'s length) and a decode step of 16 rows against a
     1,024-row cache at q_offset 700; the FM interaction at the FM's
-    ``serve_p99`` and ``serve_bulk`` batches (39 fields, K 10, f32)."""
+    ``serve_p99`` and ``serve_bulk`` batches (39 fields, K 10, f32).
+    SDPA is flash's yardstick: causal at offset 0, and for the decode
+    step on the keys up to q_offset, unmasked."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     record = recorder(records)
@@ -325,25 +406,60 @@ def serving_kernel_phase(ops, ref, records: dict, dev) -> None:
         q = torch.randn(b, s, h, d, generator=gen, device=dev).to(torch.bfloat16)
         k = torch.randn(b, t, kv, d, generator=gen, device=dev).to(torch.bfloat16)
         v = torch.randn(b, t, kv, d, generator=gen, device=dev).to(torch.bfloat16)
-        err = float_err(ops.flash_attention(q, k, v, q_offset=off),
-                        ref.flash_attention(q, k, v, q_offset=off))
-        lib_ms = None
+        got = ops.flash_attention(q, k, v, q_offset=off)
+        want = ref.flash_attention(q, k, v, q_offset=off)
+        err = float_err(got, want)
+        excess = flash_scaled_excess(got, want)
+        shares = p_rounding_shares(q, k, v, off, got)
+        del want
+        print(f"  flash {label}: |err| - rtol |want| at most {excess:.3g} (limit "
+              f"{FLASH_ATOL}); outputs rounded otherwise than bf16 of the f32 "
+              f"result: kernel {shares['kernel']:.5f}, split P "
+              f"{shares['split']:.5f}, bf16 P {shares['bf16']:.5f}", flush=True)
+        if not excess <= FLASH_ATOL:
+            raise AssertionError(f"flash {label}: {excess} > {FLASH_ATOL}")
+        if not (shares["bf16"] > 4 * shares["split"]
+                and shares["kernel"] < (shares["split"] + shares["bf16"]) / 2):
+            raise AssertionError(f"flash {label}: P.V not kept at more than "
+                                 f"bf16 precision: {shares}")
+
+        def flash():
+            return ops.flash_attention(q, k, v, q_offset=off)
+
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         if off == 0:  # SDPA's causal mask is aligned top-left: offset 0 only
-            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
-                              SDPBackend.EFFICIENT_ATTENTION]):
-                lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True, enable_gqa=True))
+            def library():
+                return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                      enable_gqa=True)
+        else:  # a decode row (S 1) reads keys 0..q_offset: those, unmasked
+            assert s == 1
+            kt, vt = kt[:, :, :off + 1], vt[:, :, :off + 1]
+
+            def library():
+                return F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True)
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                          SDPBackend.EFFICIENT_ATTENTION]):
+            lib_err = float_err(library().transpose(1, 2), got)
+            if not lib_err <= FLASH_TOL:  # the yardstick computes the same
+                raise AssertionError(f"SDPA at {label} differs by {lib_err}")
+            lib_ms = time_ms(library, reps=FLASH_REPS)
+            lib_device_ms = device_ms_per_call(library)
+        device_ms = device_ms_per_call(flash)
+        print(f"  flash {label}: device ms a call (torch.profiler, mean of 50) "
+              f"kernel {device_ms:.5f}, SDPA {lib_device_ms:.5f}; SDPA differs "
+              f"by {lib_err:.3g}", flush=True)
         # admitted keys per query: min(T, q_offset + i + 1); the bytes are
         # q and out once and the K/V rows the mask admits once
         keys = sum(min(t, off + i + 1) for i in range(s))
         need = min(t, off + s)
         n_bytes = 2 * (2 * b * s * h * d + 2 * b * need * kv * d)
-        record("flash_attention", label, err,
-               time_ms(lambda: ops.flash_attention(q, k, v, q_offset=off)),
+        record("flash_attention", label, err, time_ms(flash, reps=FLASH_REPS),
                time_ms(lambda: ref.flash_attention(q, k, v, q_offset=off)),
                lib_ms, n_bytes, 4 * d * h * b * keys, main=main, tol=FLASH_TOL,
                ops_per_s=BF16_FLOPS_PER_S)
+        records["flash_attention"][-1].update(
+            scaled_excess=excess, p_rounding_shares=shares, device_ms=device_ms,
+            library_device_ms=lib_device_ms, library_max_abs_err=lib_err)
         del q, k, v
     for b, label, main in ((512, "serve_p99 (512, 39, 10)", False),
                            (262_144, "serve_bulk (262144, 39, 10)", True)):
@@ -378,7 +494,9 @@ def segment_bag_kernel_phase(ops, ref, records: dict, dst, dev) -> None:
     2,398,800 edges (``dst``, its real destinations, one node holding
     412,800 of them) into 971,865 nodes, at GatedGCN's width 70 (the main
     path), PNA's 75 and the degree counts' 1, with the plan built once as
-    the forward builds it; two calls must give the same bits.  The
+    the forward builds it; two calls must give the same bits.  The plan's
+    sort (``dedup_order`` of the destinations as int64) beside
+    ``torch.sort``.  The
     embedding bag at the FM's shapes: the first-order term of a
     ``serve_bulk`` batch, 262,144 x 39 ids into the (33,763,328, 1)
     weights (the main path), and the retrieval query, 1 x 39 ids into the
@@ -389,6 +507,14 @@ def segment_bag_kernel_phase(ops, ref, records: dict, dst, dev) -> None:
     gen = torch.Generator(device=dev).manual_seed(2)
     seg = torch.from_numpy(dst).to(dev)
     n, e = FULL_RESOURCES, seg.shape[0]
+    keys = seg.to(torch.int64)  # the plan's sort: 5 of 8 digits trivial
+    record("dedup_order", f"GNN plan: KG destinations E={e} as int64",
+           max_err(ops.dedup_order(keys), ref.dedup_order(keys)),
+           time_ms(lambda: ops.dedup_order(keys)),
+           time_ms(lambda: ref.dedup_order(keys)),
+           time_ms(lambda: torch.sort(keys, stable=True)),
+           12 * e, e * log2c(e))
+    del keys
     plan = ops.segment_plan(seg, n)
     idx = seg.to(torch.int64)
     for k, main in ((70, True), (75, False), (1, False)):
@@ -1009,11 +1135,13 @@ def fullsize_phase(ops, records: dict, kg: dict) -> dict:
 
 # device kernel names of each port kernel (csrc/*.cu)
 KERNEL_OF = {
-    "tile_sort": "dedup_order", "merge_pass": "dedup_order",
+    "radix_histogram": "dedup_order", "radix_plan": "dedup_order",
+    "radix_pass": "dedup_order",
     "search_kernel": "search_bounds", "rewrite_kernel": "rewrite_triples",
     "halve_kernel": "uf_compress", "finish_kernel": "uf_compress",
     "refresh_kernel": "uf_hook", "link_kernel": "uf_hook",
-    "flash_kernel": "flash_attention", "fm_kernel": "fm_interact",
+    "flash_kernel": "flash_attention", "flash_wgmma_kernel": "flash_attention",
+    "fm_kernel": "fm_interact",
     "seg_chunk_kernel": "segment_sum", "seg_carry_kernel": "segment_sum",
     "bag_kernel": "embedding_bag",
 }
@@ -1071,10 +1199,14 @@ def main() -> None:
                      "cuda": torch.version.cuda}
     print("build:", flush=True)
     built = _build.build_all(verbose=True)
+    # each device function's registers and spills, by ptxas
+    records["ptxas"] = {}
     for name, text in built["ptxas"].items():
-        for line in text.splitlines():
-            if "Used" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+        lines = [line.split(":", 1)[-1].strip() for line in text.splitlines()
+                 if "Compiling entry" in line or "Used" in line or "spill" in line]
+        records["ptxas"][name] = lines
+        for line in lines:
+            print(f"  {name}: {line}")
     print(f"  built {built['built']} in {built['seconds']:.1f} s", flush=True)
     records["build_s"] = built["seconds"]
 

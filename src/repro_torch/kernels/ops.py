@@ -18,6 +18,7 @@ synchronise; a non-zero ``cudaGetLastError`` after a launch raises.
 
 from __future__ import annotations
 
+import array
 import ctypes
 import dataclasses
 
@@ -36,7 +37,8 @@ _N = ctypes.c_longlong
 # C entry point -> (source in csrc/, launch counter, argument types without
 # the trailing stream)
 _ENTRIES = {
-    "dedup_order": ("dedup_order", "dedup_order", (_P, _N, _P, _P, _P, _P)),
+    "dedup_order": ("dedup_order", "dedup_order",
+                    (_P, _N, _P, _P, _P, _P, _P, _N, _P)),
     "search_bounds": ("search_bounds", "search_bounds", (_P, _N, _P, _N, _P, _P)),
     "prefix_range_bounds": ("search_bounds", "search_bounds",
                             (_P, _N, ctypes.c_int, _P, _N, _P, _P)),
@@ -45,9 +47,7 @@ _ENTRIES = {
     "uf_compress": ("union_find", "uf_compress", (_P, _N)),
     "uf_hook": ("union_find", "uf_hook", (_P, _N, _P, _P, _P, _N, _P)),
     "flash_attention": ("flash_attention", "flash_attention",
-                        (_P, _P, _P, _P, _N, _N, _N, _N, _N, _N, _N, _N, _N,
-                         _N, _N, _N, _N, _N, ctypes.c_int, _N, ctypes.c_float,
-                         ctypes.c_int, ctypes.c_int)),
+                        (_P, ctypes.c_float)),  # 22 int64 arguments packed
     "fm_interact": ("fm_interact", "fm_interact",
                     (_P, _P, _N, ctypes.c_int, ctypes.c_int, ctypes.c_int)),
     "segment_sum": ("segment_sum", "segment_sum",
@@ -65,19 +65,36 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _launch(fn: str, device: torch.device, *args) -> None:
-    """Call one C entry point on ``device``'s current stream, raise on a
-    non-zero ``cudaGetLastError``, and count the launch."""
-    source, counter, argtypes = _ENTRIES[fn]
-    entry = getattr(library(source), fn)
-    if entry.argtypes is None:
+_entry_points: dict = {}
+
+
+def _entry(fn: str):
+    """The typed ctypes function of one C entry point, loaded once."""
+    entry = _entry_points.get(fn)
+    if entry is None:
+        source, _, argtypes = _ENTRIES[fn]
+        entry = getattr(library(source), fn)
         entry.argtypes = (*argtypes, _P)
         entry.restype = ctypes.c_int
-    with torch.cuda.device(device):
-        err = entry(*args, torch.cuda.current_stream(device).cuda_stream)
+        _entry_points[fn] = entry
+    return entry
+
+
+def _launch(fn: str, device: torch.device, *args) -> None:
+    """Call one C entry point on ``device``'s current stream, raise on a
+    non-zero ``cudaGetLastError``, and count the launch.  The host work per
+    call is kept small (a cached entry point, the raw stream handle, the
+    device switched only when it is not the current one): a small kernel's
+    call time is mostly this."""
+    entry = _entry(fn)
+    if device.index != torch.cuda.current_device():
+        with torch.cuda.device(device):
+            err = entry(*args, torch._C._cuda_getCurrentRawStream(device.index))
+    else:
+        err = entry(*args, torch._C._cuda_getCurrentRawStream(device.index))
     if err != 0:
         raise RuntimeError(f"CUDA kernel {fn} failed to launch: error {err}")
-    LAUNCHES[counter] += 1
+    LAUNCHES[_ENTRIES[fn][1]] += 1
 
 
 def _ptr(t: torch.Tensor | None):
@@ -107,17 +124,32 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
         raise ValueError(f"{name} must be contiguous")
 
 
+def dedup_order_scratch_words(n: int) -> int:
+    """32-bit scratch words the dedup_order kernel needs for ``n`` keys, as
+    its source lays them out (digit counts, plans, tile status words)."""
+    entry = library("dedup_order").dedup_order_scratch_words
+    entry.argtypes = (_N,)
+    entry.restype = _N
+    return entry(n)
+
+
 def dedup_order(keys: torch.Tensor) -> torch.Tensor:
     """Stable ascending permutation (int32) of int64 ``keys``."""
     _check(keys, "keys", torch.int64, 1)
     if not _on_card(keys):
         return ref.dedup_order(keys)
     n = keys.shape[0]
-    out = torch.empty(n, dtype=torch.int32, device=keys.device)
-    kbuf = torch.empty((2, n), dtype=torch.int64, device=keys.device)
-    ibuf = torch.empty(n, dtype=torch.int32, device=keys.device)
-    _launch("dedup_order", keys.device, keys.data_ptr(), n, kbuf[0].data_ptr(),
-            kbuf[1].data_ptr(), ibuf.data_ptr(), out.data_ptr())
+    if n >= 1 << 31:
+        raise ValueError(f"dedup_order kernel: {n} keys, want < 2^31")
+    dev = keys.device
+    out = torch.empty(n, dtype=torch.int32, device=dev)
+    kbuf = torch.empty((2, n), dtype=torch.int64, device=dev)
+    ibuf = torch.empty((2, n), dtype=torch.int32, device=dev)
+    scratch = torch.zeros(dedup_order_scratch_words(n), dtype=torch.int32,
+                          device=dev)
+    _launch("dedup_order", dev, keys.data_ptr(), n, kbuf[0].data_ptr(),
+            kbuf[1].data_ptr(), ibuf[0].data_ptr(), ibuf[1].data_ptr(),
+            scratch.data_ptr(), scratch.numel(), out.data_ptr())
     return out
 
 
@@ -256,15 +288,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     of the KV arena needs no copy); it wants the last dimension contiguous,
     16-byte aligned rows and D in ``FLASH_HEAD_DIMS``.
     """
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dim() != 4 or t.dtype not in _FLOATS:
+    # every tensor attribute is read once: at the server's prefill shapes
+    # the host work of this call costs more than the kernel
+    shapes = (q.shape, k.shape, v.shape)
+    dtype = q.dtype
+    for name, x, shape in zip("qkv", (q, k, v), shapes):
+        if len(shape) != 4 or x.dtype not in _FLOATS:
             raise TypeError(f"{name}: want a 4-d float32 or bfloat16 tensor, "
-                            f"got {t.dim()}-d {t.dtype}")
-    if not (q.dtype == k.dtype == v.dtype):
+                            f"got {len(shape)}-d {x.dtype}")
+    if k.dtype != dtype or v.dtype != dtype:
         raise TypeError(f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
-    b, s, h, d = q.shape
-    t, kv = k.shape[1], k.shape[2]
-    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+    b, s, h, d = shapes[0]
+    _, t, kv, _ = shapes[1]
+    if shapes[1] != shapes[2] or shapes[1][0] != b or shapes[1][3] != d:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
     if kv == 0 or h % kv:
         raise ValueError(f"{h} query heads do not divide into {kv} KV heads")
@@ -276,19 +312,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if d not in FLASH_HEAD_DIMS:
         raise ValueError(f"flash kernel: head dim {d} not in {FLASH_HEAD_DIMS}")
     vec = 16 // q.element_size()
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.stride(3) != 1 or any(st % vec for st in x.stride()[:3]) \
-                or x.data_ptr() % 16:
+    qst, kst, vst = q.stride(), k.stride(), v.stride()
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    for name, st, ptr in zip("qkv", (qst, kst, vst), ptrs):
+        if st[3] != 1 or st[0] % vec or st[1] % vec or st[2] % vec or ptr % 16:
             raise ValueError(f"flash kernel: {name} needs a contiguous last "
                              "dimension and 16-byte aligned rows")
-    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
     if out.numel() == 0 or t == 0:
         return out.zero_()
-    _launch("flash_attention", q.device, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), out.data_ptr(), b, s, t, h, kv,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            int(causal), q_offset, 1.0 / d**0.5, d,
-            int(q.dtype == torch.bfloat16))
+    args = array.array("q", (*ptrs, out.data_ptr(), b, s, t, h, kv, qst[0], qst[1],
+                             qst[2], kst[0], kst[1], kst[2], vst[0], vst[1], vst[2],
+                             int(causal), q_offset, d, dtype == torch.bfloat16))
+    _launch("flash_attention", q.device, args.buffer_info()[0], 1.0 / d**0.5)
     return out
 
 

@@ -1,10 +1,11 @@
 """The hand-written kernels, the engine, the two serving paths and the GNNs
 on the card: each kernel equals its plain version on the same CUDA tensors
-(exactly for the integer kernels; for flash attention within 2e-2 in bf16
-and 1e-5 in f32, for the FM interaction within rtol 1e-5; for the segment
-sum and the embedding bag within 1e-5 of the sum of the absolute values
-summed, f32 sums in another order), and a run on the card equals the run on
-the CPU.  Needs an NVIDIA card with nvcc; skipped elsewhere.
+(exactly for the integer kernels; for flash attention within 2e-2 and
+within rtol 2^-7 plus 1e-4 in bf16, with P.V kept at more than bf16
+precision, and within 1e-5 in f32; for the FM interaction within rtol
+1e-5; for the segment sum and the embedding bag within 1e-5 of the sum of
+the absolute values summed, f32 sums in another order), and a run on the
+card equals the run on the CPU.  Needs an NVIDIA card with nvcc; skipped elsewhere.
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -27,6 +28,7 @@ from repro_torch.serve import Request, ServeEngine
 
 pytestmark = pytest.mark.cuda
 KEY_MAX = (1 << 63) - 1
+RADIX_TILE = 4096  # keys a block of the dedup_order kernel sorts
 
 
 @pytest.fixture
@@ -41,15 +43,64 @@ def _same(a, b):
         assert torch.equal(x.cpu(), y.cpu())
 
 
-@pytest.mark.parametrize("n", [1, 2047, 2049, 100_003])
+def _check_dedup(keys):
+    """The kernel's order is torch's stable argsort, bit for bit, and the
+    call counts one launch."""
+    before = ops.LAUNCHES["dedup_order"]
+    got = ops.dedup_order(keys)
+    assert ops.LAUNCHES["dedup_order"] == before + 1
+    assert got.dtype == torch.int32
+    assert torch.equal(got, torch.argsort(keys, stable=True).to(torch.int32))
+    return got
+
+
+@pytest.mark.parametrize("n", [1, 2, 2047, 2049, RADIX_TILE - 1,
+                               RADIX_TILE + 1, 100_003, (1 << 20) + 3,
+                               (1 << 24) + 1])
 def test_dedup_order(dev, n):
     rng = np.random.default_rng(n)
     keys = torch.from_numpy(rng.integers(0, 1 << 40, n)).to(dev)
     keys[rng.integers(0, n, n // 3)] = 7
     keys[-max(n // 8, 1):] = KEY_MAX
-    before = ops.LAUNCHES["dedup_order"]
-    _same([ops.dedup_order(keys)], [ref.dedup_order(keys)])
-    assert ops.LAUNCHES["dedup_order"] == before + 1
+    _same([_check_dedup(keys)], [ref.dedup_order(keys)])
+
+
+def test_dedup_order_tile_is_the_sources(dev):
+    """The kernel's scratch grows by one tile's status words at every
+    RADIX_TILE keys, so the edge cases above sit at its tile edges."""
+    words = ops.dedup_order_scratch_words
+    assert words(1) == words(RADIX_TILE) < words(RADIX_TILE + 1)
+
+
+def _dedup_keys(pattern: str, n: int) -> np.ndarray:
+    rng = np.random.default_rng(len(pattern))
+    if pattern == "all_equal":
+        return np.full(n, -12345, dtype=np.int64)
+    if pattern == "negative":  # the whole int64 range, LLONG_MIN included
+        keys = rng.integers(-(1 << 63), (1 << 63) - 1, n, dtype=np.int64)
+        keys[rng.integers(0, n, 64)] = -(1 << 63)
+        keys[rng.integers(0, n, 64)] = -1
+        return keys
+    if pattern == "minus_one_zero_max":
+        return rng.choice(np.array([-1, 0, KEY_MAX], dtype=np.int64), n)
+    if pattern == "one_middle_digit":  # all digits but bits 24-31 trivial
+        return (np.int64(0x0123_4567_0089_ABCD)
+                | (rng.integers(0, 256, n).astype(np.int64) << 24))
+    if pattern == "segment_ids":  # the GNN plan in small: a 17 % hub and
+        seg = rng.integers(0, 50_000, n).astype(np.int32)  # ids out of range
+        seg[rng.random(n) < 0.17] = 4242
+        seg[rng.random(n) < 0.01] = -1
+        seg[rng.random(n) < 0.005] = -7
+        return seg.astype(np.int64)
+    raise ValueError(pattern)
+
+
+@pytest.mark.parametrize("pattern", ["all_equal", "negative", "minus_one_zero_max",
+                                     "one_middle_digit", "segment_ids"])
+def test_dedup_order_key_patterns(dev, pattern):
+    keys = torch.from_numpy(_dedup_keys(pattern, 300_007)).to(dev)
+    first = _check_dedup(keys)
+    assert torch.equal(first, _check_dedup(keys))  # two calls, the same bits
 
 
 def test_search_and_prefix(dev):
@@ -119,6 +170,16 @@ def test_engine_on_card_equals_cpu(dev, name):
     (4, 1, 300, 9, 3, 64, True, 211),      # decode row at an offset
     (2, 33, 77, 8, 2, 128, True, 5),       # D 128, ragged tiles
     (2, 70, 70, 4, 4, 64, False, 0),       # not causal
+    (1, 22, 22, 3, 1, 64, True, 0),        # 66 flat rows: two warpgroups, one nearly idle
+    (1, 1000, 1000, 9, 3, 64, True, 0),    # G 3: flat rows of a query split across blocks
+    (2, 45, 130, 6, 2, 128, True, 85),     # D 128, q_offset > 0, T = q_offset + S
+    (1, 129, 200, 12, 4, 64, False, 0),    # not causal, S and T not multiples of 64
+    (3, 1, 77, 9, 3, 128, True, 60),       # decode step, D 128
+    # grids of at least two blocks an SM: the long-prefill route
+    (4, 2048, 2048, 9, 3, 64, True, 0),
+    (4, 2048, 2048, 9, 3, 128, True, 0),
+    (2, 2000, 1900, 12, 4, 64, False, 0),  # not causal, ragged S and T
+    (3, 1500, 2100, 9, 3, 128, True, 600),  # q_offset > 0
 ])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_attention(dev, b, s, t, h, kv, d, causal, q_offset, dtype):
@@ -132,6 +193,61 @@ def test_flash_attention(dev, b, s, t, h, kv, d, causal, q_offset, dtype):
     assert ops.LAUNCHES["flash_attention"] == before + 1
     atol = 2e-2 if dtype == torch.bfloat16 else 1e-5
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+    if dtype == torch.bfloat16:  # and one rounding of the output apart
+        torch.testing.assert_close(got.float(), want.float(), atol=FLASH_ATOL,
+                                   rtol=FLASH_RTOL)
+
+
+FLASH_RTOL = 2.0**-7  # one bf16 rounding of the value
+FLASH_ATOL = 1e-4     # well under the spread of an output row at 32k keys
+
+
+def _attention_f32(q, k, v, causal, q_offset, p_kind):
+    """Attention in f32 from whole score matrices, with P.V taken from P in
+    f32 (``"f32"``), from bf16(P) (``"bf16"``) or from bf16(P) plus
+    bf16(P - bf16(P)) (``"split"``)."""
+    b, s, h, d = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    scores = torch.einsum("bskgd,btkd->bkgst", q.float().reshape(b, s, kv, h // kv, d),
+                          k.float()) / d**0.5
+    if causal:
+        q_pos = q_offset + torch.arange(s, device=q.device)
+        keep = q_pos[:, None] >= torch.arange(t, device=q.device)[None, :]
+        scores = torch.where(keep, scores, -1e30)
+    p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    if p_kind != "f32":
+        hi = p.to(torch.bfloat16).float()
+        p = hi if p_kind == "bf16" else hi + (p - hi).to(torch.bfloat16).float()
+    o = torch.einsum("bkgst,btkd->bskgd", p, v.float()) / l.permute(0, 3, 1, 2, 4)
+    return o.reshape(b, s, h, d)
+
+
+@pytest.mark.parametrize("b,s,t,h,kv,d,long_route", [
+    (1, 512, 512, 9, 3, 64, False),   # the LM server's prefill: split KV
+    (4, 2048, 2048, 9, 3, 64, True),
+    (4, 2048, 2048, 9, 3, 128, True),
+])
+def test_flash_attention_keeps_p_in_f32(dev, b, s, t, h, kv, d, long_route):
+    """The bf16 route splits P into two bf16 halves for P.V.  Against
+    bf16 of the f32 reference, a kernel that took P.V from bf16(P) would
+    round many more outputs the other way; the kernel's share of outputs
+    rounded otherwise must lie below the midpoint of the two schemes'."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert (-(-s * (h // kv) // 128) * kv * b >= 2 * sms) == long_route
+    g = torch.Generator(device=dev).manual_seed(s + d)
+    q, k, v = (torch.randn(b, n, heads, d, generator=g, device=dev).to(torch.bfloat16)
+               for n, heads in ((s, h), (t, kv), (t, kv)))
+    want = _attention_f32(q, k, v, True, 0, "f32").to(torch.bfloat16)
+
+    def share(out):
+        return float((out != want).float().mean())
+
+    got = share(ops.flash_attention(q, k, v))
+    split = share(_attention_f32(q, k, v, True, 0, "split").to(torch.bfloat16))
+    rounded = share(_attention_f32(q, k, v, True, 0, "bf16").to(torch.bfloat16))
+    assert rounded > 4 * split, (split, rounded)  # the inputs tell them apart
+    assert got < (split + rounded) / 2, (got, split, rounded)
 
 
 def test_flash_attention_reads_a_cache_layer_in_place(dev):

@@ -132,3 +132,25 @@ def test_gnn_entry_points_without_a_card_raise_unless_cpu_is_asked(monkeypatch):
     for name in ("egnn", "dimenet"):
         with pytest.raises(KeyError, match="8c"):
             get_arch(name)
+
+
+CSRC = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
+LIBRARY_INCLUDE = re.compile(
+    r'^\s*#\s*include\s*[<"]([^>"]*(cub/|thrust/|cublas|cudnn|gemm/device|'
+    r'gemm/kernel|gemm/collective)[^>"]*)[>"]', re.M | re.I)
+REPLACES = re.compile(r"Replaces:\s*(src/repro/kernels/\w+\.py),\s*(\w+)")
+
+
+@pytest.mark.parametrize("name", sorted(p.name for p in CSRC.glob("*.cu")))
+def test_kernel_source_is_hand_written(name):
+    """Each kernel source includes no library's sort, GEMM or attention
+    (CUB, Thrust, cuBLAS, cuDNN, a CUTLASS device, kernel or collective
+    GEMM) and names the Pallas kernel's function that it replaces."""
+    text = (CSRC / name).read_text()
+    hit = LIBRARY_INCLUDE.search(text)
+    assert hit is None, f"{name} includes {hit.group(1)}"
+    found = REPLACES.search(text)
+    assert found, f"{name} names no src/repro/kernels function that it replaces"
+    path, fn = found.groups()
+    assert re.search(rf"^def {fn}\(", (ROOT / path).read_text(), re.M), \
+        f"{name}: {path} defines no {fn}"
