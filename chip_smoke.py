@@ -17,25 +17,30 @@ prints no result):
    also within one output rounding of its plain version, and with P.V at
    more than bf16 precision: fewer of its outputs round otherwise than
    bf16 of the f32 result than halfway between P split into two bf16
-   halves and P in bf16.  Times from CUDA events (median of single calls)
-   for the kernel, its plain version and one PyTorch call as a yardstick,
-   beside the least time the card could take; for flash and SDPA also
-   the device time a call under torch.profiler;
+   halves and P in bf16.  The search in each form (one side, both
+   sides, sorted and random queries, the prefix form on random and sorted
+   rows) bit-equal to its plain version.  Times from CUDA events (median
+   of single calls) for the kernel, its plain version and the PyTorch
+   calls that compute the same function as a yardstick, beside the least
+   time the card could take; for flash, SDPA, the segment sum and
+   ``index_add_`` also the device time a call under torch.profiler;
 4. mid-size: the default ``opencyc_like`` and ``merge_like`` profiles on the
    card equal the same run on the CPU (triples, rho, counters);
 5. REW at full size: ``opencyc_like`` at OpenCyc's scale (2.4 M explicit
    triples, 361,200 merged resources) materialised on the card through
    :class:`repro_torch.TorchEngine`; its wall time is the end-to-end
    number.  Structural checks of the result; two more runs for the wall's
-   spread and one under ``torch.profiler`` for the device's busy time; and
+   spread, then (at the end) one under ``torch.profiler`` for the device's
+   busy time and one counting the search calls by form, order and size
+   with each one's device time; and
    the same run on the CPU (the kernels' plain versions) must give the same
    triples, rho and counters;
 6. LM serving at full width: SmolLM-135M (random weights from seed 0) with
    the flash kernel behind ``ServeEngine`` (16 slots, 1024 rows) answers 64
    requests of 32-512 prompt tokens and 32 new tokens; wall, tokens per
-   second, peak memory, then a profiled rerun for the device's and the flash
-   kernel's share; the card's teacher-forced logits of two requests equal
-   the CPU's within a stated tolerance;
+   second, peak memory; the card's teacher-forced logits of two requests
+   equal the CPU's within a stated tolerance; at the end a profiled rerun
+   for the device's and the flash kernel's share;
 7. FM serving at full scale: the Criteo-scale FM (33,763,328 table rows,
    seeded non-zero first-order weights) with the FM kernel and the
    embedding bag serves a batch of 512 and one of 262,144 through a rho
@@ -49,12 +54,18 @@ prints no result):
    then at full size, from phase 5's facts and rho, the raw graph (2.4 M
    edges) and the deduplicated one: the dedup's time, GatedGCN at full
    width (16 layers) on both (wall, edges/s, peak memory, in-degree),
-   a profiled rerun for the segment sum's share, PNA on the deduplicated
-   graph; 32 segment-sum launches a GatedGCN forward, and two card runs
-   bit-equal.
+   a profiled rerun for the segment sum's share and the segment plan's
+   sort and search, PNA on the deduplicated graph; 32 segment-sum launches
+   a GatedGCN forward, and two card runs bit-equal.
 
 Each path's launch counters are set to 0 just before its run and read just
-after.
+after.  Every wall and every CUDA-event time is taken before the process's
+first torch.profiler session: a finished profiler session leaves host cost
+on every later launch, which the host-bound REW and LM walls would carry.
+So phase 8 profiles its forward after its own walls, the profiled reruns
+of phases 5 and 6, the search census and the kernels' device times run
+after phase 8, and phase 6 then times its traffic once more to show that
+cost.
 Then one JSON line ``{"kernels": [...]}`` and, last, the device line.  The
 full record goes to ``chiprun_out/chip_smoke.json``.
 """
@@ -69,6 +80,7 @@ import time
 from pathlib import Path
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -163,18 +175,16 @@ def recorder(records: dict):
 
 
 def kernel_phase(ops, ref, records: dict, dev) -> None:
-    """Each kernel against its plain version, at the issue's shapes and at
-    the shapes the full-size main path gives it (``main=True``: the stream
-    of 4 * (out_cap + rewrite_cap) + 1 = 2^25 + 1 keys, the arena of 2^22 + 1
-    rows, rho of 971,865 resources, a pair buffer of out_cap rows); the sort
-    also on 2^24 + 1 keys over the whole signed range."""
-    from repro_torch.core.uf import merge_pairs_np
-
+    """The REW kernels against their plain versions, here and in the two
+    functions below, at the shapes the full-size main path gives them
+    (``main=True``: the stream of 4 * (out_cap + rewrite_cap) + 1 = 2^25 + 1
+    keys, the arena of 2^22 + 1 rows, rho of 971,865 resources, a pair
+    buffer of out_cap rows); the sort also on 2^24 + 1 keys over the whole
+    signed range."""
     gen = torch.Generator(device=dev).manual_seed(0)
-
     record = recorder(records)
 
-    # 1. stable dedup order: packed keys, duplicates, KEY_MAX tail
+    # stable dedup order: packed keys, duplicates, KEY_MAX tail
     stream = 4 * (FULL_CAP + FULL_CAP) + 1
     for n, label in ((1 << 20, "2^20"), (1 << 24, "2^24"),
                      (stream, "2^25+1")):
@@ -200,36 +210,78 @@ def kernel_phase(ops, ref, records: dict, dev) -> None:
            time_ms(lambda: torch.sort(keys, stable=True)),
            12 * n, n * log2c(n))
 
-    # 2. sorted-key search: 2^22 random queries into a 2^22-key index, and
-    # the membership probe: the sorted stream into the arena index
-    for n, v, label, main in ((1 << 22, 1 << 22, "n=2^22,v=2^22", False),
-                              (stream, FULL_CAP + 1,
-                               "n=2^25+1 sorted,v=2^22+1", True)):
-        keys = torch.sort(packed_keys(gen, v, 1 << 20, dev)).values
-        keys[-(v // 8):] = KEY_MAX
+
+
+def search_kernel_phase(ops, ref, records: dict, dev) -> None:
+    """The sorted-key search at the full-size REW path's shapes."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    record = recorder(records)
+    stream = 4 * (FULL_CAP + FULL_CAP) + 1
+    # sorted-key search into the arena index (2^22+1 keys, a KEY_MAX
+    # tail of v/8), each form against the PyTorch calls that compute the
+    # same function: the membership probe (the main path: the sorted
+    # stream, one side) against one torch.searchsorted; both sides, sorted
+    # and at 2^22 random queries, against two (left and right); the prefix
+    # form against two on the packed low and high keys, as its plain
+    # version does (the packing is left out of the library's time).  The
+    # bytes: each query (8) and key (8) read once, 4 a side a query written.
+    v = FULL_CAP + 1
+    keys = torch.sort(packed_keys(gen, v, 1 << 20, dev)).values
+    keys[-(v // 8):] = KEY_MAX
+
+    def search_queries(n):
         hits = keys[torch.randint(0, v, (n // 2,), generator=gen, device=dev)]
-        queries = torch.cat([hits, packed_keys(gen, n - n // 2, 1 << 20, dev)])
-        if main:
-            queries = torch.sort(queries).values
-        err = max_err(ops.search_bounds(queries, keys),
-                      ref.search_bounds(queries, keys))
-        record("search_bounds", label, err,
-               time_ms(lambda: ops.search_bounds(queries, keys)),
-               time_ms(lambda: ref.search_bounds(queries, keys)),
-               time_ms(lambda: torch.searchsorted(keys, queries)),
-               8 * n + 8 * v + 8 * n, 2 * n * log2c(v + 1), main=main)
-    n = v = 1 << 22
+        return torch.cat([hits, packed_keys(gen, n - n // 2, 1 << 20, dev)])
+
+    def both_sides(queries):
+        return (torch.searchsorted(keys, queries),
+                torch.searchsorted(keys, queries, side="right"))
+
+    queries = torch.sort(search_queries(stream)).values
+    n = queries.shape[0]
+    want = ref.search_bounds(queries, keys)
+    err = max(max_err(ops.searchsorted(keys, queries), want[0]),
+              max_err(ops.searchsorted(keys, queries, side="right"), want[1]))
+    record("search_bounds", "one side (left), n=2^25+1 sorted, v=2^22+1", err,
+           time_ms(lambda: ops.searchsorted(keys, queries)),
+           time_ms(lambda: ref.search_bounds(queries, keys)),
+           time_ms(lambda: torch.searchsorted(keys, queries)),
+           8 * n + 8 * v + 4 * n, n * log2c(v + 1), main=True)
+    for label, q in (("both sides, n=2^25+1 sorted, v=2^22+1", queries),
+                     ("both sides, n=2^22 random, v=2^22+1", search_queries(1 << 22))):
+        n = q.shape[0]
+        record("search_bounds", label,
+               max_err(ops.search_bounds(q, keys), ref.search_bounds(q, keys)),
+               time_ms(lambda: ops.search_bounds(q, keys)),
+               time_ms(lambda: ref.search_bounds(q, keys)),
+               time_ms(lambda: both_sides(q)),
+               8 * n + 8 * v + 8 * n, 2 * n * log2c(v + 1))
+    del queries, want
+    n = 1 << 22
     rows = torch.stack([keys[:v] >> 42, (keys[:v] >> 21) & ((1 << 21) - 1)], dim=1)
     prefix = rows[torch.randint(0, v, (n,), generator=gen, device=dev)]
-    prefix = prefix.to(torch.int32).contiguous()
-    err = max_err(ops.prefix_range_bounds(prefix, keys),
-                  ref.prefix_range_bounds(prefix, keys))
-    record("search_bounds", "prefix form n=2^22,k=2,v=2^22+1", err,
-           time_ms(lambda: ops.prefix_range_bounds(prefix, keys)),
-           time_ms(lambda: ref.prefix_range_bounds(prefix, keys)),
-           None, 8 * n + 8 * v + 8 * n, 2 * n * log2c(v + 1))
+    for order, prefix in (("random", prefix.to(torch.int32).contiguous()),
+                          ("sorted", rows[:n].to(torch.int32).contiguous())):
+        lo = (prefix[:, 0].long() << 42) | (prefix[:, 1].long() << 21)
+        hi = lo | ((1 << 21) - 1)
+        record("search_bounds", f"prefix form, n=2^22 {order} rows, k=2, v=2^22+1",
+               max_err(ops.prefix_range_bounds(prefix, keys),
+                       ref.prefix_range_bounds(prefix, keys)),
+               time_ms(lambda: ops.prefix_range_bounds(prefix, keys)),
+               time_ms(lambda: ref.prefix_range_bounds(prefix, keys)),
+               time_ms(lambda: (torch.searchsorted(keys, lo),
+                                torch.searchsorted(keys, hi, side="right"))),
+               8 * n + 8 * v + 8 * n, 2 * n * log2c(v + 1))
+    del rows, prefix, keys
 
-    # 3. rewrite: candidates and the arena sweep under a rho of 971,865
+
+def rew_kernel_phase(ops, ref, records: dict, dev) -> None:
+    """Rewrite and union-find at the full-size REW path's shapes."""
+    from repro_torch.core.uf import merge_pairs_np
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    record = recorder(records)
+    # rewrite: candidates and the arena sweep under a rho of 971,865
     # resources merged in 8-cliques (each maps to its minimum)
     V = FULL_RESOURCES
     rho = torch.arange(V, dtype=torch.int32, device=dev) // 8 * 8
@@ -253,7 +305,7 @@ def kernel_phase(ops, ref, records: dict, dev) -> None:
                12 * n + 4 * V + mask_bytes + 12 * n + n, 4 * n,
                main=form == "sweep")
 
-    # 4. union-find.  Main path: 51,600 8-cliques given as all 64 ordered
+    # union-find.  Main path: 51,600 8-cliques given as all 64 ordered
     # pairs each (the idProp rule's output) in a pair buffer of out_cap
     # rows, over 971,865 resources.  Stress: 2^20 resources whose 8-cliques
     # are hooked pairwise (x, x+1), plus one 2^16-long chain.
@@ -366,15 +418,35 @@ def p_rounding_shares(q, k, v, q_offset: int, got: torch.Tensor) -> dict:
     return {key: n / got.numel() for key, n in differ.items()}
 
 
+def profiled(fn):
+    """``fn()`` twice under torch.profiler, keeping the second run's trace:
+    CUPTI can miss the first kernels launched after tracing starts (a
+    profiled GNN forward has lost its first two, the segment plan's sort
+    and search), so the first run is the profiler's warm-up step.  Returns
+    the profile, the kept run's host wall (it ends in a synchronise) and
+    its result."""
+    sched = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=sched) as prof:
+        for _ in range(2):
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            prof.step()
+    return prof, wall, out
+
+
 def device_ms_per_call(fn, calls: int = 50) -> float:
     """Device time of one call of ``fn``: all its kernels, under
-    torch.profiler, averaged over ``calls`` calls after a warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    torch.profiler, averaged over ``calls`` calls after a warm-up step of
+    as many (sessions in quick succession can lose every kernel of a
+    short one otherwise)."""
+    def run():
         for _ in range(calls):
             fn()
-        torch.cuda.synchronize()
+
+    prof, _, _ = profiled(run)
     busy = device_time(prof, 1.0)["busy_ms"]
     if busy <= 0:
         raise AssertionError("torch.profiler saw no device time")
@@ -384,7 +456,25 @@ def device_ms_per_call(fn, calls: int = 50) -> float:
 FM_TOL_REL = 1e-5  # f32 sums in another order
 
 
-def serving_kernel_phase(ops, ref, records: dict, dev) -> None:
+def flash_calls(ops, q, k, v, off: int):
+    """The flash kernel on (q, k, v) at ``off`` and SDPA on the same
+    attention: causal at offset 0; for a decode row (S 1), on the keys
+    up to q_offset, unmasked (SDPA's causal mask is aligned top-left)."""
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    if off:
+        assert q.shape[1] == 1
+        kt, vt = kt[:, :, :off + 1], vt[:, :, :off + 1]
+
+    def flash():
+        return ops.flash_attention(q, k, v, q_offset=off)
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=not off,
+                                              enable_gqa=True)
+    return flash, library
+
+
+def serving_kernel_phase(ops, ref, records: dict, dev, later: list) -> None:
     """Flash attention at SmolLM-135M's heads (9 over 3 KV heads, D 64,
     bf16): the server's prefill of 512 tokens (the main path's shape: the
     server prefills each request alone), a prefill of 32,768 tokens
@@ -392,8 +482,12 @@ def serving_kernel_phase(ops, ref, records: dict, dev) -> None:
     1,024-row cache at q_offset 700; the FM interaction at the FM's
     ``serve_p99`` and ``serve_bulk`` batches (39 fields, K 10, f32).
     SDPA is flash's yardstick: causal at offset 0, and for the decode
-    step on the keys up to q_offset, unmasked."""
+    step on the keys up to q_offset, unmasked.  The device times under
+    torch.profiler go to ``later``."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    backends = [SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                SDPBackend.EFFICIENT_ATTENTION]
 
     record = recorder(records)
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -423,31 +517,13 @@ def serving_kernel_phase(ops, ref, records: dict, dev) -> None:
             raise AssertionError(f"flash {label}: P.V not kept at more than "
                                  f"bf16 precision: {shares}")
 
-        def flash():
-            return ops.flash_attention(q, k, v, q_offset=off)
-
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        if off == 0:  # SDPA's causal mask is aligned top-left: offset 0 only
-            def library():
-                return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                      enable_gqa=True)
-        else:  # a decode row (S 1) reads keys 0..q_offset: those, unmasked
-            assert s == 1
-            kt, vt = kt[:, :, :off + 1], vt[:, :, :off + 1]
-
-            def library():
-                return F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True)
-        with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
-                          SDPBackend.EFFICIENT_ATTENTION]):
+        flash, library = flash_calls(ops, q, k, v, off)
+        with sdpa_kernel(backends):
             lib_err = float_err(library().transpose(1, 2), got)
             if not lib_err <= FLASH_TOL:  # the yardstick computes the same
                 raise AssertionError(f"SDPA at {label} differs by {lib_err}")
             lib_ms = time_ms(library, reps=FLASH_REPS)
-            lib_device_ms = device_ms_per_call(library)
-        device_ms = device_ms_per_call(flash)
-        print(f"  flash {label}: device ms a call (torch.profiler, mean of 50) "
-              f"kernel {device_ms:.5f}, SDPA {lib_device_ms:.5f}; SDPA differs "
-              f"by {lib_err:.3g}", flush=True)
+        print(f"  flash {label}: SDPA differs by {lib_err:.3g}", flush=True)
         # admitted keys per query: min(T, q_offset + i + 1); the bytes are
         # q and out once and the K/V rows the mask admits once
         keys = sum(min(t, off + i + 1) for i in range(s))
@@ -457,9 +533,25 @@ def serving_kernel_phase(ops, ref, records: dict, dev) -> None:
                time_ms(lambda: ref.flash_attention(q, k, v, q_offset=off)),
                lib_ms, n_bytes, 4 * d * h * b * keys, main=main, tol=FLASH_TOL,
                ops_per_s=BF16_FLOPS_PER_S)
-        records["flash_attention"][-1].update(
-            scaled_excess=excess, p_rounding_shares=shares, device_ms=device_ms,
-            library_device_ms=lib_device_ms, library_max_abs_err=lib_err)
+        entry = records["flash_attention"][-1]
+        entry.update(scaled_excess=excess, p_rounding_shares=shares,
+                     library_max_abs_err=lib_err)
+
+        def device_times(entry=entry, label=label, shapes=(q.shape, k.shape), off=off):
+            # inputs made anew: the job runs after every path, whose peak
+            # memory must not hold these
+            g = torch.Generator(device=dev).manual_seed(1)
+            q, k, v = (torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+                       for shape in (shapes[0], shapes[1], shapes[1]))
+            flash, library = flash_calls(ops, q, k, v, off)
+            with sdpa_kernel(backends):
+                entry["library_device_ms"] = device_ms_per_call(library)
+            entry["device_ms"] = device_ms_per_call(flash)
+            print(f"  flash {label}: device ms a call (torch.profiler, mean of "
+                  f"50) kernel {entry['device_ms']:.5f}, SDPA "
+                  f"{entry['library_device_ms']:.5f}", flush=True)
+
+        later.append(device_times)
         del q, k, v
     for b, label, main in ((512, "serve_p99 (512, 39, 10)", False),
                            (262_144, "serve_bulk (262144, 39, 10)", True)):
@@ -474,29 +566,30 @@ def serving_kernel_phase(ops, ref, records: dict, dev) -> None:
 
 
 SUM_TOL_REL = 1e-5  # f32 sums in another order: of the sum of |terms|
+BF16_TOL_REL = 2.0**-7  # and each rounded once to bf16: one rounding apart
 SECTOR = 32  # bytes: the least a random read moves from device memory
 
 
-def _sum_err(got, want, abs_sum) -> tuple[float, float]:
+def _sum_err(got, want, abs_sum, rel: float = SUM_TOL_REL) -> tuple[float, float]:
     """The largest absolute difference of two f32 sums of the same terms,
-    and the limit it is held to: ``SUM_TOL_REL`` of the largest sum of
-    |terms|.  Raises if any value differs by more than ``SUM_TOL_REL`` of
-    its own sum of |terms| (plus 1e-6)."""
+    and the limit it is held to: ``rel`` of the largest sum of |terms|.
+    Raises if any value differs by more than ``rel`` of its own sum of
+    |terms| (plus 1e-6)."""
     diff = (got.float() - want.float()).abs()
-    if not bool((diff <= SUM_TOL_REL * abs_sum + 1e-6).all()):
+    if not bool((diff <= rel * abs_sum + 1e-6).all()):
         raise AssertionError(f"sum differs by {float(diff.max())}, beyond "
-                             f"{SUM_TOL_REL} of its sum of |terms|")
-    return float(diff.max()), SUM_TOL_REL * float(abs_sum.max()) + 1e-6
+                             f"{rel} of its sum of |terms|")
+    return float(diff.max()), rel * float(abs_sum.max()) + 1e-6
 
 
-def segment_bag_kernel_phase(ops, ref, records: dict, dst, dev) -> None:
+def segment_bag_kernel_phase(ops, ref, records: dict, dst, dev, later: list) -> None:
     """The segment sum at the GNN path's shapes: the OpenCyc-scale KG's
     2,398,800 edges (``dst``, its real destinations, one node holding
     412,800 of them) into 971,865 nodes, at GatedGCN's width 70 (the main
-    path), PNA's 75 and the degree counts' 1, with the plan built once as
-    the forward builds it; two calls must give the same bits.  The plan's
-    sort (``dedup_order`` of the destinations as int64) beside
-    ``torch.sort``.  The
+    path), PNA's 75, the degree counts' 1 and 200 in f32, and 70 in bf16,
+    with the plan built once as the forward builds it (its time printed);
+    two calls must give the same bits.  The plan's sort (``dedup_order`` of
+    the destinations as int64) beside ``torch.sort``.  The
     embedding bag at the FM's shapes: the first-order term of a
     ``serve_bulk`` batch, 262,144 x 39 ids into the (33,763,328, 1)
     weights (the main path), and the retrieval query, 1 x 39 ids into the
@@ -516,20 +609,59 @@ def segment_bag_kernel_phase(ops, ref, records: dict, dst, dev) -> None:
            12 * e, e * log2c(e))
     del keys
     plan = ops.segment_plan(seg, n)
+    plan_ms = time_ms(lambda: ops.segment_plan(seg, n))
+    print(f"  segment plan of E={e} ids (sort and offsets): {plan_ms:.4f} ms",
+          flush=True)
+
+    def plan_device_time(seg=seg):
+        print(f"  segment plan of E={e} ids: device "
+              f"{device_ms_per_call(lambda: ops.segment_plan(seg, n)):.4f} ms a call",
+              flush=True)
+
+    later.append(plan_device_time)
+
+    def device_times(entry, k, dtype, seg=seg):
+        """The device time of a call (the wrapper's host work left out: at
+        K 1 it is most of a call's event-timed length), on inputs made
+        anew: the job runs after every path, whose peak memory must not
+        hold these."""
+        x = torch.randn(e, k, generator=torch.Generator(device=dev).manual_seed(k),
+                        device=dev).to(dtype)
+        plan, idx = ops.segment_plan(seg, n), seg.to(torch.int64)
+        entry.update(
+            device_ms=device_ms_per_call(lambda: ops.segment_sum(x, seg, n, plan=plan)),
+            library_device_ms=device_ms_per_call(
+                lambda: torch.zeros((n, k), dtype=dtype, device=dev).index_add_(0, idx, x)))
+        print(f"  segment_sum {entry['shape']}: device ms a call (torch.profiler) "
+              f"kernel {entry['device_ms']:.4f}, index_add_ "
+              f"{entry['library_device_ms']:.4f}", flush=True)
+
     idx = seg.to(torch.int64)
-    for k, main in ((70, True), (75, False), (1, False)):
-        x = torch.randn(e, k, generator=gen, device=dev)
+    for k, dtype, main in ((70, torch.float32, True), (75, torch.float32, False),
+                           (1, torch.float32, False), (200, torch.float32, False),
+                           (70, torch.bfloat16, False)):
+        x = torch.randn(e, k, generator=gen, device=dev).to(dtype)
         got = ops.segment_sum(x, seg, n, plan=plan)
         if not torch.equal(got, ops.segment_sum(x, seg, n, plan=plan)):
             raise AssertionError("segment_sum: two calls on the same inputs differ")
         err, tol = _sum_err(got, ref.segment_sum(x, seg, n),
-                            ref.segment_sum(x.abs(), seg, n))
+                            ref.segment_sum(x.float().abs(), seg, n),
+                            SUM_TOL_REL if dtype == torch.float32 else BF16_TOL_REL)
         del got
-        record("segment_sum", f"KG in-edges E={e}, n={n}, K={k} f32", err,
-               time_ms(lambda: ops.segment_sum(x, seg, n, plan=plan)),
-               time_ms(lambda: ref.segment_sum(x, seg, n)),
-               time_ms(lambda: torch.zeros((n, k), device=dev).index_add_(0, idx, x)),
-               4 * e * k + 4 * e + 4 * n * k, e * k, main=main, tol=tol)
+
+        def kernel():
+            return ops.segment_sum(x, seg, n, plan=plan)
+
+        def library():
+            return torch.zeros((n, k), dtype=dtype, device=dev).index_add_(0, idx, x)
+
+        size = x.element_size()
+        record("segment_sum", f"KG in-edges E={e}, n={n}, K={k} {str(dtype)[6:]}",
+               err, time_ms(kernel), time_ms(lambda: ref.segment_sum(x, seg, n)),
+               time_ms(library), size * e * k + 4 * e + size * n * k, e * k,
+               main=main, tol=tol)
+        later.append(functools.partial(device_times, records["segment_sum"][-1],
+                                       k, dtype))
         del x
     del plan, idx, seg
 
@@ -587,17 +719,16 @@ def _teacher_forced_logits(lm, params, cfg, req) -> torch.Tensor:
     return torch.stack(out)
 
 
-def lm_serving_phase(ops, records: dict) -> int:
+def lm_server():
+    """SmolLM-135M at full width with the flash kernel (random weights from
+    seed 0), and ``serve(n)``: a ServeEngine with the first n of the 64
+    seeded requests submitted."""
     from repro_torch.configs import get_arch
     from repro_torch.models import transformer as lm
     from repro_torch.serve import Request, ServeEngine
 
     cfg = dataclasses.replace(get_arch("smollm-135m").config, attn_impl="flash")
     params = lm.init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
-    n_params = sum(t.numel() for t in [params["embed"], params["final_norm"],
-                                       *params["layers"].values()])
-    if n_params != cfg.param_count():
-        raise AssertionError(f"{n_params} parameters, want {cfg.param_count()}")
     rng = np.random.default_rng(0)
     prompts = [rng.integers(2, cfg.vocab, int(n)).tolist()
                for n in rng.integers(32, 513, LM_REQUESTS)]
@@ -607,6 +738,19 @@ def lm_serving_phase(ops, records: dict) -> int:
         for i, p in enumerate(prompts[:n_requests]):
             eng.submit(Request(uid=i, prompt=p, max_new=LM_NEW))
         return eng
+
+    return cfg, params, serve
+
+
+def lm_serving_phase(ops, records: dict, later: list) -> int:
+    """Phase 6; its profiled rerun goes to ``later``."""
+    from repro_torch.models import transformer as lm
+
+    cfg, params, serve = lm_server()
+    n_params = sum(t.numel() for t in [params["embed"], params["final_norm"],
+                                       *params["layers"].values()])
+    if n_params != cfg.param_count():
+        raise AssertionError(f"{n_params} parameters, want {cfg.param_count()}")
 
     warm = serve(2)  # first-call costs (cuBLAS handles, the kernel's module)
     warm.run()
@@ -634,21 +778,39 @@ def lm_serving_phase(ops, records: dict) -> int:
     st = eng.stats
     outs = {r.uid: r.out for r in done}
 
-    # the first wave of the traffic (one request per slot) again, under
-    # torch.profiler, for the device's busy share and the flash kernel's
-    again = serve(LM_SLOTS)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        again_done = again.run()
+    def profile_rerun():
+        """The first wave of the traffic (one request per slot) again, under
+        torch.profiler, for the device's busy share and the flash kernel's;
+        the model made anew (the same seed), so that the paths between hold
+        none of it."""
+        _, _, serve = lm_server()
+        again = serve(LM_SLOTS)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            again_done = again.run()
+            torch.cuda.synchronize()
+            profiled_wall = time.perf_counter() - t0
+        busy = device_time(prof, profiled_wall)
+        if busy["busy_ms"] <= 0:
+            raise AssertionError("torch.profiler saw no device time")
+        flash_ms = busy["port_kernels_ms"].get("flash_attention", 0.0)
+        busy["flash_share_of_wall"] = flash_ms / 1e3 / profiled_wall
+        busy["flash_share_of_busy"] = flash_ms / busy["busy_ms"]
+        rerun = dict(profiled_requests=LM_SLOTS, profiled_wall_s=profiled_wall,
+                     profiled_same_tokens=all(outs[r.uid] == r.out
+                                              for r in again_done),
+                     device_time=busy)
+        # the whole traffic again, now that the process has run torch.profiler
+        after = serve(LM_REQUESTS)
         torch.cuda.synchronize()
-        profiled_wall = time.perf_counter() - t0
-    busy = device_time(prof, profiled_wall)
-    if busy["busy_ms"] <= 0:
-        raise AssertionError("torch.profiler saw no device time")
-    flash_ms = busy["port_kernels_ms"].get("flash_attention", 0.0)
-    busy["flash_share_of_wall"] = flash_ms / 1e3 / profiled_wall
-    busy["flash_share_of_busy"] = flash_ms / busy["busy_ms"]
-    same_tokens = all(outs[r.uid] == r.out for r in again_done)
+        t0 = time.perf_counter()
+        after.run()
+        torch.cuda.synchronize()
+        rerun["wall_after_profiling_s"] = time.perf_counter() - t0
+        print(f"  LM serving, profiled rerun: {json.dumps(rerun)}", flush=True)
+        records["lm_serving"].update(rerun)
+
+    later.append(profile_rerun)
 
     # card against CPU: teacher-forced logits of the shortest and the longest
     # request
@@ -679,9 +841,6 @@ def lm_serving_phase(ops, records: dict) -> int:
         decode_tokens_per_s=st.decode_tokens / st.decode_seconds,
         arena_bytes=sum(t.numel() * t.element_size() for t in eng.cache.values()),
         max_memory_allocated=peak, launches=launches,
-        profiled_requests=LM_SLOTS, profiled_wall_s=profiled_wall,
-        profiled_same_tokens=same_tokens,
-        device_time=busy,
         teacher_forced=dict(uids=[by_len[0].uid, by_len[-1].uid],
                             prompt_lens=[len(by_len[0].prompt), len(by_len[-1].prompt)],
                             max_abs_err=errs, tol=LM_LOGIT_TOL, cpu_s=cpu_s),
@@ -943,18 +1102,6 @@ def gnn_phase(ops, records: dict, kg: dict) -> int:
     if not torch.equal(logits, gatedgcn.forward(params, cfg, dedup)):
         raise AssertionError("dedup: the main path's forward differs from a rerun")
 
-    # the forward on the deduplicated graph again, under torch.profiler
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        gatedgcn.forward(params, cfg, dedup)
-        torch.cuda.synchronize()
-        profiled_wall = time.perf_counter() - t0
-    busy = device_time(prof, profiled_wall)
-    if busy["busy_ms"] <= 0:
-        raise AssertionError("torch.profiler saw no device time")
-    busy["segment_sum_share_of_busy"] = (
-        busy["port_kernels_ms"].get("segment_sum", 0.0) / busy["busy_ms"])
-
     # PNA at full width on the deduplicated graph
     pcfg = dataclasses.replace(get_arch("pna").config, d_in=16)
     pparams = pna.init_params(torch.Generator(device="cuda").manual_seed(0), pcfg)
@@ -966,6 +1113,20 @@ def gnn_phase(ops, records: dict, kg: dict) -> int:
         raise AssertionError(f"PNA: {per_forward} segment sums a forward")
     if not all(torch.isfinite(o).all() for o in pouts):
         raise AssertionError("PNA: non-finite logits")
+
+    # the forward on the deduplicated graph again, under torch.profiler;
+    # its first kernels are the segment plan's sort and search
+    prof, profiled_wall, _ = profiled(lambda: gatedgcn.forward(params, cfg, dedup))
+    busy = device_time(prof, profiled_wall)
+    if busy["busy_ms"] <= 0:
+        raise AssertionError("torch.profiler saw no device time")
+    kernel_ms = busy["port_kernels_ms"]
+    busy["segment_sum_share_of_busy"] = kernel_ms.get("segment_sum", 0.0) / busy["busy_ms"]
+    print(f"  profiled forward: segment_sum {kernel_ms.get('segment_sum', 0.0):.3f} "
+          f"ms; the plan's dedup_order {kernel_ms.get('dedup_order', 0.0):.4f} ms "
+          f"and search_bounds {kernel_ms.get('search_bounds', 0.0):.4f} ms",
+          flush=True)
+
     live = int((rho == torch.arange(n, dtype=torch.int32, device="cuda")).sum())
     out = dict(
         card_vs_cpu_max_abs_err=errs, tol_rel=GNN_TOL_REL, midsize_kg=mid,
@@ -1036,8 +1197,9 @@ def full_kg() -> dict:
     return dict(facts=facts, program=program, dic=dic, config=config, gen_s=gen_s)
 
 
-def fullsize_phase(ops, records: dict, kg: dict) -> dict:
-    """REW at full size on ``kg``; leaves the card's rho in ``kg["rho"]``."""
+def fullsize_phase(ops, records: dict, kg: dict, later: list) -> dict:
+    """REW at full size on ``kg``; leaves the card's rho in ``kg["rho"]``.
+    Its profiled rerun and the search census go to ``later``."""
     from repro_torch import TorchEngine
     from repro_torch.core.engine import index_invariant_report
     from repro_torch.core.triples import pack
@@ -1080,8 +1242,8 @@ def fullsize_phase(ops, records: dict, kg: dict) -> dict:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
     del state
 
-    # the wall's spread over two more runs, then the device's share from a
-    # separate run under torch.profiler (which adds host cost to every launch)
+    # the wall's spread over two more runs; the device's share comes from a
+    # later run under torch.profiler
     repeat_walls = []
     for _ in range(2):
         t0 = time.perf_counter()
@@ -1089,14 +1251,19 @@ def fullsize_phase(ops, records: dict, kg: dict) -> dict:
         torch.cuda.synchronize()
         repeat_walls.append(time.perf_counter() - t0)
         del again
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        again = eng.materialise_state(facts, program)
-        torch.cuda.synchronize()
-        profiled_wall = time.perf_counter() - t0
-    del again
-    busy = device_time(prof, profiled_wall)
-    busy["share_of_unprofiled_wall"] = busy["busy_ms"] / 1e3 / wall
+
+    def profile_rerun():
+        prof, profiled_wall, _ = profiled(lambda: eng.materialise_state(facts, program))
+        busy = device_time(prof, profiled_wall)
+        busy["share_of_unprofiled_wall"] = busy["busy_ms"] / 1e3 / wall
+        census = search_census(ops, lambda: eng.materialise_state(facts, program))
+        profiled_out = dict(profiled_wall_s=profiled_wall, device_time=busy,
+                            search_census=census)
+        print(f"  REW, profiled rerun and search calls by form and size: "
+              f"{json.dumps(profiled_out)}", flush=True)
+        records["fullsize"].update(profiled_out)
+
+    later.append(profile_rerun)
 
     # the same run on the host's CPU, through the kernels' plain versions
     t0 = time.perf_counter()
@@ -1117,7 +1284,6 @@ def fullsize_phase(ops, records: dict, kg: dict) -> dict:
     out = dict(
         explicit_triples=int(facts.shape[0]), resources=int(dic.n_resources),
         wall_s=wall, repeat_wall_s=repeat_walls,
-        profiled_wall_s=profiled_wall,
         rounds=stats.rounds, triples_total=stats.triples_total,
         triples_unmarked=stats.triples_unmarked, derivations=stats.derivations,
         rule_applications=stats.rule_applications,
@@ -1126,25 +1292,86 @@ def fullsize_phase(ops, records: dict, kg: dict) -> dict:
         caps=dict(capacity=eng.capacity, bind_cap=eng.bind_cap,
                   out_cap=eng.out_cap, rewrite_cap=eng.rewrite_cap),
         max_memory_allocated=peak, launches=launches,
-        device_time=busy, cpu_wall_s=cpu_wall,
+        cpu_wall_s=cpu_wall,
     )
     print(f"  {json.dumps(out)}", flush=True)
     records["fullsize"] = out
     return launches
 
 
+def search_census(ops, run) -> dict:
+    """``run()`` (one REW materialisation) under torch.profiler with every
+    search call classified: its form (both sides, left, right, prefix of
+    k), whether its queries came sorted, and the size class (2^ceil(log2))
+    of its n queries and v keys; per class the calls and the search
+    kernel's device time.  The i-th search kernel of the trace is the i-th
+    call that launched one (n > 0); were the two counts to differ, the
+    calls would be counted and not timed."""
+    calls: list = []
+    search, prefix = ops._search, ops.prefix_range_bounds
+
+    def census_search(queries, keys, lo, hi):
+        form = "both" if lo and hi else "left" if lo else "right"
+        calls.append((form, queries.shape[0], keys.shape[0],
+                      (queries[1:] >= queries[:-1]).all()))
+        return search(queries, keys, lo, hi)
+
+    def census_prefix(prefix_cols, keys):
+        k = prefix_cols.shape[1]
+        packed = prefix_cols[:, 0].to(torch.int64)
+        for j in range(1, k):
+            packed = (packed << 21) | prefix_cols[:, j]
+        calls.append((f"prefix k={k}", prefix_cols.shape[0], keys.shape[0],
+                      (packed[1:] >= packed[:-1]).all()))
+        return prefix(prefix_cols, keys)
+
+    def once():
+        calls.clear()
+        return run()
+
+    ops._search, ops.prefix_range_bounds = census_search, census_prefix
+    try:
+        prof, _, _ = profiled(once)
+    finally:
+        ops._search, ops.prefix_range_bounds = search, prefix
+    launched = [c for c in calls if c[1] > 0]
+    kernels = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                      and kernel_of(e.name) == "search_bounds"),
+                     key=lambda e: e.time_range.start)
+    matched = len(kernels) == len(launched)  # else the calls are counted, not timed
+    flags = torch.stack([c[3] for c in launched]).tolist() if launched else []
+    out: dict = {}
+    for i, ((form, n, v, _), srt) in enumerate(zip(launched, flags)):
+        key = (f"{form}, {'sorted' if srt else 'unsorted'}, n 2^{log2c(n)}, "
+               f"v 2^{log2c(v)}")
+        entry = out.setdefault(key, dict(calls=0, device_ms=0.0 if matched else None))
+        entry["calls"] += 1
+        if matched:
+            entry["device_ms"] += kernels[i].time_range.elapsed_us() / 1e3
+    out = dict(sorted(out.items(), key=lambda kv: (-(kv[1]["device_ms"] or 0),
+                                                   -kv[1]["calls"])))
+    return dict(classes=out, calls=len(launched), kernels_in_trace=len(kernels),
+                device_ms=sum(e.time_range.elapsed_us() for e in kernels) / 1e3)
+
+
 # device kernel names of each port kernel (csrc/*.cu)
 KERNEL_OF = {
     "radix_histogram": "dedup_order", "radix_plan": "dedup_order",
     "radix_pass": "dedup_order",
-    "search_kernel": "search_bounds", "rewrite_kernel": "rewrite_triples",
+    "search_tile_kernel": "search_bounds", "rewrite_kernel": "rewrite_triples",
     "halve_kernel": "uf_compress", "finish_kernel": "uf_compress",
     "refresh_kernel": "uf_hook", "link_kernel": "uf_hook",
     "flash_kernel": "flash_attention", "flash_wgmma_kernel": "flash_attention",
     "fm_kernel": "fm_interact",
-    "seg_chunk_kernel": "segment_sum", "seg_carry_kernel": "segment_sum",
+    "seg_wide_kernel": "segment_sum", "seg_narrow_kernel": "segment_sum",
+    "seg_fix_kernel": "segment_sum",
     "bag_kernel": "embedding_bag",
 }
+
+
+def kernel_of(name: str) -> str | None:
+    """The port kernel whose device function ``name`` is, else None."""
+    return next((k for n, k in KERNEL_OF.items() if n in name), None)
 
 
 def device_time(prof, wall_s: float) -> dict:
@@ -1153,12 +1380,12 @@ def device_time(prof, wall_s: float) -> dict:
     by_kernel: dict = {}
     glue: dict = {}
     for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue  # host-side events; their kernels are listed on their own
+        if e.device_type != DeviceType.CUDA or e.key.startswith("ProfilerStep"):
+            continue  # host-side events and the profiler's step annotation
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = e.self_cuda_time_total
-        port = next((k for n, k in KERNEL_OF.items() if n in e.key), None)
+        port = kernel_of(e.key)
         bucket, key = (by_kernel, port) if port else (glue, e.key[:80])
         bucket[key] = bucket.get(key, 0.0) + us / 1e3
     busy_ms = sum(by_kernel.values()) + sum(glue.values())
@@ -1215,23 +1442,29 @@ def main() -> None:
     def phase(title: str) -> None:
         print(f"{title} [{time.perf_counter() - t_start:.0f} s]", flush=True)
 
+    # torch.profiler work waits until every wall and event time is taken:
+    # a finished profiler session leaves host cost on every later launch
+    # (phase 6 times its traffic again after all of it, for the record)
+    later: list = []
     phase("kernels (kernel == plain version on the card):")
     kernel_records: dict = {}
     kg = full_kg()
     kernel_phase(ops, ref, kernel_records, "cuda")
-    serving_kernel_phase(ops, ref, kernel_records, "cuda")
+    search_kernel_phase(ops, ref, kernel_records, "cuda")
+    rew_kernel_phase(ops, ref, kernel_records, "cuda")
+    serving_kernel_phase(ops, ref, kernel_records, "cuda", later)
     segment_bag_kernel_phase(ops, ref, kernel_records,
-                             kg["facts"][:, 2].astype(np.int32), "cuda")
+                             kg["facts"][:, 2].astype(np.int32), "cuda", later)
     records["kernels"] = kernel_records
 
     phase("mid-size (cuda == cpu):")
     midsize_phase(records)
 
     phase("REW at full size (main path):")
-    launches = fullsize_phase(ops, records, kg)
+    launches = fullsize_phase(ops, records, kg, later)
 
     phase("LM serving at full width (SmolLM-135M, flash):")
-    launches["flash_attention"] = lm_serving_phase(ops, records)
+    launches["flash_attention"] = lm_serving_phase(ops, records, later)
 
     phase("FM serving at full scale (Criteo-scale FM, rho):")
     fm_launches = fm_serving_phase(ops, records)
@@ -1240,6 +1473,10 @@ def main() -> None:
 
     phase("GNN inference on the sameAs-deduplicated KG (GatedGCN, PNA):")
     launches["segment_sum"] = gnn_phase(ops, records, kg)
+
+    phase("device times under torch.profiler (kernels, REW, LM serving):")
+    for job in later:
+        job()
 
     phase("done:")
     line = []

@@ -21,6 +21,7 @@ from __future__ import annotations
 import array
 import ctypes
 import dataclasses
+import functools
 
 import torch
 
@@ -51,7 +52,7 @@ _ENTRIES = {
     "fm_interact": ("fm_interact", "fm_interact",
                     (_P, _P, _N, ctypes.c_int, ctypes.c_int, ctypes.c_int)),
     "segment_sum": ("segment_sum", "segment_sum",
-                    (_P, _P, _P, _P, _N, _N, ctypes.c_int, ctypes.c_int, _P, _P,
+                    (_P, _P, _P, _P, _N, _N, ctypes.c_int, _P, _P, _N,
                      ctypes.c_int)),
     "embedding_bag": ("embedding_bag", "embedding_bag",
                       (_P, _P, _N, ctypes.c_int, _N, ctypes.c_int, _P,
@@ -162,8 +163,9 @@ def _search(queries, keys, lo: bool, hi: bool):
     n = queries.shape[0]
     outs = [torch.empty(n, dtype=torch.int32, device=keys.device) if want
             else None for want in (lo, hi)]
-    _launch("search_bounds", keys.device, queries.data_ptr(), n,
-            keys.data_ptr(), keys.shape[0], _ptr(outs[0]), _ptr(outs[1]))
+    if n:
+        _launch("search_bounds", keys.device, queries.data_ptr(), n,
+                keys.data_ptr(), keys.shape[0], _ptr(outs[0]), _ptr(outs[1]))
     return outs[0], outs[1]
 
 
@@ -196,8 +198,9 @@ def prefix_range_bounds(prefix_cols: torch.Tensor, keys: torch.Tensor):
     n = prefix_cols.shape[0]
     start = torch.empty(n, dtype=torch.int32, device=keys.device)
     end = torch.empty(n, dtype=torch.int32, device=keys.device)
-    _launch("prefix_range_bounds", keys.device, prefix_cols.data_ptr(), n, k,
-            keys.data_ptr(), keys.shape[0], start.data_ptr(), end.data_ptr())
+    if n:
+        _launch("prefix_range_bounds", keys.device, prefix_cols.data_ptr(), n, k,
+                keys.data_ptr(), keys.shape[0], start.data_ptr(), end.data_ptr())
     return start, end
 
 
@@ -344,9 +347,6 @@ def fm_interact(x: torch.Tensor) -> torch.Tensor:
 
 
 
-SEGMENT_CHUNK = 256  # sorted rows a warp of the segment-sum kernel walks
-
-
 @dataclasses.dataclass(frozen=True)
 class SegmentPlan:
     """The order in which :func:`segment_sum` visits the rows of one
@@ -406,14 +406,23 @@ def segment_sum(x: torch.Tensor, seg: torch.Tensor, n_segments: int,
     out = torch.empty((n_segments, k), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    n_chunks = -(-e // SEGMENT_CHUNK)
-    carry = torch.empty(max(n_chunks, 1) * 2 * k, dtype=torch.float32,
-                        device=x.device)
+    blocks = segment_sum_max_blocks()
+    carry = torch.empty(blocks * 2 * k, dtype=torch.float32, device=x.device)
     _launch("segment_sum", x.device, x.data_ptr(), plan.perm.data_ptr(),
             plan.seg.data_ptr(), plan.offsets.data_ptr(), e, n_segments, k,
-            SEGMENT_CHUNK, out.data_ptr(), carry.data_ptr(),
+            out.data_ptr(), carry.data_ptr(), blocks,
             int(x.dtype == torch.bfloat16))
     return out
+
+
+@functools.cache
+def segment_sum_max_blocks() -> int:
+    """The most blocks the segment-sum kernel's first pass runs on this
+    card (each leaves two partial rows in the f32 scratch), asked once."""
+    entry = library("segment_sum").segment_sum_max_blocks
+    entry.argtypes = ()
+    entry.restype = _N
+    return entry()
 
 
 def embedding_bag(ids: torch.Tensor, table: torch.Tensor) -> torch.Tensor:

@@ -16,6 +16,9 @@ import numpy as np
 import pytest
 import torch
 
+from kernel_patterns import (
+    SEARCH_PATTERNS, SEGMENT_PATTERNS, prefix_case, search_case, segment_case,
+)
 from repro_torch.core.engine import TorchEngine
 from repro_torch.core.triples import pack
 from repro_torch.data.generator import PROFILES, generate
@@ -112,6 +115,47 @@ def test_search_and_prefix(dev):
     for k in (1, 2, 3):
         prefix = torch.from_numpy(rng.integers(0, 52, (3000, k)).astype(np.int32)).to(dev)
         _same(ops.prefix_range_bounds(prefix, keys), ref.prefix_range_bounds(prefix, keys))
+
+
+SEARCH_TILE = 1024   # queries a block of the search kernel answers
+SEARCH_WINDOW = 4096  # keys it holds in shared memory
+
+
+def _check_search(queries, keys):
+    """Both sides and each side alone equal the plain version bit for bit,
+    one launch a call."""
+    want = ref.search_bounds(queries, keys)
+    before = ops.LAUNCHES["search_bounds"]
+    _same(ops.search_bounds(queries, keys), want)
+    _same([ops.searchsorted(keys, queries)], want[:1])
+    _same([ops.searchsorted(keys, queries, side="right")], want[1:])
+    assert ops.LAUNCHES["search_bounds"] == before + 3 * (queries.shape[0] > 0)
+
+
+@pytest.mark.parametrize("pattern", SEARCH_PATTERNS)
+def test_search_patterns(dev, pattern):
+    """Windows larger than shared memory (a KEY_MAX tail of v/8, cumsum
+    plateaus, every query one of a third of the keys), a tile sorted but
+    for one pair, runs of equal queries across tiles, no order."""
+    queries, keys = search_case(pattern, 300_007, 65_537, seed=5)
+    assert keys.shape[0] // 8 > SEARCH_WINDOW
+    _check_search(torch.from_numpy(queries).to(dev), torch.from_numpy(keys).to(dev))
+
+
+@pytest.mark.parametrize("n,v", [(0, 10), (10, 0), (10, 1), (1, 1),
+                                 (SEARCH_TILE + 1, 1), (SEARCH_TILE - 1, 3),
+                                 (3 * SEARCH_TILE, SEARCH_WINDOW + 1)])
+def test_search_sizes(dev, n, v):
+    queries, keys = search_case("key_max_tail", n, v, seed=n + v)
+    _check_search(torch.from_numpy(queries).to(dev), torch.from_numpy(keys).to(dev))
+
+
+@pytest.mark.parametrize("sorted_rows", [False, True])
+@pytest.mark.parametrize("k", [1, 2, 3])
+def test_prefix_patterns(dev, sorted_rows, k):
+    rows, keys = prefix_case(sorted_rows, 100_003, 40_000, k, seed=k)
+    rows_t, keys_t = torch.from_numpy(rows).to(dev), torch.from_numpy(keys).to(dev)
+    _same(ops.prefix_range_bounds(rows_t, keys_t), ref.prefix_range_bounds(rows_t, keys_t))
 
 
 def test_rewrite_triples(dev):
@@ -364,6 +408,48 @@ def test_segment_sum(dev, e, n, k, skew, dtype):
     assert got.dtype == dtype and got.shape == (n, k)
     _close_to_sum(got, want, abs_sum, rel)
     assert torch.equal(ops.segment_sum(x, seg_t, n), got)  # the plan built inside
+
+
+@pytest.mark.parametrize("pattern", SEGMENT_PATTERNS)
+@pytest.mark.parametrize("k", [1, 2, 8, 70, 75, 128, 200])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_segment_sum_patterns(dev, pattern, k, dtype):
+    """A hub of 40 % of 200,000 rows spread over many warps and blocks,
+    even ids, mostly empty segments with ids out of range, one segment:
+    the same bits on two calls, and within f32 sums in another order of the
+    plain version (one bf16 rounding apart in bf16)."""
+    x, seg = segment_case(pattern, 200_000, 20_000, k, seed=k)
+    xt = torch.from_numpy(x).to(dev).to(dtype)
+    seg_t = torch.from_numpy(seg).to(dev)
+    plan = ops.segment_plan(seg_t, 20_000)
+    got = ops.segment_sum(xt, seg_t, 20_000, plan=plan)
+    assert torch.equal(got, ops.segment_sum(xt, seg_t, 20_000, plan=plan))
+    _close_to_sum(got, ref.segment_sum(xt, seg_t, 20_000),
+                  ref.segment_sum(xt.float().abs(), seg_t, 20_000),
+                  1e-5 if dtype == torch.float32 else 2 ** -7)
+
+
+@pytest.mark.parametrize("e,n,k", [(20, 5, 70), (20, 5, 1), (31, 2, 8),
+                                   (1000, 100_000, 70), (1000, 100_000, 1)])
+def test_segment_sum_few_rows(dev, e, n, k):
+    """Fewer rows than one warp's range, and far more segments than rows
+    (most of the output is the zeros of empty segments)."""
+    x, seg = segment_case("uniform", e, n, k, seed=e)
+    xt, seg_t = torch.from_numpy(x).to(dev), torch.from_numpy(seg).to(dev)
+    got = ops.segment_sum(xt, seg_t, n)
+    _close_to_sum(got, ref.segment_sum(xt, seg_t, n), ref.segment_sum(xt.abs(), seg_t, n),
+                  1e-5)
+
+
+def test_segment_sum_unaligned_rows(dev):
+    """x one value past an aligned start: the kernel's vector loads fall
+    back to narrower ones."""
+    x, seg = segment_case("hub", 10_000, 500, 70, seed=9)
+    flat = torch.from_numpy(np.concatenate([[0.0], x.reshape(-1)]).astype(np.float32))
+    xt = flat.to(dev)[1:].view(10_000, 70)
+    seg_t = torch.from_numpy(seg).to(dev)
+    _close_to_sum(ops.segment_sum(xt, seg_t, 500), ref.segment_sum(xt, seg_t, 500),
+                  ref.segment_sum(xt.abs(), seg_t, 500), 1e-5)
 
 
 @pytest.mark.parametrize("b,f,v,k", [(4096, 39, 100_000, 1), (1, 39, 100_000, 10),

@@ -26,6 +26,9 @@ import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 import torch  # noqa: E402
 
+from kernel_patterns import (  # noqa: E402
+    SEARCH_PATTERNS, SEGMENT_PATTERNS, prefix_case, search_case, segment_case,
+)
 from repro.kernels import merge as jmerge, ops as jops, ref as jref  # noqa: E402
 from repro_torch.kernels import merge, ops  # noqa: E402
 
@@ -86,6 +89,51 @@ def test_search_bounds(nq, nk, big):
     np.testing.assert_array_equal(hi.numpy()[real], np.asarray(pallas_hi)[real])
     left = ops.searchsorted(torch.from_numpy(keys), torch.from_numpy(queries))
     np.testing.assert_array_equal(left.numpy(), lo.numpy())
+
+
+@pytest.mark.parametrize("pattern", SEARCH_PATTERNS)
+def test_search_patterns(pattern):
+    """The search kernel's input patterns (``kernel_patterns.py``: sorted
+    queries with a KEY_MAX tail, cumsum plateaus, one repeated query,
+    nearly sorted, long runs of equal queries, no order), both sides and
+    each side alone: the plain version equals the reference's oracle, and
+    its Pallas kernel on the queries of that kernel's domain."""
+    queries, keys = search_case(pattern, 4100, 600, seed=3)
+    tq, tk = torch.from_numpy(queries), torch.from_numpy(keys)
+    want = jref.search_bounds_ref(queries, keys)
+    for got, w in zip(ops.search_bounds(tq, tk), want, strict=True):
+        np.testing.assert_array_equal(got.numpy(), w)
+    for side, w in zip(("left", "right"), want, strict=True):
+        np.testing.assert_array_equal(ops.searchsorted(tk, tq, side=side).numpy(), w)
+    real = queries < KEY_MAX
+    for got, w in zip(ops.search_bounds(tq, tk), jops.search_bounds(queries, keys),
+                      strict=True):
+        np.testing.assert_array_equal(got.numpy()[real], np.asarray(w)[real])
+
+
+@pytest.mark.parametrize("nq,nk", [(0, 10), (10, 0), (10, 1), (1, 1)])
+def test_search_empty_and_single(nq, nk):
+    queries, keys = search_case("key_max_tail", nq, nk, seed=nq + nk)
+    lo, hi = ops.search_bounds(torch.from_numpy(queries), torch.from_numpy(keys))
+    want_lo, want_hi = jref.search_bounds_ref(queries, keys)
+    np.testing.assert_array_equal(lo.numpy(), want_lo)
+    np.testing.assert_array_equal(hi.numpy(), want_hi)
+
+
+@pytest.mark.parametrize("sorted_rows", [False, True])
+@pytest.mark.parametrize("k", [1, 2, 3])
+def test_prefix_patterns(sorted_rows, k):
+    """Prefix rows in the join's arbitrary order and sorted, some missing
+    every key, over keys with 21-bit-boundary IDs."""
+    rows, keys = prefix_case(sorted_rows, 2100, 500, k, seed=k)
+    start, end = ops.prefix_range_bounds(torch.from_numpy(rows), torch.from_numpy(keys))
+    want_s, want_e = jref.prefix_range_bounds_ref(rows, keys)
+    np.testing.assert_array_equal(start.numpy(), want_s)
+    np.testing.assert_array_equal(end.numpy(), want_e)
+    real = ~(rows == MAX_ID).all(axis=1)
+    pallas_s, pallas_e = jops.prefix_range_bounds(rows, keys)
+    np.testing.assert_array_equal(start.numpy()[real], np.asarray(pallas_s)[real])
+    np.testing.assert_array_equal(end.numpy()[real], np.asarray(pallas_e)[real])
 
 
 @pytest.mark.parametrize("nq,nk", [(9, 50), (300, 1000)])
@@ -306,6 +354,22 @@ def test_segment_sum_drops_out_of_range_segments():
     assert (got[4] == 0).all()
     keep = (seg >= 0) & (seg < n)
     np.testing.assert_allclose(got.sum(axis=0), x[keep].sum(axis=0), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("pattern", SEGMENT_PATTERNS)
+@pytest.mark.parametrize("k", [1, 70])
+def test_segment_sum_patterns(pattern, k):
+    """The segment sum's input patterns (``kernel_patterns.py``: a hub
+    segment, even ids, mostly empty segments with ids out of range, one
+    segment) at the degree counts' K 1 and GatedGCN's K 70: the plain
+    version equals the Pallas kernel and the reference's oracle, both of
+    which drop ids out of range, within f32 sums in another order."""
+    x, seg = segment_case(pattern, 3000, 200, k, seed=k)
+    got = ops.segment_sum(torch.from_numpy(x), torch.from_numpy(seg), 200).numpy()
+    abs_sum = np.asarray(jref.segment_sum_ref(jnp.abs(jnp.asarray(x)), jnp.asarray(seg), 200))
+    for want in (jops.segment_sum(jnp.asarray(x), jnp.asarray(seg), 200),
+                 jref.segment_sum_ref(jnp.asarray(x), jnp.asarray(seg), 200)):
+        assert (np.abs(got - np.asarray(want)) <= 1e-5 * abs_sum + 1e-6).all()
 
 
 @pytest.mark.parametrize("skew", [False, True])
