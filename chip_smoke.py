@@ -23,7 +23,10 @@ prints no result):
    of single calls) for the kernel, its plain version and the PyTorch
    calls that compute the same function as a yardstick, beside the least
    time the card could take; for flash, SDPA, the segment sum and
-   ``index_add_`` also the device time a call under torch.profiler;
+   ``index_add_`` also the device time a call under torch.profiler; for
+   the embedding bag also a plain gather of the same rows.  The bag's main
+   row takes the FM path's ids, banded by field; ids drawn over the whole
+   table, and ids into one field's rows, are other rows;
 4. mid-size: the default ``opencyc_like`` and ``merge_like`` profiles on the
    card equal the same run on the CPU (triples, rho, counters);
 5. REW at full size: ``opencyc_like`` at OpenCyc's scale (2.4 M explicit
@@ -46,7 +49,9 @@ prints no result):
    embedding bag serves a batch of 512 and one of 262,144 through a rho
    made by the port's union-find from seeded merge pairs, and scores one
    user against 1,000,000 candidates; merged IDs score the same, and the
-   card equals the CPU at batch 512 and on the candidates;
+   card equals the CPU at batch 512 and on the candidates; at the end a
+   profiled rerun of the bulk batch for the device's busy share and each
+   kernel's time;
 8. GNN inference on the sameAs-deduplicated KG: GatedGCN and PNA at full
    width against the CPU on ``full_graph_sm`` (2,708 nodes, 10,556
    edges); the mid-size ``opencyc_like`` KG's graph deduplicated on the
@@ -64,8 +69,10 @@ first torch.profiler session: a finished profiler session leaves host cost
 on every later launch, which the host-bound REW and LM walls would carry.
 So phase 8 profiles its forward after its own walls, the profiled reruns
 of phases 5 and 6, the search census and the kernels' device times run
-after phase 8, and phase 6 then times its traffic once more to show that
-cost.
+after phase 8 with phase 7's, and phase 6 then times its traffic once more
+to show that cost.  A profiler session whose kept run holds no device
+event is made again, up to three in all; a kernel's device time a call
+then falls back to CUDA events, and the record counts both.
 Then one JSON line ``{"kernels": [...]}`` and, last, the device line.  The
 full record goes to ``chiprun_out/chip_smoke.json``.
 """
@@ -418,39 +425,62 @@ def p_rounding_shares(q, k, v, q_offset: int, got: torch.Tensor) -> dict:
     return {key: n / got.numel() for key, n in differ.items()}
 
 
+PROFILE_SESSIONS = 3  # torch.profiler sessions tried before a trace counts as lost
+PROFILER_LOST = dict(sessions=0, event_timed=0)  # goes to the record
+
+
+def lost_session(session: int) -> None:
+    """Note a session whose kept run holds no device event and, unless it
+    was the last one tried, wait a second before the next: CUPTI has
+    dropped every kernel of a session begun just after another one."""
+    PROFILER_LOST["sessions"] += 1
+    print(f"  torch.profiler kept no device event (session {session} of "
+          f"{PROFILE_SESSIONS})", flush=True)
+    if session < PROFILE_SESSIONS:
+        time.sleep(1.0)
+
+
 def profiled(fn):
     """``fn()`` twice under torch.profiler, keeping the second run's trace:
     CUPTI can miss the first kernels launched after tracing starts (a
     profiled GNN forward has lost its first two, the segment plan's sort
-    and search), so the first run is the profiler's warm-up step.  Returns
-    the profile, the kept run's host wall (it ends in a synchronise) and
-    its result."""
-    sched = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=sched) as prof:
-        for _ in range(2):
-            t0 = time.perf_counter()
-            out = fn()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            prof.step()
+    and search), so the first run is the profiler's warm-up step.  A
+    session whose kept run holds no device event is made again, up to
+    ``PROFILE_SESSIONS`` in all.  Returns the profile, the kept run's host
+    wall (it ends in a synchronise) and its result."""
+    for session in range(1, PROFILE_SESSIONS + 1):
+        sched = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=sched) as prof:
+            for _ in range(2):
+                t0 = time.perf_counter()
+                out = fn()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                prof.step()
+        if device_time(prof, wall)["busy_ms"] > 0:
+            break
+        lost_session(session)
     return prof, wall, out
 
 
 def device_ms_per_call(fn, calls: int = 50) -> float:
     """Device time of one call of ``fn``: all its kernels, under
     torch.profiler, averaged over ``calls`` calls after a warm-up step of
-    as many (sessions in quick succession can lose every kernel of a
-    short one otherwise)."""
+    as many.  Where every session loses its trace, the CUDA-event time of
+    the ``calls`` calls (host gaps between kernels included) over
+    ``calls``, counted in ``PROFILER_LOST``."""
     def run():
         for _ in range(calls):
             fn()
 
     prof, _, _ = profiled(run)
     busy = device_time(prof, 1.0)["busy_ms"]
-    if busy <= 0:
-        raise AssertionError("torch.profiler saw no device time")
-    return busy / calls
+    if busy > 0:
+        return busy / calls
+    PROFILER_LOST["event_timed"] += 1
+    print(f"  CUDA-event time of {calls} calls instead", flush=True)
+    return time_ms(run, reps=1) / calls
 
 
 FM_TOL_REL = 1e-5  # f32 sums in another order
@@ -582,6 +612,19 @@ def _sum_err(got, want, abs_sum, rel: float = SUM_TOL_REL) -> tuple[float, float
     return float(diff.max()), rel * float(abs_sum.max()) + 1e-6
 
 
+def touched_sectors(ids, table) -> int:
+    """The 32-byte sectors of ``table`` that the rows of the on-table
+    ``ids`` lie in, each counted once."""
+    row_bytes = table.shape[1] * table.element_size()
+    ids = ids.reshape(-1).long()
+    ids = ids[(ids >= 0) & (ids < table.shape[0])].unique()
+    start = table.data_ptr() % SECTOR + ids * row_bytes
+    first, last = start // SECTOR, (start + row_bytes - 1) // SECTOR
+    span = torch.arange(-(-row_bytes // SECTOR) + 1, device=ids.device)
+    sectors = first[:, None] + span
+    return int(sectors[sectors <= last[:, None]].unique().numel())
+
+
 def segment_bag_kernel_phase(ops, ref, records: dict, dst, dev, later: list) -> None:
     """The segment sum at the GNN path's shapes: the OpenCyc-scale KG's
     2,398,800 edges (``dst``, its real destinations, one node holding
@@ -592,8 +635,9 @@ def segment_bag_kernel_phase(ops, ref, records: dict, dst, dev, later: list) -> 
     the destinations as int64) beside ``torch.sort``.  The
     embedding bag at the FM's shapes: the first-order term of a
     ``serve_bulk`` batch, 262,144 x 39 ids into the (33,763,328, 1)
-    weights (the main path), and the retrieval query, 1 x 39 ids into the
-    (33,763,328, 10) table."""
+    weights, each field's ids in its own band of rows (the main path),
+    drawn over the whole table and into one field's 865,707 rows, and the
+    retrieval query, 1 x 39 ids into the (33,763,328, 10) table."""
     from repro_torch.configs import get_arch
 
     record = recorder(records)
@@ -665,27 +709,55 @@ def segment_bag_kernel_phase(ops, ref, records: dict, dst, dev, later: list) -> 
         del x
     del plan, idx, seg
 
-    rows = get_arch("fm").config.n_rows  # the FM's padded table
+    spec = get_arch("fm")
+    rows, rpf, nf = spec.config.n_rows, spec.config.rows_per_field, spec.config.n_fields
     w1 = torch.randn(rows, 1, generator=gen, device=dev) * 0.01
     table = torch.randn(rows, 10, generator=gen, device=dev) * 0.01
-    for b, tab, label, main in (
-        (262_144, w1, "serve_bulk first order (262144, 39) into (33763328, 1)", True),
-        (1, table, "retrieval query (1, 39) into (33763328, 10)", False),
-    ):
-        k = tab.shape[1]
-        ids = torch.randint(0, rows, (b, 39), generator=gen, device=dev,
+    b = spec.shape("serve_bulk").dims["batch"]
+    # the serving path's ids: field f's rows in [f * rpf, (f + 1) * rpf), as
+    # ``recsys._row_ids`` lays them out (rho keeps each field apart); ids
+    # over the whole table, whose ceiling is the card's rate of random
+    # 32-byte reads; and the same ids into one field's rows (3.46 MB, held
+    # by L2: the bag's one-launch route at full size, the ceiling that the
+    # sweep of the banded ids approaches)
+    local = torch.randint(0, rpf, (b, nf), generator=gen, device=dev, dtype=torch.int32)
+    banded = (local + torch.arange(nf, device=dev, dtype=torch.int32) * rpf)
+    uniform = torch.randint(0, rows, (b, nf), generator=gen, device=dev,
                             dtype=torch.int32)
+    for ids, tab, label, main in (
+        (banded, w1, f"serve_bulk first order ({b}, {nf}) banded by field "
+                     f"into ({rows}, 1)", True),
+        (uniform, w1, f"serve_bulk first order ({b}, {nf}) uniform over "
+                      f"({rows}, 1)", False),
+        (local, w1[:rpf], f"serve_bulk first order ({b}, {nf}) into one "
+                          f"field's rows ({rpf}, 1)", False),
+        (banded[:1].contiguous(), table,
+         f"retrieval query (1, {nf}) into ({rows}, 10)", False),
+    ):
+        bags, k = ids.shape[0], tab.shape[1]
         err, tol = _sum_err(ops.embedding_bag(ids, tab), ref.embedding_bag(ids, tab),
                             ref.embedding_bag(ids, tab.abs()))
-        # a random row read moves whole 32-byte sectors: ceil(4K / 32) of them
-        row_bytes = -(-4 * k // SECTOR) * SECTOR
+        # the ids, each 32-byte sector of the table that they touch once,
+        # and the sums
         record("embedding_bag", label, err,
                time_ms(lambda: ops.embedding_bag(ids, tab)),
                time_ms(lambda: ref.embedding_bag(ids, tab)),
                time_ms(lambda: F.embedding_bag(ids, tab, mode="sum")),
-               4 * b * 39 + row_bytes * b * 39 + 4 * b * k, b * 39 * k,
-               main=main, tol=tol)
-    del w1, table
+               4 * bags * nf + SECTOR * touched_sectors(ids, tab) + 4 * bags * k,
+               bags * nf * k, main=main, tol=tol)
+        entry = records["embedding_bag"][-1]
+        # the bound as if every lookup read its row's sectors from device
+        # memory: ceil(4K / 32) sectors a lookup, none of them held by L2
+        row_bytes = -(-4 * k // SECTOR) * SECTOR
+        entry["lookup_sectors_bound_ms"], _ = bound(
+            4 * bags * nf + row_bytes * bags * nf + 4 * bags * k, bags * nf * k)
+        # a plain gather of the same rows, no sum: the measured ceiling of
+        # these random reads, beside the library's bag
+        ids64 = ids.to(torch.int64)
+        entry["gather_ms"] = time_ms(lambda: tab[ids64])
+        print(f"  embedding_bag {label}: plain gather tab[ids] "
+              f"{entry['gather_ms']:.4f} ms", flush=True)
+    del w1, table, banded, uniform, local, ids64
 
 
 LM_REQUESTS, LM_SLOTS, LM_MAX_LEN, LM_NEW = 64, 16, 1024, 32
@@ -784,14 +856,19 @@ def lm_serving_phase(ops, records: dict, later: list) -> int:
         the model made anew (the same seed), so that the paths between hold
         none of it."""
         _, _, serve = lm_server()
-        again = serve(LM_SLOTS)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            again_done = again.run()
-            torch.cuda.synchronize()
-            profiled_wall = time.perf_counter() - t0
-        busy = device_time(prof, profiled_wall)
-        if busy["busy_ms"] <= 0:
+        for session in range(1, PROFILE_SESSIONS + 1):
+            again = serve(LM_SLOTS)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                again_done = again.run()
+                torch.cuda.synchronize()
+                profiled_wall = time.perf_counter() - t0
+            busy = device_time(prof, profiled_wall)
+            if busy["busy_ms"] > 0:
+                break
+            lost_session(session)
+        else:
             raise AssertionError("torch.profiler saw no device time")
         flash_ms = busy["port_kernels_ms"].get("flash_attention", 0.0)
         busy["flash_share_of_wall"] = flash_ms / 1e3 / profiled_wall
@@ -853,7 +930,11 @@ def lm_serving_phase(ops, records: dict, later: list) -> int:
 FM_MERGE_PAIRS = 1 << 20
 
 
-def fm_serving_phase(ops, records: dict) -> int:
+def fm_model() -> dict:
+    """The Criteo-scale FM with the kernels (seeded weights and non-zero
+    first-order weights), a rho made by the port's union-find from 2^20
+    seeded merge pairs inside fields (and its wall), and the ``serve_p99``
+    and ``serve_bulk`` batches; ``rng`` is left where the batches end."""
     from repro_torch.configs import get_arch
     from repro_torch.core.uf import merge_pairs
     from repro_torch.models import recsys
@@ -865,7 +946,6 @@ def fm_serving_phase(ops, records: dict) -> int:
     params = recsys.init_params(gen, cfg)
     # non-zero first-order weights, so that their bag counts in the scores
     params["w1"] = torch.randn(cfg.n_rows, generator=gen, device="cuda") * 0.01
-    table_bytes = params["table"].numel() * 4
     rng = np.random.default_rng(0)
     field = rng.integers(0, cfg.n_fields, FM_MERGE_PAIRS)
     a, b = rng.integers(0, rpf, (2, FM_MERGE_PAIRS)) + field * rpf
@@ -876,19 +956,31 @@ def fm_serving_phase(ops, records: dict) -> int:
                                              device="cuda"))
     torch.cuda.synchronize()
     merge_s = time.perf_counter() - t0
-    merged = rho != rep
-    n_merged = int(merged.sum())
-    if not torch.equal(rho[rho.long()], rho) or not (rho <= rep).all():
-        raise AssertionError("rho is not a compressed min-representative map")
-    if not torch.equal(rho.long() // rpf, rep.long() // rpf):
-        raise AssertionError("rho merges rows of two fields")
-
     batches = {}
     for name in ("serve_p99", "serve_bulk"):
         n = spec.shape(name).dims["batch"]
         ids = rng.integers(0, rpf, (n, cfg.n_fields)).astype(np.int32)
         batches[name] = {"ids": torch.from_numpy(ids).cuda(), "rho": rho}
     torch.cuda.synchronize()
+    return dict(spec=spec, cfg=cfg, params=params, rep=rep, rho=rho,
+                merge_s=merge_s, batches=batches, rng=rng)
+
+
+def fm_serving_phase(ops, records: dict, later: list) -> int:
+    """Phase 7; its profiled rerun of the bulk batch goes to ``later``."""
+    from repro_torch.models import recsys
+
+    fm = fm_model()
+    spec, cfg, params, rep, rho, batches, rng = (
+        fm[k] for k in ("spec", "cfg", "params", "rep", "rho", "batches", "rng"))
+    rpf = cfg.rows_per_field
+    table_bytes = params["table"].numel() * 4
+    merged = rho != rep
+    n_merged = int(merged.sum())
+    if not torch.equal(rho[rho.long()], rho) or not (rho <= rep).all():
+        raise AssertionError("rho is not a compressed min-representative map")
+    if not torch.equal(rho.long() // rpf, rep.long() // rpf):
+        raise AssertionError("rho merges rows of two fields")
     ops.reset_launches()
     scores, times = {}, {}
     for name, batch in batches.items():
@@ -956,7 +1048,7 @@ def fm_serving_phase(ops, records: dict) -> int:
         raise AssertionError(f"FM retrieval: card and CPU differ by {retrieval_err}")
     out = dict(
         config=cfg.name, n_rows=cfg.n_rows, table_bytes=table_bytes,
-        merge_pairs=FM_MERGE_PAIRS, merged_rows=n_merged, merge_s=merge_s,
+        merge_pairs=FM_MERGE_PAIRS, merged_rows=n_merged, merge_s=fm["merge_s"],
         serve_wall_s={k: statistics.median(v) for k, v in times.items()},
         serve_walls_s=times,
         rows_per_s={k: batches[k]["ids"].shape[0] / statistics.median(v)
@@ -970,6 +1062,27 @@ def fm_serving_phase(ops, records: dict) -> int:
     )
     print(f"  {json.dumps(out)}", flush=True)
     records["fm_serving"] = out
+
+    def profile_rerun():
+        """The bulk batch's serve_step again under torch.profiler (the
+        second of two steps), on the model made anew from the same seeds:
+        device ms per port kernel and per glue kernel, and the busy share."""
+        fm = fm_model()
+        batch = fm["batches"]["serve_bulk"]
+        prof, wall, _ = profiled(lambda: recsys.serve_step(fm["params"], fm["cfg"], batch))
+        busy = device_time(prof, wall)
+        if busy["busy_ms"] <= 0:
+            raise AssertionError("torch.profiler saw no device time")
+        for name in ("fm_interact", "embedding_bag"):
+            if busy["port_kernels_ms"].get(name, 0.0) <= 0:
+                raise AssertionError(f"FM profile: no device time of {name}")
+        rerun = dict(profiled_batch=int(batch["ids"].shape[0]), profiled_wall_s=wall,
+                     device_time=busy)
+        print(f"  FM serving, profiled serve_step of serve_bulk: {json.dumps(rerun)}",
+              flush=True)
+        records["fm_serving"].update(rerun)
+
+    later.append(profile_rerun)
     return launches
 
 
@@ -1362,10 +1475,10 @@ KERNEL_OF = {
     "halve_kernel": "uf_compress", "finish_kernel": "uf_compress",
     "refresh_kernel": "uf_hook", "link_kernel": "uf_hook",
     "flash_kernel": "flash_attention", "flash_wgmma_kernel": "flash_attention",
-    "fm_kernel": "fm_interact",
+    "fm_slab_kernel": "fm_interact", "fm_row_kernel": "fm_interact",
     "seg_wide_kernel": "segment_sum", "seg_narrow_kernel": "segment_sum",
     "seg_fix_kernel": "segment_sum",
-    "bag_kernel": "embedding_bag",
+    "bag_narrow_kernel": "embedding_bag", "bag_wide_kernel": "embedding_bag",
 }
 
 
@@ -1467,14 +1580,14 @@ def main() -> None:
     launches["flash_attention"] = lm_serving_phase(ops, records, later)
 
     phase("FM serving at full scale (Criteo-scale FM, rho):")
-    fm_launches = fm_serving_phase(ops, records)
+    fm_launches = fm_serving_phase(ops, records, later)
     for name in ("fm_interact", "embedding_bag"):
         launches[name] = fm_launches[name]
 
     phase("GNN inference on the sameAs-deduplicated KG (GatedGCN, PNA):")
     launches["segment_sum"] = gnn_phase(ops, records, kg)
 
-    phase("device times under torch.profiler (kernels, REW, LM serving):")
+    phase("device times under torch.profiler (kernels, REW, LM and FM serving):")
     for job in later:
         job()
 
@@ -1491,6 +1604,7 @@ def main() -> None:
         ))
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
+    records["profiler_lost"] = PROFILER_LOST
     (out_dir / "chip_smoke.json").write_text(json.dumps(records, indent=1))
     print(card_line())
     print(json.dumps({"kernels": line}))

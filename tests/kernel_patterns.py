@@ -1,12 +1,15 @@
-"""Seeded numpy inputs for the search and segment-sum kernels, shared by the
-CPU tests (``test_torch_kernels.py``) and the card tests
-(``test_torch_cuda.py``).
+"""Seeded numpy inputs for the search, segment-sum, FM-interaction and
+embedding-bag kernels, shared by the CPU tests (``test_torch_kernels.py``)
+and the card tests (``test_torch_cuda.py``).
 
 The patterns are the shapes the callers give the kernels, and the edges of
 the kernels' tiles: the search kernel answers a tile of sorted queries from
 one window of keys in shared memory, or from every s-th key of a window
 too large for it; the segment sum cuts the sorted rows into equal ranges,
-so one segment can cover many of them.
+so one segment can cover many of them; the FM interaction streams slabs of
+whole rows through shared memory; the embedding bag gives an output value
+a thread (at K < 8; a large bag over a large table is swept a group of
+fields a launch) or a bag a warp.
 """
 
 from __future__ import annotations
@@ -100,3 +103,68 @@ def segment_case(pattern: str, e: int, n: int, k: int, seed: int = 0):
     else:
         raise ValueError(pattern)
     return x, seg.astype(np.int32)
+
+
+# (b, f, k) of the FM interaction's inputs: the slab route's edges (one row,
+# batches that are no multiple of a slab, 1 to 100 fields, a row of odd
+# byte length, a row larger than a stage) and the row route's K > 32
+FM_SHAPES = (
+    (1, 39, 10),      # one row: a slab of one row
+    (23, 39, 10),     # fewer rows than a slab at the bulk shape
+    (513, 39, 10),    # serve_p99 plus one
+    (300, 1, 10),
+    (300, 7, 10),
+    (300, 100, 10),
+    (777, 7, 3),      # rows of 21 values: 84 bytes in f32, 42 in bf16
+    (200, 39, 33),    # K > 32: the row route
+    (50, 1200, 10),   # 48,000 bytes a row in f32: larger than a stage
+)
+
+
+def fm_case(b: int, f: int, k: int, seed: int = 0) -> np.ndarray:
+    """(b, f, k) float32 field embeddings."""
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(b, f, k)) * 0.5).astype(np.float32)
+
+
+BAG_PATTERNS = (
+    "banded",     # field f's ids in its own band of rows, as the FM lays them out
+    "uniform",    # ids over the whole table
+    "off_table",  # a tenth of the ids below 0 or at or past V: they add zero
+)
+
+# (b, f, k) of the embedding bag's inputs: the narrow route's edges (one
+# bag, one past or short of a block of 256 threads, 1 to 500 fields, a
+# field count no multiple of the 8 loaded at once, K 3) and the wide
+# route's (the retrieval query, K > 32)
+BAG_SHAPES = (
+    (1, 39, 1),
+    (255, 39, 1),
+    (257, 39, 1),
+    (300, 1, 1),
+    (300, 7, 1),
+    (300, 100, 1),
+    (64, 500, 1),
+    (300, 39, 3),
+    (1, 39, 10),     # the retrieval query
+    (100, 39, 40),   # K > 32
+    (64, 7, 130),
+)
+
+
+def bag_case(pattern: str, b: int, f: int, v: int, k: int, seed: int = 0):
+    """(ids (b, f) int32, table (v, k) float32)."""
+    rng = np.random.default_rng(seed)
+    table = rng.normal(size=(v, k)).astype(np.float32)
+    if pattern == "banded":
+        band = max(v // f, 1)
+        ids = rng.integers(0, band, (b, f)) + np.arange(f) * band
+        ids = np.minimum(ids, v - 1)
+    elif pattern in ("uniform", "off_table"):
+        ids = rng.integers(0, v, (b, f))
+        if pattern == "off_table":
+            off = rng.random((b, f)) < 0.1
+            ids[off] = rng.choice([-(1 << 30), -1, v, v + 7], int(off.sum()))
+    else:
+        raise ValueError(pattern)
+    return ids.astype(np.int32), table

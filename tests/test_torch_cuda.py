@@ -17,7 +17,8 @@ import pytest
 import torch
 
 from kernel_patterns import (
-    SEARCH_PATTERNS, SEGMENT_PATTERNS, prefix_case, search_case, segment_case,
+    BAG_PATTERNS, BAG_SHAPES, FM_SHAPES, SEARCH_PATTERNS, SEGMENT_PATTERNS, bag_case,
+    fm_case, prefix_case, search_case, segment_case,
 )
 from repro_torch.core.engine import TorchEngine
 from repro_torch.core.triples import pack
@@ -319,6 +320,38 @@ def test_fm_interact(dev, b, f, k, dtype):
         torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7, atol=1e-3)
 
 
+def _check_fm(x):
+    """The kernel against its plain version: 1e-5 of max(1, the largest
+    |out|) in f32 (chip_smoke's limit), one bf16 rounding in bf16; two calls
+    give the same bits."""
+    got = ops.fm_interact(x)
+    assert torch.equal(got, ops.fm_interact(x))
+    want = ref.fm_interact(x)
+    assert got.dtype == x.dtype and got.shape == want.shape
+    if x.dtype == torch.float32:
+        limit = 1e-5 * max(1.0, float(want.abs().max()))
+    else:
+        limit = 2 ** -7 * want.float().abs() + 1e-3
+    assert bool(((got.float() - want.float()).abs() <= limit).all())
+
+
+@pytest.mark.parametrize("b,f,k", [*FM_SHAPES, (100_001, 39, 10)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fm_interact_tiles(dev, b, f, k, dtype):
+    """The edges of the slab route (one row, batches no multiple of a
+    slab, 1 to 100 fields, rows of odd byte length) and of the row route
+    (K > 32, a row larger than a stage)."""
+    _check_fm(torch.from_numpy(fm_case(b, f, k, seed=b + f + k)).to(dev).to(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fm_interact_unaligned(dev, dtype):
+    """x one value past an aligned start: the row route."""
+    x = fm_case(1000, 39, 10, seed=5)
+    flat = torch.from_numpy(np.concatenate([[0.0], x.reshape(-1)]).astype(np.float32))
+    _check_fm(flat.to(dev).to(dtype)[1:].view(1000, 39, 10))
+
+
 def _to(tree, dev):
     """A parameter tree (dicts, lists, tuples of tensors) on ``dev``."""
     if isinstance(tree, dict):
@@ -468,6 +501,53 @@ def test_embedding_bag(dev, b, f, v, k, dtype):
     abs_sum = ref.embedding_bag(ids_t, table.float().abs())
     assert got.dtype == dtype and got.shape == (b, k)
     _close_to_sum(got, want, abs_sum, 1e-5 if dtype == torch.float32 else 2 ** -7)
+
+
+def _check_bag(ids, table):
+    """The kernel against its plain version (1e-5 of each value's sum of
+    |terms| in f32, 2^-7 in bf16), the same bits on two calls.  The
+    wrapper counts one launch a call, also where the swept route launches
+    its kernel once per group of 8 fields."""
+    before = ops.LAUNCHES["embedding_bag"]
+    got = ops.embedding_bag(ids, table)
+    assert ops.LAUNCHES["embedding_bag"] == before + 1
+    assert torch.equal(got, ops.embedding_bag(ids, table))
+    assert got.dtype == table.dtype and got.shape == (ids.shape[0], table.shape[1])
+    _close_to_sum(got, ref.embedding_bag(ids, table),
+                  ref.embedding_bag(ids, table.float().abs()),
+                  1e-5 if table.dtype == torch.float32 else 2 ** -7)
+
+
+@pytest.mark.parametrize("b,f,k", [*BAG_SHAPES, (100_003, 39, 1)])
+@pytest.mark.parametrize("pattern", BAG_PATTERNS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_embedding_bag_edges(dev, b, f, k, pattern, dtype):
+    """The edges of the narrow route (one bag, a bag past or short of a
+    block, 1 to 500 fields, ids banded by field or off the table) and of
+    the wide route (the retrieval query, K > 32)."""
+    ids, table = bag_case(pattern, b, f, 50_000, k, seed=b + f + k)
+    _check_bag(torch.from_numpy(ids).to(dev), torch.from_numpy(table).to(dev).to(dtype))
+
+
+@pytest.mark.parametrize("b,f,k", [(30_000, 39, 1), (10_000, 39, 3)])
+@pytest.mark.parametrize("pattern", BAG_PATTERNS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_embedding_bag_sweep(dev, b, f, k, pattern, dtype):
+    """Over a million lookups into a table of more than 32 MB: an f32
+    bag is swept a group of 8 fields a launch, each adding to the sums of
+    the one before (a bf16 bag takes one launch)."""
+    ids, table = bag_case(pattern, b, f, 9_000_000 // k, k, seed=b + k)
+    _check_bag(torch.from_numpy(ids).to(dev), torch.from_numpy(table).to(dev).to(dtype))
+
+
+@pytest.mark.parametrize("k", [1, 10])
+def test_embedding_bag_unaligned(dev, k):
+    """ids one value past an aligned start, and a table one value past
+    one (the wide route's rows in narrower vectors)."""
+    ids, table = bag_case("banded", 1000, 39, 20_000, k, seed=k)
+    flat_ids = torch.from_numpy(np.concatenate([[0], ids.reshape(-1)]).astype(np.int32))
+    flat_tab = torch.from_numpy(np.concatenate([[0.0], table.reshape(-1)]).astype(np.float32))
+    _check_bag(flat_ids.to(dev)[1:].view(1000, 39), flat_tab.to(dev)[1:].view(20_000, k))
 
 
 @pytest.mark.parametrize("name", ["gatedgcn", "pna"])

@@ -27,7 +27,8 @@ import pytest  # noqa: E402
 import torch  # noqa: E402
 
 from kernel_patterns import (  # noqa: E402
-    SEARCH_PATTERNS, SEGMENT_PATTERNS, prefix_case, search_case, segment_case,
+    BAG_PATTERNS, BAG_SHAPES, FM_SHAPES, SEARCH_PATTERNS, SEGMENT_PATTERNS, bag_case,
+    fm_case, prefix_case, search_case, segment_case,
 )
 from repro.kernels import merge as jmerge, ops as jops, ref as jref  # noqa: E402
 from repro_torch.kernels import merge, ops  # noqa: E402
@@ -319,6 +320,62 @@ def test_embedding_bag_off_table_ids_add_zero(k):
     np.testing.assert_allclose(got[0], table[[0, 1, 2]].sum(axis=0), rtol=1e-6, atol=1e-6)
     clamped = np.asarray(jref.embedding_bag_ref(jnp.asarray(ids[:1]), jnp.asarray(table)))
     assert not np.allclose(clamped[0], got[0])
+
+
+def _bag_abs_sum(ids: np.ndarray, table: np.ndarray) -> np.ndarray:
+    """Each bag value's sum of |terms|, off-table ids adding nothing."""
+    on = (ids >= 0) & (ids < table.shape[0])
+    rows = np.abs(table.astype(np.float32))[np.clip(ids, 0, table.shape[0] - 1)]
+    return np.where(on[..., None], rows, 0.0).sum(axis=1)
+
+
+# the FM-serving kernels' tile edges (kernel_patterns): the port's plain
+# versions against the Pallas kernels in interpret mode and the reference's
+# oracles, within the card tests' limits
+@pytest.mark.parametrize("b,f,k", FM_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fm_interact_patterns(b, f, k, dtype):
+    jdt, tdt = SWEEP_DTYPES[dtype]
+    x = jnp.asarray(fm_case(b, f, k, seed=b + f + k), jdt)
+    got = ops.fm_interact(_to_torch(x))
+    assert got.dtype == tdt and got.shape == (b,)
+    got = got.float().numpy()
+    for want in (jops.fm_interact(x), jref.fm_interact_ref(x)):
+        want = np.asarray(want, np.float32)
+        if dtype == "float32":  # rtol 1e-5 of max(1, the largest |out|)
+            limit = 1e-5 * max(1.0, float(np.abs(want).max()))
+        else:  # one bf16 rounding
+            limit = 2.0**-7 * np.abs(want) + 1e-3
+        assert (np.abs(got - want) <= limit).all(), float(np.abs(got - want).max())
+
+
+@pytest.mark.parametrize("b,f,k", BAG_SHAPES)
+@pytest.mark.parametrize("pattern", BAG_PATTERNS)
+def test_embedding_bag_patterns(b, f, k, pattern):
+    """f32, within 1e-5 of each value's sum of |terms|; off-table ids
+    against the Pallas kernel only (the oracle clamps them)."""
+    ids, table = bag_case(pattern, b, f, 2000, k, seed=b + f + k)
+    got = ops.embedding_bag(torch.from_numpy(ids), torch.from_numpy(table)).numpy()
+    wants = [jops.embedding_bag(jnp.asarray(ids), jnp.asarray(table))]
+    if pattern != "off_table":
+        wants.append(jref.embedding_bag_ref(jnp.asarray(ids), jnp.asarray(table)))
+    limit = 1e-5 * _bag_abs_sum(ids, table) + 1e-6
+    for want in wants:
+        assert (np.abs(got - np.asarray(want)) <= limit).all()
+
+
+@pytest.mark.parametrize("b,f,k", BAG_SHAPES)
+def test_embedding_bag_patterns_bf16(b, f, k):
+    """bf16 tables, ids banded by field: within 2^-7 of each value's sum
+    of |terms| (one bf16 rounding apart)."""
+    ids, table = bag_case("banded", b, f, 2000, k, seed=b + f + k)
+    jtable = jnp.asarray(table, jnp.bfloat16)
+    got = ops.embedding_bag(torch.from_numpy(ids), _to_torch(jtable))
+    assert got.dtype == torch.bfloat16
+    limit = 2.0**-7 * _bag_abs_sum(ids, np.asarray(jtable, np.float32)) + 1e-6
+    for want in (jops.embedding_bag(jnp.asarray(ids), jtable),
+                 jref.embedding_bag_ref(jnp.asarray(ids), jtable)):
+        assert (np.abs(got.float().numpy() - np.asarray(want, np.float32)) <= limit).all()
 
 
 # the reference's sweep, plus K = 1 (degree counts) and the GNN widths 70
