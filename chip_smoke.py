@@ -1,9 +1,16 @@
 """Drive the PyTorch/CUDA port on one NVIDIA card and check it end to end.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --rew-kernels [--src DIR]
 
-Phases, each of which raises on failure (the script then exits non-zero and
-prints no result):
+The second form times only the REW path's rewrite and ``merge_pairs`` of
+the port under ``DIR`` (default: this checkout's ``src``), through entry
+points that every tree of the port has, and prints one JSON line: copy the
+script into another tree (the parent, unpacked by ``git archive`` under
+``build/``) and run both trees in turns, A B B A, to compare them on one
+card; each tree builds its own kernels.  Its ``digest`` must be the same
+for every tree.  The first form runs these phases, each of which raises
+on failure (the script then exits non-zero and prints no result):
 
 1. the card: ``nvidia-smi``'s name and power limit; no CUDA, no run;
 2. build: every hand-written kernel from ``src/repro_torch/kernels/csrc``
@@ -19,11 +26,14 @@ prints no result):
    bf16 of the f32 result than halfway between P split into two bf16
    halves and P in bf16.  The search in each form (one side, both
    sides, sorted and random queries, the prefix form on random and sorted
-   rows) bit-equal to its plain version.  Times from CUDA events (median
+   rows) bit-equal to its plain version.  The union-find's union, and
+   ``merge_pairs`` as a whole, held against their plain versions after the
+   compression, and two card runs bit-equal.  Times from CUDA events (median
    of single calls) for the kernel, its plain version and the PyTorch
    calls that compute the same function as a yardstick, beside the least
-   time the card could take; for flash, SDPA, the segment sum and
-   ``index_add_`` also the device time a call under torch.profiler; for
+   time the card could take; for flash, SDPA, the segment sum,
+   ``index_add_``, the rewrite, ``rho[spo]``, the union, the compression
+   and ``merge_pairs`` also the device time a call under torch.profiler; for
    the embedding bag also a plain gather of the same rows.  The bag's main
    row takes the FM path's ids, banded by field; ids drawn over the whole
    table, and ids into one field's rows, are other rows;
@@ -35,7 +45,8 @@ prints no result):
    number.  Structural checks of the result; two more runs for the wall's
    spread, then (at the end) one under ``torch.profiler`` for the device's
    busy time and one counting the search calls by form, order and size
-   with each one's device time; and
+   with each one's device time; one union and one compression launched
+   per round (the engine merges once a round); and
    the same run on the CPU (the kernels' plain versions) must give the same
    triples, rho and counters;
 6. LM serving at full width: SmolLM-135M (random weights from seed 0) with
@@ -79,6 +90,7 @@ full record goes to ``chiprun_out/chip_smoke.json``.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import statistics
 import subprocess
@@ -106,7 +118,7 @@ FULL_RESOURCES = 971865  # resources of that profile at that scale
 FULL_CAP = 1 << 22
 FULL_EDGES = 2398800  # explicit triples of that profile: the KG graph's edges
 REW_KERNELS = ("dedup_order", "search_bounds", "rewrite_triples", "uf_compress",
-               "uf_hook")
+               "uf_union")
 
 
 def card_line() -> str:
@@ -165,18 +177,20 @@ def recorder(records: dict):
     """``record(...)``: print one kernel measurement, fail if the kernel
     and its plain version differ by more than ``tol``, and keep it."""
     def record(name, shape, err, ms, plain_ms, lib_ms, n_bytes, n_ops,
-               main=False, tol=0.0, ops_per_s=SCALAR_OPS_PER_S):
+               main=False, tol=0.0, ops_per_s=SCALAR_OPS_PER_S, extra=None):
         b_ms, b_by = bound(n_bytes, n_ops, ops_per_s)
         lib = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
         print(f"  {name} {shape}{' [main path]' if main else ''}: max_abs_err "
               f"{err} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-              f"{lib}, bound {b_ms:.4f} ms ({b_by})", flush=True)
+              f"{lib}, bound {b_ms:.4f} ms ({b_by})"
+              f"{'' if extra is None else ' ' + json.dumps(extra)}", flush=True)
         if not err <= tol:
             raise AssertionError(f"{name} {shape} differs from its plain version "
                                  f"by {err} > {tol}")
         records.setdefault(name, []).append(dict(
             shape=shape, main_path=main, max_abs_err=err, tol=tol, ms=ms,
             plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+            **(extra or {}),
         ))
     return record
 
@@ -282,75 +296,144 @@ def search_kernel_phase(ops, ref, records: dict, dev) -> None:
     del rows, prefix, keys
 
 
-def rew_kernel_phase(ops, ref, records: dict, dev) -> None:
-    """Rewrite and union-find at the full-size REW path's shapes."""
-    from repro_torch.core.uf import merge_pairs_np
+def plain_merge(ref, rep, pairs, valid):
+    """``merge_pairs`` through the plain versions: clone, union, compress."""
+    out = rep.clone()
+    ref.uf_union_(out, pairs, valid)
+    ref.uf_compress_(out)
+    return out
 
-    gen = torch.Generator(device=dev).manual_seed(4)
-    record = recorder(records)
-    # rewrite: candidates and the arena sweep under a rho of 971,865
-    # resources merged in 8-cliques (each maps to its minimum)
+
+def rewrite_inputs(n: int, form: str, seed: int, dev):
+    """(spo, rho, masks) of one rewrite form: n random rows under a rho of
+    971,865 resources merged in 8-cliques (each maps to its minimum); the
+    candidates' ``valid`` (90 %) or the sweep's ``epoch``/``marked``."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
     V = FULL_RESOURCES
     rho = torch.arange(V, dtype=torch.int32, device=dev) // 8 * 8
-    for n, form in ((1 << 22, "normalise"), (FULL_CAP + 1, "sweep")):
-        spo = torch.randint(0, V, (n, 3), generator=gen, device=dev,
-                            dtype=torch.int32)
-        valid = torch.rand(n, generator=gen, device=dev) < 0.9
-        epoch = torch.randint(-1, 8, (n,), generator=gen, device=dev,
-                              dtype=torch.int32)
-        marked = torch.rand(n, generator=gen, device=dev) < 0.1
-        kw = ({"valid": valid} if form == "normalise"
-              else {"epoch": epoch, "marked": marked})
+    spo = torch.randint(0, V, (n, 3), generator=gen, device=dev, dtype=torch.int32)
+    if form == "normalise":
+        return spo, rho, {"valid": torch.rand(n, generator=gen, device=dev) < 0.9}
+    epoch = torch.randint(-1, 8, (n,), generator=gen, device=dev, dtype=torch.int32)
+    return spo, rho, {"epoch": epoch,
+                      "marked": torch.rand(n, generator=gen, device=dev) < 0.1}
+
+
+def union_inputs(main: bool, seed: int, dev):
+    """(V, the pairs in order (k, 2), the (m, 2) int32 pair buffer, its
+    flags).  Main path: 51,600 8-cliques given as all 64 ordered pairs each
+    (the idProp rule's output) in a buffer of out_cap rows, over 971,865
+    resources.  Stress: 2^20 resources whose 8-cliques are hooked pairwise
+    (x, x+1), plus one 2^16-long chain; the buffer holds just the pairs."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if main:
+        V, width = FULL_RESOURCES, FULL_CAP
+        g = torch.arange(FULL["n_groups"], device=dev) * 8
+        i, j = torch.meshgrid(torch.arange(8, device=dev), torch.arange(8, device=dev),
+                              indexing="ij")
+        pairs = torch.stack([(g[:, None, None] + i).reshape(-1),
+                             (g[:, None, None] + j).reshape(-1)], dim=1)
+    else:
+        V, width = 1 << 20, None
+        x = torch.arange(V - 1, device=dev)
+        chain = (x % 8 != 7) | ((x >= 1 << 18) & (x < (1 << 18) + (1 << 16)))
+        pairs = torch.stack([x, x + 1], dim=1)[chain]
+    pairs = pairs[torch.randperm(pairs.shape[0], generator=gen, device=dev)]
+    k = pairs.shape[0]
+    m = width or k
+    buf = torch.zeros((m, 2), dtype=torch.int32, device=dev)
+    buf[:k] = pairs.flip(1)
+    return V, pairs, buf, torch.arange(m, device=dev) < k
+
+
+def kernel_device_ms(fn, name: str, calls: int = 20) -> float | None:
+    """Device time a call of the port kernel ``name`` among ``fn``'s
+    kernels (torch.profiler, the mean of ``calls`` calls); None where the
+    trace holds none of it."""
+    def run():
+        for _ in range(calls):
+            fn()
+
+    prof, _, _ = profiled(run)
+    ms = device_time(prof, 1.0)["port_kernels_ms"].get(name)
+    return None if ms is None else ms / calls
+
+
+def rew_kernel_phase(ops, ref, records: dict, dev, later: list) -> None:
+    """Rewrite and union-find at the full-size REW path's shapes; each
+    kernel's device time a call (torch.profiler, on inputs made anew from
+    the same seeds) goes to ``later``."""
+    from repro_torch.core.uf import merge_pairs, merge_pairs_np
+
+    record = recorder(records)
+    # rewrite.  Bytes: spo read and out written (12 a row each), the masks
+    # (1 or 5 a row), the flags (1) and rho once; the lookups move a
+    # 32-byte sector each from L2 (kept beside the bound: it may set the
+    # floor above it)
+    V = FULL_RESOURCES
+    for n, form, seed in ((1 << 22, "normalise", 4), (FULL_CAP + 1, "sweep", 5)):
+        spo, rho, kw = rewrite_inputs(n, form, seed, dev)
         err = max(max_err(ops.rewrite_triples(spo, rho), ref.rewrite_triples(spo, rho)),
                   max_err(ops.rewrite_triples(spo, rho, **kw),
                           ref.rewrite_triples(spo, rho, **kw)))
         mask_bytes = n if form == "normalise" else 5 * n
+        lookups = 3 * (int(kw["valid"].sum()) if form == "normalise" else n)
         record("rewrite_triples", f"{form} n={n},V={V}", err,
                time_ms(lambda: ops.rewrite_triples(spo, rho, **kw)),
                time_ms(lambda: ref.rewrite_triples(spo, rho, **kw)),
                time_ms(lambda: rho[spo.to(torch.int64)]),
                12 * n + 4 * V + mask_bytes + 12 * n + n, 4 * n,
-               main=form == "sweep")
+               main=form == "sweep",
+               extra=dict(lookup_sector_bytes=lookups * SECTOR))
 
-    # union-find.  Main path: 51,600 8-cliques given as all 64 ordered
-    # pairs each (the idProp rule's output) in a pair buffer of out_cap
-    # rows, over 971,865 resources.  Stress: 2^20 resources whose 8-cliques
-    # are hooked pairwise (x, x+1), plus one 2^16-long chain.
-    g = torch.arange(FULL["n_groups"], device=dev) * 8
-    i, j = torch.meshgrid(torch.arange(8, device=dev), torch.arange(8, device=dev),
-                          indexing="ij")
-    clique = torch.stack([(g[:, None, None] + i).reshape(-1),
-                          (g[:, None, None] + j).reshape(-1)], dim=1)
-    x = torch.arange((1 << 20) - 1, device=dev)
-    chain = (x % 8 != 7) | ((x >= 1 << 18) & (x < (1 << 18) + (1 << 16)))
-    cases = (
-        (V, clique, FULL_CAP, "main: 51,600 8-cliques, all pairs", True),
-        (1 << 20, torch.stack([x, x + 1], dim=1)[chain], None,
-         "stress: 8-cliques pairwise + a 2^16 chain", False),
-    )
-    for V, pairs, width, label, main in cases:
-        pairs = pairs[torch.randperm(pairs.shape[0], generator=gen, device=dev)]
-        pairs = pairs.to(torch.int32)
-        m = width or pairs.shape[0]
-        pv = torch.arange(m, device=dev) < pairs.shape[0]
-        a0 = torch.zeros(m, dtype=torch.int32, device=dev)
-        b0 = torch.zeros(m, dtype=torch.int32, device=dev)
-        a0[: pairs.shape[0]], b0[: pairs.shape[0]] = pairs[:, 1], pairs[:, 0]
+        def rewrite_device(entry=records["rewrite_triples"][-1], n=n, form=form,
+                           seed=seed):
+            spo, rho, kw = rewrite_inputs(n, form, seed, dev)
+            entry.update(
+                device_ms=kernel_device_ms(lambda: ops.rewrite_triples(spo, rho, **kw),
+                                           "rewrite_triples"),
+                library_device_ms=device_ms_per_call(lambda: rho[spo.to(torch.int64)],
+                                                     calls=20))
+            print(f"  rewrite_triples {entry['shape']}: device ms a call "
+                  f"(torch.profiler) kernel {entry['device_ms']}, rho[spo] "
+                  f"{entry['library_device_ms']:.4f}", flush=True)
+
+        later.append(rewrite_device)
+    del spo, rho, kw
+
+    # union-find: the union on the card, compressed, against the plain
+    # version, merge_pairs and merge_pairs_np; two card runs bit-equal
+    for main, seed, label in ((True, 6, "main: 51,600 8-cliques, all pairs"),
+                              (False, 7, "stress: 8-cliques pairwise + a 2^16 chain")):
+        V, pairs, buf, pv = union_inputs(main, seed, dev)
+        k, m = pairs.shape[0], buf.shape[0]
         base = torch.arange(V, dtype=torch.int32, device=dev)
-        merged = []
-        for mod in (ops, ref):
-            rep, a, b = base.clone(), a0.clone(), b0.clone()
-            while int(mod.uf_hook_(rep, a, b, pv)):
-                mod.uf_compress_(rep)
-            merged.append(rep)
-        want, _ = merge_pairs_np(np.arange(V, dtype=np.int32), pairs.cpu().numpy())
-        if max_err(merged[0], merged[1]) or not np.array_equal(
-            merged[0].cpu().numpy(), want
-        ):
-            raise AssertionError(f"merge loop ({label}) differs from its plain version")
-        hooked = base.clone()
-        ref.uf_hook_(hooked, a0.clone(), b0.clone(), pv)  # one hook, uncompressed
-        n_hooked = int((hooked != base).sum())  # the roots that hook writes
+        runs = []
+        for _ in range(2):
+            got = base.clone()
+            ops.uf_union_(got, buf, pv)
+            ops.uf_compress_(got)
+            runs.append(got)
+        want_np, _ = merge_pairs_np(np.arange(V, dtype=np.int32), pairs.cpu().numpy())
+        plain = plain_merge(ref, base, buf, pv)
+        merged = merge_pairs(base, buf, pv)
+        if max_err(runs[0], runs[1]) or not np.array_equal(merged.cpu().numpy(), want_np):
+            raise AssertionError(f"union ({label}) differs between card runs or "
+                                 "from merge_pairs_np")
+        n_hooked = int((plain != base).sum())  # the roots the union writes
+        n_ends = int(torch.unique(pairs).numel())  # the rep entries it reads
+        # union: reads every flag (1 a row), the pair of each valid row (8)
+        # and rep at each endpoint (4) once, writes the roots it hooks; a
+        # masked row's pair is never read.  Held against the plain version
+        # after compress
+        record("uf_union", f"{label}, V={V}, m={m}",
+               max(max_err(runs[0], plain), max_err(merged, plain)),
+               time_ms(ops.uf_union_, lambda: (base.clone(), buf, pv)),
+               time_ms(ref.uf_union_, lambda: (base.clone(), buf, pv)),
+               None, m + 8 * k + 4 * n_ends + 4 * n_hooked, 2 * k, main=main)
+        # compress: the forest one scatter-min of the pairs leaves
+        lo, hi = pairs.min(dim=1).values, pairs.max(dim=1).values
+        hooked = base.clone().scatter_reduce_(0, hi, lo.to(torch.int32), "amin")
         c_kernel, c_plain = hooked.clone(), hooked.clone()
         ops.uf_compress_(c_kernel)
         ref.uf_compress_(c_plain)
@@ -360,16 +443,31 @@ def rew_kernel_phase(ops, ref, records: dict, dev) -> None:
                time_ms(ops.uf_compress_, lambda: (hooked.clone(),)),
                time_ms(ref.uf_compress_, lambda: (hooked.clone(),)),
                None, 4 * V + 4 * n_moved, V, main=main)
-        h_kernel = (base.clone(), a0.clone(), b0.clone())
-        h_plain = (base.clone(), a0.clone(), b0.clone())
-        err = max_err((*h_kernel, ops.uf_hook_(*h_kernel, pv)),
-                      (*h_plain, ref.uf_hook_(*h_plain, pv)))
-        # hook reads a, b, valid and rep once, writes a, b back and rep at
-        # the roots it hooks
-        record("uf_hook", f"{label}, V={V}, m={m}", err,
-               time_ms(ops.uf_hook_, lambda: (base.clone(), a0.clone(), b0.clone(), pv)),
-               time_ms(ref.uf_hook_, lambda: (base.clone(), a0.clone(), b0.clone(), pv)),
-               None, 17 * m + 4 * V + 4 * n_hooked, 4 * m, main=main)
+        # the whole merge: reads rep, the flags and the valid rows' pairs,
+        # writes the new rep
+        record("merge_pairs", f"{label}, V={V}, m={m}", max_err(merged, plain),
+               time_ms(lambda: merge_pairs(base, buf, pv)),
+               time_ms(lambda: plain_merge(ref, base, buf, pv)),
+               None, m + 8 * k + 8 * V, 2 * k, main=main)
+
+        def union_device(entries=(records["uf_union"][-1], records["uf_compress"][-1],
+                                  records["merge_pairs"][-1]), main=main, seed=seed):
+            V, pairs, buf, pv = union_inputs(main, seed, dev)
+            base = torch.arange(V, dtype=torch.int32, device=dev)
+            lo, hi = pairs.min(dim=1).values, pairs.max(dim=1).values
+            hooked = base.clone().scatter_reduce_(0, hi, lo.to(torch.int32), "amin")
+            union, compress, merge = entries
+            union["device_ms"] = kernel_device_ms(
+                lambda: ops.uf_union_(base.clone(), buf, pv), "uf_union")
+            compress["device_ms"] = kernel_device_ms(
+                lambda: ops.uf_compress_(hooked.clone()), "uf_compress")
+            merge["device_ms"] = device_ms_per_call(lambda: merge_pairs(base, buf, pv),
+                                                    calls=20)
+            print(f"  union-find {union['shape']}: device ms a call (torch.profiler) "
+                  f"uf_union {union['device_ms']}, uf_compress {compress['device_ms']}, "
+                  f"merge_pairs {merge['device_ms']:.4f}", flush=True)
+
+        later.append(union_device)
 
 
 def float_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -1353,6 +1451,11 @@ def fullsize_phase(ops, records: dict, kg: dict, later: list) -> dict:
     missing = [k for k in REW_KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
+    # the engine merges once a round: one union and one compression each
+    if not launches["uf_union"] == launches["uf_compress"] == stats.rounds:
+        raise AssertionError(f"{stats.rounds} rounds launched "
+                             f"{launches['uf_union']} unions and "
+                             f"{launches['uf_compress']} compressions")
     del state
 
     # the wall's spread over two more runs; the device's share comes from a
@@ -1473,7 +1576,7 @@ KERNEL_OF = {
     "radix_pass": "dedup_order",
     "search_tile_kernel": "search_bounds", "rewrite_kernel": "rewrite_triples",
     "halve_kernel": "uf_compress", "finish_kernel": "uf_compress",
-    "refresh_kernel": "uf_hook", "link_kernel": "uf_hook",
+    "union_kernel": "uf_union",
     "flash_kernel": "flash_attention", "flash_wgmma_kernel": "flash_attention",
     "fm_slab_kernel": "fm_interact", "fm_row_kernel": "fm_interact",
     "seg_wide_kernel": "segment_sum", "seg_narrow_kernel": "segment_sum",
@@ -1514,7 +1617,7 @@ SOURCES = {  # kernel -> (source, TPU kernel it replaces)
     "rewrite_triples": ("rewrite_triples.cu",
                         "src/repro/kernels/rewrite_triples.py:45"),
     "uf_compress": ("union_find.cu", "src/repro/kernels/pointer_jump.py:47"),
-    "uf_hook": ("union_find.cu", "src/repro/kernels/pointer_jump.py:47"),
+    "uf_union": ("union_find.cu", "src/repro/kernels/pointer_jump.py:47"),
     "flash_attention": ("flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:90"),
     "fm_interact": ("fm_interact.cu", "src/repro/kernels/fm_interact.py:27"),
@@ -1523,9 +1626,48 @@ SOURCES = {  # kernel -> (source, TPU kernel it replaces)
 }
 
 
+def rew_kernel_times(src: Path) -> dict:
+    """``--rew-kernels``: the rewrite in both forms (rows as phase 3's) and
+    ``merge_pairs`` on phase 3's main and stress cases, of the port under
+    ``src``: medians of 20 single calls by CUDA events, then the device
+    time a call (all its kernels, torch.profiler), the launches of one
+    merge, and a digest of every result."""
+    sys.path.insert(0, str(src))
+    from repro_torch.core.uf import merge_pairs
+    from repro_torch.kernels import ops
+
+    dev, digest, calls, out = "cuda", hashlib.sha256(), [], {"src": str(src)}
+    for n, form, seed in ((1 << 22, "normalise", 4), (FULL_CAP + 1, "sweep", 5)):
+        spo, rho, kw = rewrite_inputs(n, form, seed, dev)
+        for t in ops.rewrite_triples(spo, rho, **kw):
+            digest.update(t.cpu().numpy().tobytes())
+        calls.append((f"rewrite_{form}", functools.partial(
+            ops.rewrite_triples, spo, rho, **kw)))
+    for main, seed, case in ((True, 6, "main"), (False, 7, "stress")):
+        V, _, buf, pv = union_inputs(main, seed, dev)
+        base = torch.arange(V, dtype=torch.int32, device=dev)
+        before = dict(ops.LAUNCHES)
+        digest.update(merge_pairs(base, buf, pv).cpu().numpy().tobytes())
+        out[f"merge_{case}_launches"] = {
+            k: c - before[k] for k, c in ops.LAUNCHES.items() if c != before[k]}
+        calls.append((f"merge_{case}", functools.partial(merge_pairs, base, buf, pv)))
+    for name, fn in calls:  # every event time before the first profile
+        out[f"{name}_ms"] = time_ms(fn, reps=20)
+    for name, fn in calls:
+        out[f"{name}_device_ms"] = device_ms_per_call(fn, calls=20)
+    out["digest"] = digest.hexdigest()[:16]
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
+    if "--rew-kernels" in sys.argv[1:]:
+        args = sys.argv[1:]
+        src = Path(args[args.index("--src") + 1]) if "--src" in args else ROOT / "src"
+        print(card_line(), flush=True)
+        print(json.dumps(rew_kernel_times(src.resolve())), flush=True)
+        return
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build, ops, ref
 
@@ -1564,7 +1706,7 @@ def main() -> None:
     kg = full_kg()
     kernel_phase(ops, ref, kernel_records, "cuda")
     search_kernel_phase(ops, ref, kernel_records, "cuda")
-    rew_kernel_phase(ops, ref, kernel_records, "cuda")
+    rew_kernel_phase(ops, ref, kernel_records, "cuda", later)
     serving_kernel_phase(ops, ref, kernel_records, "cuda", later)
     segment_bag_kernel_phase(ops, ref, kernel_records,
                              kg["facts"][:, 2].astype(np.int32), "cuda", later)

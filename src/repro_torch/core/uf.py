@@ -1,17 +1,20 @@
 """Representative map rho as a union-find.
 
 The port of ``repro.core.uf``'s merge machinery.  All sameAs pairs of a
-round are applied at once: min-hooking (``rep[hi] = min(rep[hi], lo)`` for
-pairs whose roots differ) alternates with compression until no pair
-straddles two roots.  The representative of a clique is its minimum ID, so
-the result is unique whatever the order of hooks.
+round are applied at once.  The reference alternates min-hooking
+(``rep[hi] = min(rep[hi], lo)`` for pairs whose roots differ) with
+compression until no pair straddles two roots; on the card one lock-free
+union joins them all (each pair hooks the larger of its two roots under the
+smaller by compare-and-swap, the paper's Algorithm 5) and one compression
+finishes.  The representative of a clique is its minimum ID, so the result
+is unique whatever the order of hooks.
 
 * ``compress_np`` / ``merge_pairs_np`` — numpy copies of the reference's
   host versions,
 * ``compress`` / ``merge_pairs`` — the torch counterparts of
-  ``_compress_jax`` / ``merge_pairs_jax``; on the card, compression and
-  hooking run as the union-find kernels (:func:`repro_torch.kernels.ops.uf_compress_`,
-  :func:`repro_torch.kernels.ops.uf_hook_`).
+  ``_compress_jax`` / ``merge_pairs_jax``; on the card, union and
+  compression run as the union-find kernels (:func:`repro_torch.kernels.ops.uf_union_`,
+  :func:`repro_torch.kernels.ops.uf_compress_`).
 """
 
 from __future__ import annotations
@@ -64,16 +67,9 @@ def compress(rep: torch.Tensor) -> torch.Tensor:
 def merge_pairs(rep: torch.Tensor, pairs: torch.Tensor,
                 pair_valid: torch.Tensor) -> torch.Tensor:
     """Merge the valid (a, b) rows of the (m, 2) int32 ``pairs`` into a copy
-    of ``rep``; returns the compressed result.
-
-    Each pass of the loop refreshes every pair to its roots and hooks the
-    ones still apart (one kernel call), then compresses; the host reads one
-    flag per pass to stop.
-    """
-    rep = compress(rep)
-    a = torch.where(pair_valid, pairs[:, 0], 0).contiguous()
-    b = torch.where(pair_valid, pairs[:, 1], 0).contiguous()
-    valid = pair_valid.contiguous()
-    while bool(ops.uf_hook_(rep, a, b, valid).item()):
-        ops.uf_compress_(rep)
-    return rep
+    of the forest ``rep`` (``rep[x] <= x``, as merging leaves it); returns
+    the compressed result.  One union and one compression: no host read."""
+    out = rep.clone()
+    ops.uf_union_(out, pairs, pair_valid)
+    ops.uf_compress_(out)
+    return out

@@ -29,7 +29,7 @@ from . import ref
 from ._build import library
 
 KERNELS = ("dedup_order", "search_bounds", "rewrite_triples",
-           "uf_compress", "uf_hook", "flash_attention", "fm_interact",
+           "uf_compress", "uf_union", "flash_attention", "fm_interact",
            "segment_sum", "embedding_bag")
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
 
@@ -46,7 +46,7 @@ _ENTRIES = {
     "rewrite_triples": ("rewrite_triples", "rewrite_triples",
                         (_P, _N, _P, _N, _P, _P, _P, _P, _P)),
     "uf_compress": ("union_find", "uf_compress", (_P, _N)),
-    "uf_hook": ("union_find", "uf_hook", (_P, _N, _P, _P, _P, _N, _P)),
+    "uf_union": ("union_find", "uf_union", (_P, _N, _P, _P, _N)),
     "flash_attention": ("flash_attention", "flash_attention",
                         (_P, ctypes.c_float)),  # 22 int64 arguments packed
     "fm_interact": ("fm_interact", "fm_interact",
@@ -249,24 +249,24 @@ def uf_compress_(rep: torch.Tensor) -> None:
     _launch("uf_compress", rep.device, rep.data_ptr(), rep.shape[0])
 
 
-def uf_hook_(rep: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
-             valid: torch.Tensor) -> torch.Tensor:
-    """One merge step on a compressed ``rep``: replace the pair endpoints
-    ``a``/``b`` by their roots, then hook every valid pair still apart with
-    ``rep[max] = min(rep[max], min)``.  Returns a (1,) int32 flag, 1 iff a
-    pair was hooked."""
+def uf_union_(rep: torch.Tensor, pairs: torch.Tensor, valid: torch.Tensor) -> None:
+    """Join the trees of every valid (a, b) row of the (m, 2) int32
+    ``pairs`` in the forest ``rep`` (int32, ``rep[x] <= x``), in place: each
+    joined component's least root becomes its root.  ``rep`` is left a
+    forest, not compressed (:func:`uf_compress_` finishes it); ids are
+    clamped into ``rep``.  No host read."""
     _check(rep, "rep", torch.int32, 1)
-    for name, t, dtype in (("a", a, torch.int32), ("b", b, torch.int32),
-                           ("valid", valid, torch.bool)):
-        _check(t, name, dtype, 1)
-        if t.shape[0] != a.shape[0]:
-            raise ValueError(f"{name} has {t.shape[0]} rows, a {a.shape[0]}")
-    if not _on_card(rep, a, b, valid):
-        return ref.uf_hook_(rep, a, b, valid)
-    flag = torch.empty(1, dtype=torch.int32, device=rep.device)
-    _launch("uf_hook", rep.device, rep.data_ptr(), rep.shape[0], a.data_ptr(),
-            b.data_ptr(), valid.data_ptr(), a.shape[0], flag.data_ptr())
-    return flag
+    _check(pairs, "pairs", torch.int32, 2, width=2)
+    _check(valid, "valid", torch.bool, 1)
+    if valid.shape[0] != pairs.shape[0]:
+        raise ValueError(f"valid has {valid.shape[0]} rows, pairs {pairs.shape[0]}")
+    if rep.shape[0] == 0 and pairs.shape[0]:
+        raise ValueError("pairs into an empty rep")
+    if not _on_card(rep, pairs, valid):
+        ref.uf_union_(rep, pairs, valid)
+        return
+    _launch("uf_union", rep.device, rep.data_ptr(), rep.shape[0],
+            pairs.data_ptr(), valid.data_ptr(), pairs.shape[0])
 
 
 FLASH_HEAD_DIMS = (64, 128)

@@ -69,22 +69,25 @@ def uf_compress_(rep: torch.Tensor) -> None:
         rep.copy_(nxt)
 
 
-def uf_hook_(rep, a, b, valid) -> torch.Tensor:
-    """Refresh pairs to their roots, then min-hook those still apart.
-
-    In place on ``rep``, ``a`` and ``b``; returns a (1,) int32 flag that is
-    1 iff some valid pair joined two roots.
-    """
-    a.copy_(rep[a.to(torch.int64)])
-    b.copy_(rep[b.to(torch.int64)])
-    lo = torch.minimum(a, b)
-    hi = torch.maximum(a, b)
-    active = valid & (lo != hi)
-    # inactive rows scatter rep[0] into slot 0: a no-op under amin
-    tgt = torch.where(active, hi, 0).to(torch.int64)
-    val = torch.where(active, lo, rep[0])
-    rep.scatter_reduce_(0, tgt, val, "amin", include_self=True)
-    return active.any().to(torch.int32).reshape(1)
+def uf_union_(rep, pairs, valid) -> None:
+    """Join the trees of the valid pairs in place: compress, then hook each
+    pair still apart with ``rep[max] = min(rep[max], min)`` of its roots,
+    and compress again, to the fixpoint.  Leaves ``rep`` compressed."""
+    idx = pairs.to(torch.int64).clamp_(0, rep.shape[0] - 1)
+    uf_compress_(rep)
+    while True:
+        a = rep[idx[:, 0]]
+        b = rep[idx[:, 1]]
+        lo = torch.minimum(a, b)
+        hi = torch.maximum(a, b)
+        active = valid & (lo != hi)
+        if not bool(active.any()):
+            return
+        # inactive rows scatter rep[0] into slot 0: a no-op under amin
+        tgt = torch.where(active, hi, 0).to(torch.int64)
+        val = torch.where(active, lo, rep[0])
+        rep.scatter_reduce_(0, tgt, val, "amin", include_self=True)
+        uf_compress_(rep)
 
 
 def flash_attention(q, k, v, causal: bool = True, q_offset: int = 0):

@@ -1,11 +1,13 @@
-"""Seeded numpy inputs for the search, segment-sum, FM-interaction and
-embedding-bag kernels, shared by the CPU tests (``test_torch_kernels.py``)
-and the card tests (``test_torch_cuda.py``).
+"""Seeded numpy inputs for the search, rewrite, union-find, segment-sum,
+FM-interaction and embedding-bag kernels, shared by the CPU tests
+(``test_torch_kernels.py``) and the card tests (``test_torch_cuda.py``).
 
 The patterns are the shapes the callers give the kernels, and the edges of
 the kernels' tiles: the search kernel answers a tile of sorted queries from
 one window of keys in shared memory, or from every s-th key of a window
-too large for it; the segment sum cuts the sorted rows into equal ranges,
+too large for it; the rewrite takes a row a thread, on any alignment;
+the union walks a thread's pair to its roots and hooks them by
+compare-and-swap, racing the other threads; the segment sum cuts the sorted rows into equal ranges,
 so one segment can cover many of them; the FM interaction streams slabs of
 whole rows through shared memory; the embedding bag gives an output value
 a thread (at K < 8; a large bag over a large table is swept a group of
@@ -75,6 +77,95 @@ def prefix_case(sorted_rows: bool, n: int, v: int, k: int, seed: int = 0):
     if sorted_rows:
         rows = rows[np.lexsort(rows.T[::-1])]
     return np.ascontiguousarray(rows), keys
+
+
+# (pattern, rows) of the rewrite's inputs: row counts around groups of 4
+# rows and tiles of 128 (the edges of a vectorised body), a view that
+# starts one row in (12 bytes: no 16-byte chunk is aligned, nor a 4-byte
+# word of the masks), and ids outside rho at both ends (clamped into it)
+REWRITE_CASES = (
+    ("rows", 1), ("rows", 3), ("rows", 4), ("rows", 5), ("rows", 1027),
+    ("rows", 127), ("rows", 129), ("rows", 5123),
+    ("unaligned", 1029), ("out_of_range", 1000),
+)
+
+
+def rewrite_case(pattern: str, n: int, seed: int = 0):
+    """(spo (m, 3) int32, rho (v,) int32, valid (m,) bool, epoch (m,) int32,
+    marked (m,) bool, start): the kernel's input is every array from row
+    ``start`` on (1 for the unaligned view, which the caller slices after
+    moving the arrays to the device), n rows."""
+    rng = np.random.default_rng(seed)
+    start = 1 if pattern == "unaligned" else 0
+    m, v = n + start, max(n // 2, 9)
+    rho = np.arange(v, dtype=np.int32) // 4 * 4  # cliques of 4 and their minimum
+    moved = rng.integers(0, v, v // 3)
+    rho[moved] = rng.integers(0, v, moved.size) // 4 * 4
+    rho = np.minimum(rho, np.arange(v, dtype=np.int32))
+    spo = rng.integers(0, v, (m, 3))
+    if pattern == "out_of_range":
+        off = rng.random((m, 3)) < 0.1
+        spo[off] = rng.choice([-(1 << 30), -1, v, v + 5, (1 << 31) - 1], int(off.sum()))
+    elif pattern not in ("rows", "unaligned"):
+        raise ValueError(pattern)
+    valid = rng.random(m) < 0.7
+    epoch = rng.integers(-1, 4, m).astype(np.int32)
+    marked = rng.random(m) < 0.2
+    return spo.astype(np.int32), rho, valid, epoch, marked, start
+
+
+UNION_PATTERNS = (
+    "cliques",         # the main path: 8-cliques, all 64 ordered pairs, in a larger buffer
+    "cliques_chain",   # 8-cliques hooked pairwise (x, x + 1), plus one long chain
+    "permuted_chain",  # one chain through a random permutation of all resources
+    "hub",             # one resource in a third of the pairs
+    "self_masked",     # a third of the pairs (a, a), half the rows masked out
+    "forest",          # random pairs into an uncompressed forest, rep[x] <= x
+)
+
+
+def union_case(pattern: str, v: int, seed: int = 0):
+    """(rep (v,) int32, pairs (m, 2) int32, valid (m,) bool) for v
+    resources: a forest with rep[x] <= x and the pairs to merge into it."""
+    rng = np.random.default_rng(seed)
+    rep = np.arange(v, dtype=np.int32)
+    if pattern == "cliques":
+        g = rng.permutation(v // 8)[: max(v // 16, 1)] * 8
+        i, j = np.meshgrid(np.arange(8), np.arange(8), indexing="ij")
+        pairs = np.stack([(g[:, None, None] + i).reshape(-1),
+                          (g[:, None, None] + j).reshape(-1)], axis=1)
+        pairs = rng.permutation(pairs)
+        pad = rng.integers(0, v, (pairs.shape[0] // 4 + 3, 2))  # masked-out rows
+        valid = np.arange(pairs.shape[0] + pad.shape[0]) < pairs.shape[0]
+        return rep, np.concatenate([pairs, pad]).astype(np.int32), valid
+    if pattern == "cliques_chain":
+        x = np.arange(v - 1)
+        long_chain = (x >= v // 4) & (x < v // 4 + v // 3)
+        x = x[(x % 8 != 7) | long_chain]
+        pairs = rng.permutation(np.stack([x, x + 1], axis=1))
+    elif pattern == "permuted_chain":
+        perm = rng.permutation(v)
+        pairs = np.stack([perm[:-1], perm[1:]], axis=1)
+        pairs = rng.permutation(pairs)
+    elif pattern == "hub":
+        pairs = rng.integers(0, v, (v // 2, 2))
+        rows = np.flatnonzero(rng.random(pairs.shape[0]) < 0.33)
+        pairs[rows, rng.integers(0, 2, rows.size)] = v // 2 + 1
+    elif pattern == "self_masked":
+        pairs = rng.integers(0, v, (v, 2))
+        self_rows = rng.random(v) < 0.33
+        pairs[self_rows, 1] = pairs[self_rows, 0]
+        return rep, pairs.astype(np.int32), rng.random(v) < 0.5
+    elif pattern == "forest":
+        hooked = rng.random(v) < 0.6
+        hooked[0] = False
+        rep[hooked] = rng.integers(0, np.flatnonzero(hooked))
+        chain = np.arange(v // 2, min(v, v // 2 + 40))  # a deep chain
+        rep[chain] = chain - 1
+        pairs = rng.integers(0, v, (v // 3, 2))
+    else:
+        raise ValueError(pattern)
+    return rep, pairs.astype(np.int32), np.ones(pairs.shape[0], dtype=bool)
 
 
 SEGMENT_PATTERNS = (

@@ -17,8 +17,9 @@ import pytest
 import torch
 
 from kernel_patterns import (
-    BAG_PATTERNS, BAG_SHAPES, FM_SHAPES, SEARCH_PATTERNS, SEGMENT_PATTERNS, bag_case,
-    fm_case, prefix_case, search_case, segment_case,
+    BAG_PATTERNS, BAG_SHAPES, FM_SHAPES, REWRITE_CASES, SEARCH_PATTERNS,
+    SEGMENT_PATTERNS, UNION_PATTERNS, bag_case, fm_case, prefix_case, rewrite_case,
+    search_case, segment_case, union_case,
 )
 from repro_torch.core.engine import TorchEngine
 from repro_torch.core.triples import pack
@@ -159,44 +160,60 @@ def test_prefix_patterns(dev, sorted_rows, k):
     _same(ops.prefix_range_bounds(rows_t, keys_t), ref.prefix_range_bounds(rows_t, keys_t))
 
 
-def test_rewrite_triples(dev):
-    rng = np.random.default_rng(2)
-    n, v = 10_000, 4096
-    spo = torch.from_numpy(rng.integers(0, v, (n, 3)).astype(np.int32)).to(dev)
-    rho = torch.from_numpy((np.arange(v) // 4 * 4).astype(np.int32)).to(dev)
-    valid = torch.from_numpy(rng.random(n) < 0.8).to(dev)
-    epoch = torch.from_numpy(rng.integers(-1, 3, n).astype(np.int32)).to(dev)
-    marked = torch.from_numpy(rng.random(n) < 0.2).to(dev)
-    for kw in ({}, {"valid": valid}, {"epoch": epoch, "marked": marked}):
+@pytest.mark.parametrize("pattern,n", [*REWRITE_CASES, ("rows", 100_003),
+                                       ("unaligned", 100_003)])
+def test_rewrite_triples(dev, pattern, n):
+    """Every mask form equals the plain version: row counts around groups
+    of 4 and tiles of 128, a view one row in (no operand 16-byte aligned),
+    ids outside rho."""
+    spo, rho, valid, epoch, marked, start = rewrite_case(pattern, n, seed=n)
+    spo, valid, epoch, marked = (torch.from_numpy(x).to(dev)[start:]
+                                 for x in (spo, valid, epoch, marked))
+    rho = torch.from_numpy(rho).to(dev)
+    assert (spo.data_ptr() % 16 == 0) == (start == 0)
+    before = ops.LAUNCHES["rewrite_triples"]
+    for kw in ({}, {"valid": valid}, {"epoch": epoch, "marked": marked},
+               {"valid": valid, "epoch": epoch, "marked": marked}):
         _same(ops.rewrite_triples(spo, rho, **kw), ref.rewrite_triples(spo, rho, **kw))
+    assert ops.LAUNCHES["rewrite_triples"] == before + 4
 
 
-@pytest.mark.parametrize("shape", ["random_links", "permuted_chain"])
-def test_union_find(dev, shape):
-    """Merge loops on the card equal the plain version: random (x, x+1)
-    links, and one chain through a random permutation of all resources
-    (hooks land in no sequential order, so the compressing walks race)."""
-    rng = np.random.default_rng(3)
-    v, m = 50_000, 40_000
-    if shape == "random_links":
-        x = rng.integers(0, v - 1, m).astype(np.int32)
-        pairs = np.stack([x, x + 1], axis=1)
-    else:
-        perm = rng.permutation(v).astype(np.int32)
-        pairs = np.stack([perm[:-1], perm[1:]], axis=1)
-        m = pairs.shape[0]
-    out = []
-    for mod in (ops, ref):
-        rep = torch.arange(v, dtype=torch.int32, device=dev)
-        a = torch.from_numpy(pairs[:, 0].copy()).to(dev)
-        b = torch.from_numpy(pairs[:, 1].copy()).to(dev)
-        valid = torch.ones(m, dtype=torch.bool, device=dev)
-        while int(mod.uf_hook_(rep, a, b, valid)):
-            mod.uf_compress_(rep)
-        out.append(rep)
-    _same(out[:1], out[1:])
-    if shape == "permuted_chain":  # one clique; its minimum is resource 0
-        assert int(out[0].max()) == 0
+@pytest.mark.parametrize("pattern", UNION_PATTERNS)
+def test_union_find(dev, pattern):
+    """Union then compress on the card equals the plain version, and two
+    card runs give the same bits, whatever order the hooks landed in; the
+    union is one launch."""
+    rep, pairs, valid = union_case(pattern, 50_000, seed=len(pattern))
+    pairs_t, valid_t = torch.from_numpy(pairs).to(dev), torch.from_numpy(valid).to(dev)
+    runs = []
+    for _ in range(2):
+        got = torch.from_numpy(rep).to(dev)
+        before = ops.LAUNCHES["uf_union"]
+        ops.uf_union_(got, pairs_t, valid_t)
+        assert ops.LAUNCHES["uf_union"] == before + 1
+        assert bool((got <= torch.arange(got.shape[0], device=dev)).all())
+        ops.uf_compress_(got)
+        runs.append(got)
+    want = torch.from_numpy(rep).to(dev)
+    ref.uf_union_(want, pairs_t, valid_t)
+    ref.uf_compress_(want)
+    _same(runs[:1], [want])
+    _same(runs[1:], [want])
+    if pattern == "permuted_chain":  # one clique; its minimum is resource 0
+        assert int(runs[0].max()) == 0
+
+
+def test_union_find_unaligned(dev):
+    """Pairs and flags one row in: a pair a thread throughout."""
+    rep, pairs, valid = union_case("hub", 50_000, seed=5)
+    pairs_t = torch.from_numpy(pairs).to(dev)[1:]
+    valid_t = torch.from_numpy(valid).to(dev)[1:]
+    got = torch.from_numpy(rep).to(dev)
+    ops.uf_union_(got, pairs_t, valid_t)
+    ops.uf_compress_(got)
+    want = torch.from_numpy(rep).to(dev)
+    ref.uf_union_(want, pairs_t, valid_t)
+    _same([got], [want])
 
 
 @pytest.mark.parametrize("name", ["opencyc_like", "merge_like", "uobm_like"])

@@ -27,9 +27,11 @@ import pytest  # noqa: E402
 import torch  # noqa: E402
 
 from kernel_patterns import (  # noqa: E402
-    BAG_PATTERNS, BAG_SHAPES, FM_SHAPES, SEARCH_PATTERNS, SEGMENT_PATTERNS, bag_case,
-    fm_case, prefix_case, search_case, segment_case,
+    BAG_PATTERNS, BAG_SHAPES, FM_SHAPES, REWRITE_CASES, SEARCH_PATTERNS,
+    SEGMENT_PATTERNS, UNION_PATTERNS, bag_case, fm_case, prefix_case, rewrite_case,
+    search_case, segment_case, union_case,
 )
+from repro.core import uf as juf  # noqa: E402
 from repro.kernels import merge as jmerge, ops as jops, ref as jref  # noqa: E402
 from repro_torch.kernels import merge, ops  # noqa: E402
 
@@ -160,32 +162,36 @@ def test_prefix_range_bounds(nq, nk, k):
     np.testing.assert_array_equal(end.numpy()[real], np.asarray(pallas_e)[real])
 
 
-@pytest.mark.parametrize("n,v", [(5, 9), (300, 512), (1025, 700)])
-def test_rewrite_triples(n, v):
-    rng = np.random.default_rng(n + v)
-    spo = rng.integers(0, v, (n, 3)).astype(np.int32)
-    rho = np.arange(v, dtype=np.int32)
-    merged = rng.integers(0, v, v // 3)
-    rho[merged] = rng.integers(0, v, v // 3)
+@pytest.mark.parametrize("pattern,n", REWRITE_CASES)
+def test_rewrite_triples(pattern, n):
+    spo, rho, valid, epoch, marked, start = rewrite_case(pattern, n, seed=n)
+    spo, valid, epoch, marked = (x[start:] for x in (spo, valid, epoch, marked))
     out, changed = ops.rewrite_triples(torch.from_numpy(spo), torch.from_numpy(rho))
-    for want_out, want_changed in (
+    # ids outside rho are clamped into it, as the reference's gathers clamp
+    # ids past the end; the Pallas kernel leaves them 0 and unflagged, and
+    # numpy-style indexing wraps negative ids, so those two are held to the
+    # rows inside rho
+    want_out = np.asarray(jref.rewrite_triples_ref(
+        jnp.asarray(np.clip(spo, 0, rho.shape[0] - 1)), jnp.asarray(rho))[0])
+    diff = (want_out != spo).any(axis=1)
+    np.testing.assert_array_equal(out.numpy(), want_out)
+    np.testing.assert_array_equal(changed.numpy(), diff)
+    inside = ((spo >= 0) & (spo < rho.shape[0])).all(axis=1)
+    assert inside.all() == (pattern != "out_of_range")
+    for other_out, other_changed in (
         jref.rewrite_triples_ref(jnp.asarray(spo), jnp.asarray(rho)),
         jops.rewrite_triples(jnp.asarray(spo), jnp.asarray(rho)),
     ):
-        np.testing.assert_array_equal(out.numpy(), np.asarray(want_out))
-        np.testing.assert_array_equal(changed.numpy(), np.asarray(want_changed))
+        np.testing.assert_array_equal(out.numpy()[inside], np.asarray(other_out)[inside])
+        np.testing.assert_array_equal(changed.numpy()[inside],
+                                      np.asarray(other_changed)[inside])
 
     # the masked forms: candidate normalisation and the store sweep
-    want_out = np.asarray(jref.rewrite_triples_ref(jnp.asarray(spo), jnp.asarray(rho))[0])
-    diff = (want_out != spo).any(axis=1)
-    valid = rng.random(n) < 0.7
     out_v, changed_v = ops.rewrite_triples(
         torch.from_numpy(spo), torch.from_numpy(rho), valid=torch.from_numpy(valid)
     )
     np.testing.assert_array_equal(out_v.numpy(), np.where(valid[:, None], want_out, 0))
     np.testing.assert_array_equal(changed_v.numpy(), diff & valid)
-    epoch = rng.integers(-1, 4, n).astype(np.int32)
-    marked = rng.random(n) < 0.2
     out_s, changed_s = ops.rewrite_triples(
         torch.from_numpy(spo), torch.from_numpy(rho),
         epoch=torch.from_numpy(epoch), marked=torch.from_numpy(marked),
@@ -245,31 +251,40 @@ def test_uf_compress_is_iterated_pointer_jump(v):
     np.testing.assert_array_equal(port.numpy(), np.asarray(ref_rep))
 
 
-@pytest.mark.parametrize("v,m", [(9, 4), (300, 200), (1000, 999)])
-def test_uf_hook_is_pointer_jump_then_scatter_min(v, m):
-    rng = np.random.default_rng(v * m)
-    rep = np.arange(v, dtype=np.int32)
-    a = rng.integers(0, v, m).astype(np.int32)
-    b = rng.integers(0, v, m).astype(np.int32)
-    valid = rng.random(m) < 0.8
-    # a first hook leaves rep uncompressed; compress it for the second
-    rep_t, a_t, b_t = (torch.from_numpy(x.copy()) for x in (rep, a, b))
-    ops.uf_hook_(rep_t, a_t, b_t, torch.from_numpy(valid))
-    ops.uf_compress_(rep_t)
-    rep = rep_t.numpy().copy()
-    a_t, b_t = torch.from_numpy(a.copy()), torch.from_numpy(b.copy())
-    flag = ops.uf_hook_(rep_t, a_t, b_t, torch.from_numpy(valid))
+def _pointer_jump_fixpoint(rep: np.ndarray) -> np.ndarray:
+    """rep = rep[rep] to the fixpoint, each step a Pallas call."""
+    rep = jnp.asarray(rep)
+    while True:
+        nxt = jops.pointer_jump(rep, rep)
+        if np.array_equal(np.asarray(nxt), np.asarray(rep)):
+            return np.asarray(rep)
+        rep = nxt
 
-    ra = np.asarray(jops.pointer_jump(jnp.asarray(a), jnp.asarray(rep)))
-    rb = np.asarray(jops.pointer_jump(jnp.asarray(b), jnp.asarray(rep)))
-    lo, hi = np.minimum(ra, rb), np.maximum(ra, rb)
-    active = valid & (lo != hi)
-    want = rep.copy()
-    np.minimum.at(want, hi[active], lo[active])
-    np.testing.assert_array_equal(a_t.numpy(), ra)
-    np.testing.assert_array_equal(b_t.numpy(), rb)
-    np.testing.assert_array_equal(rep_t.numpy(), want)
-    assert int(flag) == int(active.any())
+
+@pytest.mark.parametrize("pattern", UNION_PATTERNS)
+def test_uf_union_then_compress(pattern):
+    """Union then compress equals merge_pairs_jax and a merge loop of the
+    Pallas pointer_jump (the pairs' roots) with a scatter-min hook."""
+    rep, pairs, valid = union_case(pattern, 300, seed=len(pattern))
+    port = torch.from_numpy(rep.copy())
+    ops.uf_union_(port, torch.from_numpy(pairs), torch.from_numpy(valid))
+    ops.uf_compress_(port)
+    want = juf.merge_pairs_jax(jnp.asarray(rep), jnp.asarray(pairs), jnp.asarray(valid))
+    np.testing.assert_array_equal(port.numpy(), np.asarray(want))
+
+    merged = _pointer_jump_fixpoint(rep)
+    a, b = jnp.asarray(pairs[valid, 0]), jnp.asarray(pairs[valid, 1])
+    while True:
+        ra = np.asarray(jops.pointer_jump(a, jnp.asarray(merged)))
+        rb = np.asarray(jops.pointer_jump(b, jnp.asarray(merged)))
+        lo, hi = np.minimum(ra, rb), np.maximum(ra, rb)
+        active = lo != hi
+        if not active.any():
+            break
+        np.minimum.at(merged, hi[active], lo[active])
+        merged = _pointer_jump_fixpoint(merged)
+    np.testing.assert_array_equal(port.numpy(), merged)
+    assert (port.numpy() <= np.arange(rep.shape[0])).all()
 
 
 SWEEP_DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -475,6 +490,13 @@ def test_wrappers_check_their_inputs():
     with pytest.raises(ValueError):
         ops.rewrite_triples(torch.zeros((4, 2), dtype=torch.int32),
                             torch.zeros(4, dtype=torch.int32))
+    rep = torch.arange(4, dtype=torch.int32)
+    with pytest.raises(ValueError):  # pairs of three columns
+        ops.uf_union_(rep, torch.zeros((2, 3), dtype=torch.int32),
+                      torch.ones(2, dtype=torch.bool))
+    with pytest.raises(ValueError):  # flags of another length
+        ops.uf_union_(rep, torch.zeros((2, 2), dtype=torch.int32),
+                      torch.ones(3, dtype=torch.bool))
     with pytest.raises(ValueError):
         ops.search_bounds(torch.zeros(8, dtype=torch.int64)[::2],
                           torch.zeros(4, dtype=torch.int64))
