@@ -37,18 +37,27 @@ on failure (the script then exits non-zero and prints no result):
    the embedding bag also a plain gather of the same rows.  The bag's main
    row takes the FM path's ids, banded by field; ids drawn over the whole
    table, and ids into one field's rows, are other rows;
-4. mid-size: the default ``opencyc_like`` and ``merge_like`` profiles on the
-   card equal the same run on the CPU (triples, rho, counters);
+4. mid-size: the ``opencyc_like``, ``merge_like``, ``chain_like`` and
+   ``claros_like`` profiles through the default engine (the fused loop,
+   one CUDA graph replay a round) on the card equal the host loop
+   (``fuse_rounds=False``) on the card and both loops on the CPU
+   (triples, rho, counters), and Theorem 1 holds on the card's result
+   against the port's host AX materialisation (``check_theorem1``);
 5. REW at full size: ``opencyc_like`` at OpenCyc's scale (2.4 M explicit
    triples, 361,200 merged resources) materialised on the card through
-   :class:`repro_torch.TorchEngine`; its wall time is the end-to-end
-   number.  Structural checks of the result; two more runs for the wall's
-   spread, then (at the end) one under ``torch.profiler`` for the device's
-   busy time and one counting the search calls by form, order and size
-   with each one's device time; one union and one compression launched
-   per round (the engine merges once a round); and
-   the same run on the CPU (the kernels' plain versions) must give the same
-   triples, rho and counters;
+   :class:`repro_torch.TorchEngine`: three runs of the host loop, then the
+   default engine's first run (round 1 eager, the capture of the round
+   graph, one replay and one host read a round; its wall time is the
+   end-to-end number and its launches the main path's) and three reruns
+   that replay the graph from round 1; each run's wall split (set-up, each
+   round's wall, wait and reads, stats) and peak memory (allocated and
+   reserved, the graph's pool included).  Structural checks of the result;
+   one union and one compression launched per round (the engine merges
+   once a round); the host loop, the numpy host REW (timed once) and the
+   same run on the CPU under both loops (the kernels' plain versions) give
+   the same triples, rho and counters.  At the end, profiled reruns of both loops
+   for the device's busy time, and the host loop's search calls counted
+   by form, order and size with each one's device time;
 6. LM serving at full width: SmolLM-135M (random weights from seed 0) with
    the flash kernel behind ``ServeEngine`` (16 slots, 1024 rows) answers 64
    requests of 32-512 prompt tokens and 32 new tokens; wall, tokens per
@@ -1356,40 +1365,65 @@ def gnn_phase(ops, records: dict, kg: dict) -> int:
     return launches["segment_sum"]
 
 
-def result_of(engine_cls, profile: dict, device: str):
-    from repro_torch.core.triples import pack
-    from repro_torch.data.generator import generate
-
-    facts, program, dic = generate(**profile)
-    eng = engine_cls(dic.n_resources, device=device)
-    spo, rep, stats = eng.materialise(facts, program)
-    return np.sort(pack(spo)), rep, stats
-
-
 COUNTERS = ("derivations", "rule_applications", "merged_resources",
             "reflexive_added", "rounds", "triples_total")
+MIDSIZE = ("opencyc_like", "merge_like", "chain_like", "claros_like")
+
+
+def same_result(label: str, got, want) -> None:
+    """Raise unless two ``(triples, rho, stats)`` results hold the same
+    triples, rho and counters."""
+    from repro_torch.core.triples import pack
+
+    if not np.array_equal(np.sort(pack(got[0])), np.sort(pack(want[0]))):
+        raise AssertionError(f"{label}: triples differ")
+    if not np.array_equal(got[1], want[1]):
+        raise AssertionError(f"{label}: rho differs")
+    for k in COUNTERS:
+        if getattr(got[2], k) != getattr(want[2], k):
+            raise AssertionError(f"{label}: {k} differs")
 
 
 def midsize_phase(records: dict) -> None:
+    """Each mid-size profile through the default (fused) engine and the host
+    loop, on the card and on the CPU: the same triples, rho and counters.  Then Theorem 1 of the card's fused
+    result against the port's host AX materialisation."""
     from repro_torch import TorchEngine
-    from repro_torch.data.generator import PROFILES
+    from repro_torch.core.materialise import MatResult, check_theorem1, materialise_ax
+    from repro_torch.core.triples import TripleArena
+    from repro_torch.data.generator import PROFILES, generate
 
-    for name in ("opencyc_like", "merge_like"):
+    for name in MIDSIZE:
+        facts, program, dic = generate(**PROFILES[name])
+        runs, walls = {}, {}
+        for label, device, kw in (("cuda", "cuda", {}),
+                                  ("cuda_host_loop", "cuda", dict(fuse_rounds=False)),
+                                  ("cpu", "cpu", {}),
+                                  ("cpu_host_loop", "cpu", dict(fuse_rounds=False))):
+            t0 = time.perf_counter()
+            eng = TorchEngine(dic.n_resources, device=device, **kw)
+            runs[label] = eng.materialise(facts, program)
+            walls[f"{label}_wall_s"] = time.perf_counter() - t0
+            if label == "cuda" and eng._graph is None:
+                raise AssertionError(f"{name}: the fused run captured no graph")
+        for label in ("cuda_host_loop", "cpu", "cpu_host_loop"):
+            same_result(f"{name}: cuda (fused) vs {label}", runs[label], runs["cuda"])
+        spo, rep, stats = runs["cuda"]
         t0 = time.perf_counter()
-        gpu = result_of(TorchEngine, PROFILES[name], "cuda")
-        t_gpu = time.perf_counter() - t0
-        cpu = result_of(TorchEngine, PROFILES[name], "cpu")
-        if not np.array_equal(gpu[0], cpu[0]):
-            raise AssertionError(f"{name}: triples differ between cuda and cpu")
-        if not np.array_equal(gpu[1], cpu[1]):
-            raise AssertionError(f"{name}: rho differs between cuda and cpu")
-        counters = {k: getattr(gpu[2], k) for k in COUNTERS}
-        for k in COUNTERS:
-            if counters[k] != getattr(cpu[2], k):
-                raise AssertionError(f"{name}: {k} differs between cuda and cpu")
-        print(f"  {name}: cuda == cpu, {counters}, cuda wall {t_gpu:.2f} s",
-              flush=True)
-        records[name] = dict(counters, cuda_wall_s=t_gpu)
+        ax = materialise_ax(facts, program, dic.n_resources)
+        walls["host_ax_s"] = time.perf_counter() - t0
+        arena = TripleArena()
+        arena.add_batch(spo)
+        t0 = time.perf_counter()
+        check_theorem1(MatResult(arena, rep, program, stats), ax)
+        walls["theorem1_s"] = time.perf_counter() - t0
+        counters = {k: getattr(stats, k) for k in COUNTERS}
+        print(f"  {name}: cuda fused == cuda host loop == cpu fused == cpu host "
+              f"loop, {counters}; "
+              f"Theorem 1 holds against the host AX ({ax.stats.triples_unmarked} "
+              f"triples); {json.dumps(walls)}", flush=True)
+        records[name] = dict(counters, rule_rewrites=stats.rule_rewrites,
+                             ax_triples=ax.stats.triples_unmarked, **walls)
 
 
 def full_kg() -> dict:
@@ -1408,32 +1442,139 @@ def full_kg() -> dict:
     return dict(facts=facts, program=program, dic=dic, config=config, gen_s=gen_s)
 
 
-def fullsize_phase(ops, records: dict, kg: dict, later: list) -> dict:
-    """REW at full size on ``kg``; leaves the card's rho in ``kg["rho"]``.
-    Its profiled rerun and the search census go to ``later``."""
-    from repro_torch import TorchEngine
-    from repro_torch.core.engine import index_invariant_report
-    from repro_torch.core.triples import pack
+def split_summary(split: dict) -> dict:
+    """An engine's ``last_split`` with each round's numbers as lists."""
+    rounds = split["rounds"]
+    return dict(
+        setup_s=split["setup_s"], round_wall_s=[r["wall_s"] for r in rounds],
+        round_wait_s=[r["wait_s"] for r in rounds],
+        round_reads=[r["reads"] for r in rounds], between_s=split["between_s"],
+        stats_s=split["stats_s"], wall_s=split["wall_s"], reads=split["reads"],
+        capture_s=split.get("capture_s"),
+    )
 
-    facts, program, dic, config = kg["facts"], kg["program"], kg["dic"], kg["config"]
-    eng = TorchEngine(dic.n_resources, capacity=FULL_CAP, bind_cap=FULL_CAP,
-                      out_cap=FULL_CAP, rewrite_cap=FULL_CAP, device="cuda")
-    if dic.n_resources != FULL_RESOURCES:
-        raise AssertionError(f"{dic.n_resources} resources, want {FULL_RESOURCES}")
+
+def rew_run(ops, eng, facts, program):
+    """One materialisation on the card: its state, and its wall (ending in
+    a synchronise), launch counts (set to 0 just before), peak memory
+    allocated and reserved (the caching allocator's segments, a CUDA
+    graph's private pool included) and the engine's wall split."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
     ops.reset_launches()
     t0 = time.perf_counter()
     state = eng.materialise_state(facts, program)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(ops.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
-    stats = state.stats
+    return state, dict(
+        wall_s=wall, launches=dict(ops.LAUNCHES),
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        max_memory_reserved=torch.cuda.max_memory_reserved(),
+        allocated_before=before, split=split_summary(eng.last_split),
+    )
+
+
+def quiet_sweep_ms(ops, state) -> dict:
+    """CUDA-event times (median of 5) of the store sweep on a quiet round,
+    where rho changes no live row: the rewrite alone (both loops run it
+    every round), and the rewrite with the compaction of the swept rows and
+    their removal from the index, which the fused loop runs every round and
+    the host loop only when a row changed."""
+    from repro_torch.core.engine import _compact, _index_remove
+
+    arena_cap = state.spo.shape[0] - 1
+
+    def rewrite():
+        return ops.rewrite_triples(state.spo, state.rep, epoch=state.epoch,
+                                   marked=state.marked)
+
+    def sweep():
+        rewritten, changed = rewrite()
+        _compact({"s": rewritten[:, 0], "p": rewritten[:, 1], "o": rewritten[:, 2]},
+                 changed, FULL_CAP)
+        _index_remove(state.sort_perm, state.sorted_keys, changed, arena_cap)
+
+    if bool(rewrite()[1].any()):
+        raise AssertionError("the fixpoint's store is not quiet under its rho")
+    rewrite_ms, sweep_ms = time_ms(rewrite), time_ms(sweep)
+    return dict(rewrite_ms=rewrite_ms, sweep_ms=sweep_ms,
+                compaction_and_removal_ms=sweep_ms - rewrite_ms)
+
+
+def fullsize_phase(ops, records: dict, kg: dict, later: list) -> dict:
+    """REW at full size on ``kg``; leaves the card's rho in ``kg["rho"]``.
+
+    The host loop (``fuse_rounds=False``) runs three times first, then the
+    default engine: its first run (round 1 eager, the capture of the round
+    graph, a replay a round after) is the main path's run, and three more
+    replay the graph from round 1.  Each run's wall split, peak memory and
+    launches are kept.  The old entry's host work (``dedup_rows`` of the
+    facts) is timed on its own and after a host-loop run in one span, and
+    the numpy host REW once.  Profiled reruns
+    of both loops and the search census (on the host loop, whose search
+    calls a wrapper can count) go to ``later``."""
+    from repro_torch import TorchEngine
+    from repro_torch.core.engine import index_invariant_report
+    from repro_torch.core.materialise import materialise_rew
+    from repro_torch.core.triples import dedup_rows
+
+    facts, program, dic, config = kg["facts"], kg["program"], kg["dic"], kg["config"]
+    if dic.n_resources != FULL_RESOURCES:
+        raise AssertionError(f"{dic.n_resources} resources, want {FULL_RESOURCES}")
+    caps = dict(capacity=FULL_CAP, bind_cap=FULL_CAP, out_cap=FULL_CAP,
+                rewrite_cap=FULL_CAP)
+    t0 = time.perf_counter()
+    n_distinct = dedup_rows(facts).shape[0]
+    dedup_rows_s = time.perf_counter() - t0
+
+    host_eng = TorchEngine(dic.n_resources, device="cuda", fuse_rounds=False, **caps)
+    torch.cuda.empty_cache()
+    host_runs, host_result = [], None
+    for _ in range(3):
+        hstate, run = rew_run(ops, host_eng, facts, program)
+        host_runs.append(run)
+        if host_result is None:
+            host_result = (host_eng.state_triples(hstate), host_eng.state_rep(hstate),
+                           hstate.stats)
+        del hstate
+    print(f"  host loop: walls {[r['wall_s'] for r in host_runs]}, peak memory "
+          f"allocated {host_runs[0]['max_memory_allocated']} reserved "
+          f"{host_runs[0]['max_memory_reserved']} B, split of the first "
+          f"{json.dumps(host_runs[0]['split'])}", flush=True)
+    # the parent's entry: the same run, then dedup_rows of the facts on the
+    # host for triples_explicit, in one span
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hstate = host_eng.materialise_state(facts, program)
+    dedup_rows(facts)
+    torch.cuda.synchronize()
+    host_with_dedup_rows_s = time.perf_counter() - t0
+    del hstate
+
+    eng = TorchEngine(dic.n_resources, device="cuda", **caps)
+    torch.cuda.empty_cache()
+    state, first = rew_run(ops, eng, facts, program)
+    wall, launches, stats = first["wall_s"], first["launches"], state.stats
+    graph = eng._graph
+    if graph is None or graph.graph is None:
+        raise AssertionError("the fused run captured no round graph")
+    if first["split"]["round_reads"] != [1] * stats.rounds:
+        raise AssertionError(f"fused rounds read {first['split']['round_reads']}")
+    if stats.capacity_retries:
+        raise AssertionError(f"{stats.capacity_retries} capacity restarts at full size")
+    print(f"  fused, first run: wall {wall:.4f} s, capture of the round graph "
+          f"{graph.capture_s:.4f} s, {stats.rounds} rounds ({stats.rounds - 1} "
+          f"replays), a replay launches {json.dumps(graph.launches)}; peak memory "
+          f"allocated {first['max_memory_allocated']} reserved "
+          f"{first['max_memory_reserved']} B", flush=True)
+    print(f"  fused, split of the first run {json.dumps(first['split'])}", flush=True)
 
     rho = torch.from_numpy(eng.state_rep(state))
     if stats.merged_resources != FULL_MERGED:
         raise AssertionError(f"merged_resources {stats.merged_resources} != {FULL_MERGED}")
+    if stats.triples_explicit != n_distinct:
+        raise AssertionError(f"triples_explicit {stats.triples_explicit} != {n_distinct}")
     members = np.asarray([
         [dic.id_of(f":e{g}_{i}") for i in range(config["group_size"])]
         for g in range(config["n_groups"])
@@ -1456,50 +1597,72 @@ def fullsize_phase(ops, records: dict, kg: dict, later: list) -> dict:
         raise AssertionError(f"{stats.rounds} rounds launched "
                              f"{launches['uf_union']} unions and "
                              f"{launches['uf_compress']} compressions")
+    card = (live, rho.numpy(), stats)
+    same_result("full size: fused vs host loop", host_result, card)
+    quiet = quiet_sweep_ms(ops, state)
+    print(f"  a quiet round's sweep on the fixpoint's store: {json.dumps(quiet)}",
+          flush=True)
     del state
 
-    # the wall's spread over two more runs; the device's share comes from a
-    # later run under torch.profiler
-    repeat_walls = []
-    for _ in range(2):
-        t0 = time.perf_counter()
-        again = eng.materialise_state(facts, program)
-        torch.cuda.synchronize()
-        repeat_walls.append(time.perf_counter() - t0)
+    # three more runs replay the captured graph from round 1
+    reruns = []
+    for _ in range(3):
+        again, run = rew_run(ops, eng, facts, program)
+        if eng._graph is not graph or graph.graph is None:
+            raise AssertionError("a rerun captured the round graph again")
+        for k in COUNTERS:
+            if getattr(again.stats, k) != getattr(stats, k):
+                raise AssertionError(f"fused rerun: {k} differs")
+        reruns.append(run)
         del again
+    print(f"  fused, reruns: walls {[r['wall_s'] for r in reruns]}, split of each "
+          f"{json.dumps([r['split'] for r in reruns])}", flush=True)
 
     def profile_rerun():
-        prof, profiled_wall, _ = profiled(lambda: eng.materialise_state(facts, program))
-        busy = device_time(prof, profiled_wall)
-        busy["share_of_unprofiled_wall"] = busy["busy_ms"] / 1e3 / wall
-        census = search_census(ops, lambda: eng.materialise_state(facts, program))
-        profiled_out = dict(profiled_wall_s=profiled_wall, device_time=busy,
-                            search_census=census)
-        print(f"  REW, profiled rerun and search calls by form and size: "
-              f"{json.dumps(profiled_out)}", flush=True)
+        profiled_out = {}
+        for label, e in (("profiled_fused", eng), ("profiled_host_loop", host_eng)):
+            prof, profiled_wall, _ = profiled(lambda e=e: e.materialise_state(facts, program))
+            busy = device_time(prof, profiled_wall)
+            busy["share_of_unprofiled_wall"] = busy["busy_ms"] / 1e3 / (
+                reruns[0]["wall_s"] if e is eng else host_runs[1]["wall_s"])
+            profiled_out[label] = dict(profiled_wall_s=profiled_wall, device_time=busy)
+        census = search_census(ops, lambda: host_eng.materialise_state(facts, program))
+        profiled_out["search_census_host_loop"] = census
+        print(f"  REW, profiled reruns of both loops and the host loop's search "
+              f"calls by form and size: {json.dumps(profiled_out)}", flush=True)
         records["fullsize"].update(profiled_out)
 
     later.append(profile_rerun)
 
-    # the same run on the host's CPU, through the kernels' plain versions
+    # the numpy host REW (the paper's algorithm in bulk on the host)
     t0 = time.perf_counter()
-    cpu_eng = TorchEngine(dic.n_resources, capacity=FULL_CAP, bind_cap=FULL_CAP,
-                          out_cap=FULL_CAP, rewrite_cap=FULL_CAP, device="cpu")
-    cpu_state = cpu_eng.materialise_state(facts, program)
-    cpu_wall = time.perf_counter() - t0
-    if not np.array_equal(np.sort(pack(live)),
-                          np.sort(pack(cpu_eng.state_triples(cpu_state)))):
-        raise AssertionError("full size: triples differ between cuda and cpu")
-    if not np.array_equal(rho.numpy(), cpu_eng.state_rep(cpu_state)):
-        raise AssertionError("full size: rho differs between cuda and cpu")
-    for k in COUNTERS:
-        if getattr(stats, k) != getattr(cpu_state.stats, k):
-            raise AssertionError(f"full size: {k} differs between cuda and cpu")
-    print(f"  cuda == cpu at full size (cpu wall {cpu_wall:.1f} s)", flush=True)
+    rew = materialise_rew(facts, program, dic.n_resources)
+    host_rew_s = time.perf_counter() - t0
+    same_result("full size: card vs numpy host REW",
+                (rew.triples(), rew.rep, rew.stats), card)
+    print(f"  numpy host REW: {host_rew_s:.2f} s, the same triples, rho and "
+          f"counters; dedup_rows of the facts: {dedup_rows_s:.4f} s", flush=True)
+
+    # the same run on the host's CPU, through the kernels' plain versions,
+    # under both loops
+    cpu_walls = {}
+    for label, kw in (("fused", {}), ("host_loop", dict(fuse_rounds=False))):
+        t0 = time.perf_counter()
+        cpu_eng = TorchEngine(dic.n_resources, device="cpu", **caps, **kw)
+        cpu_state = cpu_eng.materialise_state(facts, program)
+        cpu_walls[label] = time.perf_counter() - t0
+        same_result(f"full size: cuda vs cpu ({label})",
+                    (cpu_eng.state_triples(cpu_state), cpu_eng.state_rep(cpu_state),
+                     cpu_state.stats), card)
+        del cpu_state
+    cpu_wall = cpu_walls["fused"]
+    print(f"  cuda == cpu at full size under both loops (cpu walls "
+          f"{json.dumps(cpu_walls)} s)", flush=True)
     kg["rho"] = rho.numpy()
     out = dict(
         explicit_triples=int(facts.shape[0]), resources=int(dic.n_resources),
-        wall_s=wall, repeat_wall_s=repeat_walls,
+        wall_s=wall, repeat_wall_s=[r["wall_s"] for r in reruns],
+        capture_s=graph.capture_s, replay_launches=graph.launches,
         rounds=stats.rounds, triples_total=stats.triples_total,
         triples_unmarked=stats.triples_unmarked, derivations=stats.derivations,
         rule_applications=stats.rule_applications,
@@ -1507,10 +1670,16 @@ def fullsize_phase(ops, records: dict, kg: dict, later: list) -> dict:
         capacity_restarts=stats.capacity_retries,
         caps=dict(capacity=eng.capacity, bind_cap=eng.bind_cap,
                   out_cap=eng.out_cap, rewrite_cap=eng.rewrite_cap),
-        max_memory_allocated=peak, launches=launches,
-        cpu_wall_s=cpu_wall,
+        fused_first=first, fused_reruns=reruns, host_loop=host_runs,
+        max_memory_allocated=first["max_memory_allocated"],
+        max_memory_reserved=first["max_memory_reserved"],
+        launches=launches, quiet_sweep=quiet, dedup_rows_s=dedup_rows_s,
+        host_loop_with_dedup_rows_s=host_with_dedup_rows_s,
+        numpy_host_rew_s=host_rew_s,
+        cpu_wall_s=cpu_wall, cpu_host_loop_wall_s=cpu_walls["host_loop"],
     )
-    print(f"  {json.dumps(out)}", flush=True)
+    print(f"  {json.dumps({k: v for k, v in out.items() if k not in ('fused_first', 'fused_reruns', 'host_loop')})}",
+          flush=True)
     records["fullsize"] = out
     return launches
 
@@ -1712,7 +1881,7 @@ def main() -> None:
                              kg["facts"][:, 2].astype(np.int32), "cuda", later)
     records["kernels"] = kernel_records
 
-    phase("mid-size (cuda == cpu):")
+    phase("mid-size (both loops, cuda == cpu; Theorem 1 against the host AX):")
     midsize_phase(records)
 
     phase("REW at full size (main path):")

@@ -1,8 +1,8 @@
 """Materialisation statistics mirroring the paper's Table 2 columns.
 
 The base-run subset of ``repro.core.stats.MatStats``: the counters the REW
-fixpoint books, under the same names, so the two packages compare field by
-field.
+fixpoint and the host AX/REW materialisations (:mod:`repro_torch.core.materialise`)
+book, under the same names, so the two packages compare field by field.
 """
 
 from __future__ import annotations
@@ -39,6 +39,7 @@ class MatStats:
     triples_unmarked: int = 0
     triples_explicit: int = 0
     wall_seconds: float = 0.0
+    memory_bytes: int = 0           # host arena bytes (AX / host REW)
 
     def as_dict(self) -> dict:
         return dataclasses.asdict(self)

@@ -11,6 +11,8 @@ is unique whatever the order of hooks.
 
 * ``compress_np`` / ``merge_pairs_np`` — numpy copies of the reference's
   host versions,
+* ``clique_sizes`` / ``clique_members`` — numpy copies of the reference's
+  host clique utilities (the Theorem 1 oracle expands cliques with them),
 * ``compress`` / ``merge_pairs`` — the torch counterparts of
   ``_compress_jax`` / ``merge_pairs_jax``; on the card, union and
   compression run as the union-find kernels (:func:`repro_torch.kernels.ops.uf_union_`,
@@ -55,6 +57,31 @@ def merge_pairs_np(rep: np.ndarray, pairs: np.ndarray) -> tuple[np.ndarray, int]
         b = rep[b]
     after_roots = int((rep == np.arange(rep.shape[0])).sum())
     return rep, before_roots - after_roots
+
+
+def _sizes_compressed(rep: np.ndarray) -> np.ndarray:
+    return np.bincount(rep, minlength=rep.shape[0])
+
+
+def clique_sizes(rep: np.ndarray) -> np.ndarray:
+    """sizes[r] = |clique represented by r| (1 for singletons, 0 for non-roots)."""
+    return _sizes_compressed(compress_np(np.asarray(rep)))
+
+
+def _members_compressed(rep: np.ndarray) -> dict[int, np.ndarray]:
+    order = np.argsort(rep, kind="stable")
+    sorted_rep = rep[order]
+    out: dict[int, np.ndarray] = {}
+    boundaries = np.flatnonzero(np.diff(sorted_rep)) + 1
+    for seg in np.split(order, boundaries):
+        if seg.shape[0] > 1:
+            out[int(rep[seg[0]])] = np.sort(seg)
+    return out
+
+
+def clique_members(rep: np.ndarray) -> dict[int, np.ndarray]:
+    """representative -> member array, only for cliques of size > 1."""
+    return _members_compressed(compress_np(np.asarray(rep)))
 
 
 def compress(rep: torch.Tensor) -> torch.Tensor:

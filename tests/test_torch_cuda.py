@@ -227,6 +227,104 @@ def test_engine_on_card_equals_cpu(dev, name):
     assert stats.as_dict() | {"wall_seconds": 0} == cstats.as_dict() | {"wall_seconds": 0}
 
 
+FUSED_COUNTERS = ("derivations", "rule_applications", "merged_resources",
+                  "reflexive_added", "rounds", "triples_total", "triples_explicit",
+                  "rule_rewrites", "rules_requeued", "sameas_pairs")
+
+
+def _run_counted(eng, facts, program):
+    ops.reset_launches()
+    state = eng.materialise_state(facts, program)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    return (np.sort(pack(eng.state_triples(state))), eng.state_rep(state),
+            state.stats, launches)
+
+
+@pytest.mark.parametrize("name", ["opencyc_like", "merge_like"])
+def test_fused_equals_host_loop_on_card(dev, name):
+    """The fused loop (an eager first round, then one CUDA graph replay a
+    round) and the host loop give the same triples, rho and counters; a
+    replay counts the launches of one eager round of the same body; the
+    kernels every round launches once (the union-find) or three times (the
+    rewrite) count the same in both loops."""
+    from repro_torch.core import fused
+
+    facts, program, dic = generate(**PROFILES[name])
+    caps = dict.fromkeys(("capacity", "bind_cap", "out_cap", "rewrite_cap"), 1 << 16)
+    engines = {mode: TorchEngine(dic.n_resources, device=dev, fuse_rounds=fuse, **caps)
+               for mode, fuse in (("graph", True), ("host", False))}
+    runs = {mode: _run_counted(eng, facts, program) for mode, eng in engines.items()}
+    spo, rep, stats, launches = runs["graph"]
+    hspo, hrep, hstats, hlaunches = runs["host"]
+    np.testing.assert_array_equal(spo, hspo)
+    np.testing.assert_array_equal(rep, hrep)
+    for k in FUSED_COUNTERS:
+        assert getattr(stats, k) == getattr(hstats, k), k
+    assert stats.capacity_retries == 0  # every launch counted is of these rounds
+    graph = engines["graph"]._graph
+    assert graph is not None and graph.graph is not None
+
+    eng = engines["graph"]
+    state = eng._fresh_state(program)
+    cands, valid = eng._pad_cands(facts)
+    before = dict(ops.LAUNCHES)
+    fused.forward_round(fused.new_carry(state, cands, valid),
+                        fused.round_tables(program, dev),
+                        fused.forward_plan_signature(program),
+                        rewrite_cap=eng.rewrite_cap, bind_cap=eng.bind_cap,
+                        plan_out_cap=eng.out_cap)
+    eager = {k: n - before[k] for k, n in ops.LAUNCHES.items() if n != before[k]}
+    assert eager == graph.launches
+    for k in ("rewrite_triples", "uf_union", "uf_compress"):
+        assert launches[k] == hlaunches[k] == eager[k] * stats.rounds, k
+    assert launches["uf_union"] == launches["uf_compress"] == stats.rounds
+    if name == "merge_like":
+        assert stats.rule_rewrites >= 1  # a consts_changed exit on the card
+
+
+def test_fused_graph_is_reused_across_calls(dev):
+    facts, program, dic = generate(**PROFILES["opencyc_like"])
+    eng = TorchEngine(dic.n_resources, device=dev)
+    first = eng.materialise(facts, program)
+    graph = eng._graph
+    assert graph is not None and graph.graph is not None
+    captured = graph.graph
+    second = eng.materialise(facts, program)
+    assert eng._graph is graph and graph.graph is captured  # no new capture
+    np.testing.assert_array_equal(np.sort(pack(first[0])), np.sort(pack(second[0])))
+    np.testing.assert_array_equal(first[1], second[1])
+    # the second run starts at the grown capacities: no restart to count
+    same = {"wall_seconds": 0, "capacity_retries": 0}
+    assert first[2].as_dict() | same == second[2].as_dict() | same
+    assert all(r["reads"] == 1 for r in eng.last_split["rounds"])
+
+
+def test_fused_round_body_makes_no_sync(dev):
+    """The round body has no host read: under the sync debug mode "error"
+    one eager round raises on any synchronising call."""
+    from repro_torch.core import fused
+
+    facts, program, dic = generate(**PROFILES["merge_like"])
+    eng = TorchEngine(dic.n_resources, device=dev)
+    state = eng._fresh_state(program)
+    cands, valid = eng._pad_cands(facts)
+    carry = fused.new_carry(state, cands, valid)
+    tables = fused.round_tables(program, dev)
+    plans = fused.forward_plan_signature(program)
+    caps = dict(rewrite_cap=eng.rewrite_cap, bind_cap=eng.bind_cap,
+                plan_out_cap=eng.out_cap)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            fused.forward_round(carry, tables, plans, **caps)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    fl = dict(zip(fused.FLAGS, carry["flags"].tolist()))
+    assert fl["iters"] == 2
+
+
 @pytest.mark.parametrize("b,s,t,h,kv,d,causal,q_offset", [
     (1, 200, 200, 9, 3, 64, True, 0),      # SmolLM prefill
     (4, 1, 300, 9, 3, 64, True, 211),      # decode row at an offset

@@ -8,6 +8,9 @@
     its Pallas dedup kernel (``use_kernel=True``); the generator profiles
     are in ``test_torch_engine_profiles.py``.
 (c) Capacity growth from 4-row buffers; (d) the differentFrom contradiction.
+
+Each run pins the host loop on both sides (``fuse_rounds=False``); the fused
+loop is held to the reference's in ``test_torch_fused.py``.
 """
 
 import jax
@@ -175,7 +178,8 @@ def test_slice_matches_reference_with_pallas_dedup(name):
                          out_cap=256, rewrite_cap=256, use_kernel=True,
                          fuse_rounds=False).materialise(facts, program)
     eng = engine.TorchEngine(pdic.n_resources, capacity=256, bind_cap=256,
-                             out_cap=256, rewrite_cap=256, device="cpu")
+                             out_cap=256, rewrite_cap=256, device="cpu",
+                             fuse_rounds=False)
     _same_result(ref, eng.materialise(pfacts, pprogram))
 
 
@@ -185,7 +189,8 @@ def test_capacity_growth_from_four_rows(name):
     args = (6,) if name == "single_clique" else ()
     facts, program, dic = getattr(datasets, name)(*args)
     eng = engine.TorchEngine(dic.n_resources, capacity=4, bind_cap=4,
-                             out_cap=4, rewrite_cap=4, device="cpu")
+                             out_cap=4, rewrite_cap=4, device="cpu",
+                             fuse_rounds=False)
     got = eng.materialise(facts, program)
     jf, jp, jd = getattr(jdata, name)(*args)
     ref_eng = jeng.JaxEngine(jd.n_resources, capacity=4, bind_cap=4, out_cap=4,
@@ -198,7 +203,7 @@ def test_capacity_growth_from_four_rows(name):
 
 def test_contradiction_raised():
     eng = engine.TorchEngine(10, capacity=64, bind_cap=64, out_cap=64,
-                             rewrite_cap=64, device="cpu")
+                             rewrite_cap=64, device="cpu", fuse_rounds=False)
     facts = np.array([[5, DIFFERENT_FROM, 6], [5, SAME_AS, 6]], np.int32)
     with pytest.raises(engine.Contradiction):
         eng.materialise(facts, Program([]))

@@ -51,7 +51,7 @@ def test_slice_matches_reference(name):
     spo, rep, stats = JaxEngine(jdic.n_resources, fuse_rounds=False).materialise(
         jfacts, jprogram
     )
-    eng = TorchEngine(dic.n_resources, device="cpu")
+    eng = TorchEngine(dic.n_resources, device="cpu", fuse_rounds=False)
     state = eng.materialise_state(facts, program)
     pspo, prep = eng.state_triples(state), eng.state_rep(state)
 

@@ -64,7 +64,7 @@ def test_random_program_matches_reference(seed):
     ref_eng = JaxEngine(N_RES, capacity=512, bind_cap=512, out_cap=512,
                         rewrite_cap=512, fuse_rounds=False)
     eng = TorchEngine(N_RES, capacity=512, bind_cap=512, out_cap=512,
-                      rewrite_cap=512, device="cpu")
+                      rewrite_cap=512, device="cpu", fuse_rounds=False)
     try:
         spo, rep, stats = ref_eng.materialise(facts, ref_program)
     except RefContradiction:
