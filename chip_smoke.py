@@ -58,6 +58,21 @@ on failure (the script then exits non-zero and prints no result):
    the same triples, rho and counters.  At the end, profiled reruns of both loops
    for the device's busy time, and the host loop's search calls counted
    by form, order and size with each one's device time;
+5b. incremental maintenance: at mid size, phase 4's profiles each take an
+   update stream (``sample_update_stream``, 6 events of 24 rows) under both
+   loops on the card and the CPU, equal after every event (arrays,
+   explicit set, program, counters), and the card's state equal to a
+   from-scratch card run of the updated explicit set and to the numpy host
+   subsystem (rho and the normal-form set).  At full size, phase 5's facts
+   take 8 change sets of 4,096 rows (half deletes; 40 % of an add's rows
+   fresh ``:idProp`` pairs that merge two cliques) on the default engine
+   from its fused base state: each event's wall, its split at the phase
+   generator's yields, waves, rounds, overdeleted rows, splits, rederived
+   and re-merged rules, retries, captures, launches by kernel and peak
+   memory, and its state equal to a from-scratch fused card run (whose
+   wall is printed beside); the numpy host subsystem timed on the first
+   add and the first delete (stopped after an event of more than 60 s).
+   At the end, one add and one delete profiled;
 6. LM serving at full width: SmolLM-135M (random weights from seed 0) with
    the flash kernel behind ``ServeEngine`` (16 slots, 1024 rows) answers 64
    requests of 32-512 prompt tokens and 32 new tokens; wall, tokens per
@@ -88,7 +103,7 @@ after.  Every wall and every CUDA-event time is taken before the process's
 first torch.profiler session: a finished profiler session leaves host cost
 on every later launch, which the host-bound REW and LM walls would carry.
 So phase 8 profiles its forward after its own walls, the profiled reruns
-of phases 5 and 6, the search census and the kernels' device times run
+of phases 5, 5b and 6, the search census and the kernels' device times run
 after phase 8 with phase 7's, and phase 6 then times its traffic once more
 to show that cost.  A profiler session whose kept run holds no device
 event is made again, up to three in all; a kernel's device time a call
@@ -99,6 +114,7 @@ full record goes to ``chiprun_out/chip_smoke.json``.
 
 from __future__ import annotations
 
+import copy
 import hashlib
 import json
 import statistics
@@ -1684,6 +1700,253 @@ def fullsize_phase(ops, records: dict, kg: dict, later: list) -> dict:
     return launches
 
 
+INC_MID_EVENTS = dict(n_events=6, batch=24, seed=0)
+# the full-size update stream: change sets of 4,096 explicit triples, half
+# deletes, 40 % of an add's rows fresh :idProp pairs that merge two cliques
+INC_FULL_EVENTS = dict(n_events=8, batch=4096, p_delete=0.5, p_merge_add=0.4,
+                       seed=0)
+INC_HOST_LIMIT_S = 60.0  # a host-subsystem event longer than this ends its run
+
+
+def _keys(rows: np.ndarray) -> np.ndarray:
+    from repro_torch.core.triples import pack
+
+    return np.sort(pack(np.asarray(rows, np.int32).reshape(-1, 3)))
+
+
+def same_state(label: str, a, b) -> None:
+    """Raise unless two engine states hold the same arrays, explicit set,
+    program and counters (the wall aside)."""
+    from repro_torch import TorchEngine
+    from repro_torch.core.engine import state_to_arrays
+
+    got, want = state_to_arrays(a), state_to_arrays(b)
+    for k in got:
+        if not np.array_equal(got[k], want[k]):
+            raise AssertionError(f"{label}: {k} differs")
+    if not np.array_equal(_keys(TorchEngine.explicit_rows(a)),
+                          _keys(TorchEngine.explicit_rows(b))):
+        raise AssertionError(f"{label}: explicit set differs")
+    if a.program.rules != b.program.rules:
+        raise AssertionError(f"{label}: program differs")
+    same = {"wall_seconds": 0, "triples_unmarked": 0}
+    if a.stats.as_dict() | same != b.stats.as_dict() | same:
+        raise AssertionError(f"{label}: counters differ")
+
+
+def same_store(label: str, rep, triples, want_rep, want_triples) -> None:
+    """Raise unless two results hold the same rho and normal-form set."""
+    if not np.array_equal(np.asarray(rep), np.asarray(want_rep)):
+        raise AssertionError(f"{label}: rho differs")
+    if not np.array_equal(_keys(triples), _keys(want_triples)):
+        raise AssertionError(f"{label}: normal-form store differs")
+
+
+def apply_event(eng, state, op: str, delta) -> None:
+    (eng.add_facts if op == "add" else eng.delete_facts)(state, delta)
+
+
+def incremental_midsize(records: dict) -> None:
+    """Each mid-size profile's update stream under both loops, on the card
+    and the CPU, equal after every event; the card's fused state equal to a
+    from-scratch card run of the updated explicit set and to the numpy host
+    subsystem (both: rho and the normal-form set)."""
+    from repro_torch import TorchEngine
+    from repro_torch.core import incremental
+    from repro_torch.data.generator import PROFILES, generate, sample_update_stream
+
+    out = {}
+    for name in MIDSIZE:
+        facts, program, dic = generate(**PROFILES[name])
+        events = sample_update_stream(facts, dic, **INC_MID_EVENTS)
+        n_res = dic.n_resources
+        t0 = time.perf_counter()
+        engines, states = {}, {}
+        for label, device, fuse in (("cuda", "cuda", True), ("cpu", "cpu", True),
+                                    ("cuda_host_loop", "cuda", False),
+                                    ("cpu_host_loop", "cpu", False)):
+            engines[label] = TorchEngine(n_res, device=device, fuse_rounds=fuse)
+            states[label] = engines[label].materialise_state(facts, program)
+        scratch = TorchEngine(n_res, device="cuda")
+        host = incremental.materialise_incremental(facts, program, n_res,
+                                                   use_kernel=True)
+        walls = {k: [] for k in engines}
+        for i, (op, delta) in enumerate(events):
+            for label, eng in engines.items():
+                ta = time.perf_counter()
+                apply_event(eng, states[label], op, delta)
+                walls[label].append(time.perf_counter() - ta)
+            tag = f"{name} event {i} ({op})"
+            same_state(f"{tag}: cuda vs cpu", states["cuda"], states["cpu"])
+            same_state(f"{tag}: cuda vs cpu (host loop)", states["cuda_host_loop"],
+                       states["cpu_host_loop"])
+            card, eng = states["cuda"], engines["cuda"]
+            rep, live = eng.state_rep(card), eng.state_triples(card)
+            same_store(f"{tag}: fused vs host loop",
+                       engines["cuda_host_loop"].state_rep(states["cuda_host_loop"]),
+                       engines["cuda_host_loop"].state_triples(states["cuda_host_loop"]),
+                       rep, live)
+            scratch.n_resources = card.n_res
+            slive, srep = scratch.materialise(TorchEngine.explicit_rows(card), program)[:2]
+            same_store(f"{tag}: vs from scratch", rep, live, srep, slive)
+            (incremental.add_facts if op == "add" else incremental.delete_facts)(host, delta)
+            same_store(f"{tag}: vs host subsystem", rep, live, host.rep, host.triples())
+        st = states["cuda"].stats
+        counters = {k: getattr(st, k) for k in (
+            "od_waves", "overdeleted", "suspects_split", "rederive_targeted",
+            "remerge_targeted", "rounds", "capacity_retries", "triples_total")}
+        out[name] = dict(counters, ops=[op for op, _ in events],
+                         wall_s=time.perf_counter() - t0,
+                         event_walls_s={k: v for k, v in walls.items()},
+                         captures=engines["cuda"].captures)
+        print(f"  {name}: {len(events)} events, cuda == cpu under both loops == "
+              f"from scratch == host subsystem after each; {json.dumps(out[name])}",
+              flush=True)
+        del engines, states, scratch
+        torch.cuda.empty_cache()
+    records["incremental_midsize"] = out
+
+
+def _event_split(split: dict, wall: float) -> dict:
+    """Seconds of an update: its rolled-back attempts, then between the
+    phase generator's yields in the last one: prepare (to "prepared", the
+    snapshot included), seeded, waves, overdeleted, split, rederive,
+    forward (to the end of the phases), and the barrier after them."""
+    marks = split["phases"]
+    out, last = {"retries": split["retries_s"]}, 0.0
+    for label, t in marks:
+        key = {"prepared": "prepare", "wave": "waves"}.get(label, label)
+        out[key] = out.get(key, 0.0) + t - last
+        last = t
+    out["forward"] = split["attempt_s"] - last
+    out["barrier"] = wall - split["retries_s"] - split["attempt_s"]
+    return out
+
+
+def _copy_state(eng, state):
+    fresh = dataclasses.replace(state)
+    eng._restore(fresh, eng._snapshot(state))
+    return fresh
+
+
+def incremental_fullsize(ops, records: dict, kg: dict, later: list) -> dict:
+    """The OpenCyc-scale store under its update stream on the card: each
+    event's wall, split, counters, launches and peak memory; each event's
+    state equal to a from-scratch fused card run of the updated explicit set
+    (rho and the normal-form set); the numpy host subsystem timed on the
+    first add and the first delete.  Returns the launches of all events."""
+    from repro_torch import TorchEngine
+    from repro_torch.core import incremental
+    from repro_torch.core.triples import TripleArena
+    from repro_torch.data.generator import sample_update_stream
+
+    facts, program = kg["facts"], kg["program"]
+    dic = copy.copy(kg["dic"])  # the stream interns fresh ids: not into phase 8's
+    dic._to_id, dic._to_name = dict(dic._to_id), list(dic._to_name)
+    t0 = time.perf_counter()
+    events = sample_update_stream(facts, dic, **INC_FULL_EVENTS)
+    sample_s = time.perf_counter() - t0
+    print(f"  sampled {len(events)} events ({[op for op, _ in events]}, "
+          f"{[int(d.shape[0]) for _, d in events]} rows) in {sample_s:.1f} s",
+          flush=True)
+    caps = dict(capacity=FULL_CAP, bind_cap=FULL_CAP, out_cap=FULL_CAP,
+                rewrite_cap=FULL_CAP)
+    eng = TorchEngine(FULL_RESOURCES, device="cuda", **caps)
+    torch.cuda.empty_cache()
+    state = eng.materialise_state(facts, program)
+    torch.cuda.synchronize()
+    base_state = _copy_state(eng, state)
+    scratch = TorchEngine(FULL_RESOURCES, device="cuda", **caps)
+    per_event, total = [], dict.fromkeys(ops.LAUNCHES, 0)
+    for i, (op, delta) in enumerate(events):
+        before = state.stats.as_dict()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        ta = time.perf_counter()
+        apply_event(eng, state, op, delta)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - ta
+        launches = {k: n for k, n in ops.LAUNCHES.items() if n}
+        for k, n in launches.items():
+            total[k] += n
+        after = state.stats.as_dict()
+        delta_of = {k: after[k] - before[k] for k in (
+            "od_waves", "rounds", "overdeleted", "suspects_split",
+            "rederive_targeted", "remerge_targeted", "capacity_retries")}
+        rep, live = eng.state_rep(state), eng.state_triples(state)
+        scratch.n_resources = state.n_res
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        sstate = scratch.materialise_state(TorchEngine.explicit_rows(state), program)
+        torch.cuda.synchronize()
+        scratch_s = time.perf_counter() - ts
+        same_store(f"full size event {i} ({op}): vs from scratch", rep, live,
+                   scratch.state_rep(sstate), scratch.state_triples(sstate))
+        del sstate
+        row = dict(op=op, rows=int(delta.shape[0]), wall_s=wall,
+                   split=_event_split(eng.last_split, wall), **delta_of,
+                   attempts=eng.last_split["attempts"],
+                   captures=eng.last_split["captures"],
+                   host_reads=eng.last_split["reads"], launches=launches,
+                   max_memory_allocated=torch.cuda.max_memory_allocated(),
+                   max_memory_reserved=torch.cuda.max_memory_reserved(),
+                   from_scratch_wall_s=scratch_s, n_res=state.n_res,
+                   triples_total=after["triples_total"])
+        per_event.append(row)
+        print(f"  event {i}: {json.dumps(row)}", flush=True)
+
+    # the numpy host subsystem from the base state, event by event, until
+    # the first add and the first delete are timed
+    t0 = time.perf_counter()
+    arena = TripleArena()
+    arena.add_batch(eng.state_triples(base_state))
+    host = incremental.IncrementalState(
+        arena=arena, rep=eng.state_rep(base_state), program=base_state.program,
+        base_program=program, explicit=TorchEngine.explicit_rows(base_state),
+        n_resources=FULL_RESOURCES, device="cuda")
+    host_setup_s = time.perf_counter() - t0
+    host_walls, timed = [], set()
+    for op, delta in events:
+        if timed >= {"add", "delete"}:
+            break
+        ta = time.perf_counter()
+        (incremental.add_facts if op == "add" else incremental.delete_facts)(host, delta)
+        host_walls.append(dict(op=op, wall_s=time.perf_counter() - ta))
+        timed.add(op)
+        if host_walls[-1]["wall_s"] > INC_HOST_LIMIT_S:
+            host_walls[-1]["stopped"] = True
+            break
+    print(f"  numpy host subsystem (set-up {host_setup_s:.2f} s): "
+          f"{json.dumps(host_walls)}", flush=True)
+
+    def profile_updates():
+        """One add and one delete under torch.profiler, each from a copy of
+        the base state (the copy is in the profiled span)."""
+        out = {}
+        first = {op: delta for op, delta in reversed(events)}
+        for op in ("add", "delete"):
+            prof, wall, _ = profiled(
+                lambda op=op: apply_event(eng, _copy_state(eng, base_state), op,
+                                          first[op]))
+            out[op] = dict(profiled_wall_s=wall, device_time=device_time(prof, wall))
+        print(f"  incremental, profiled add and delete: {json.dumps(out)}", flush=True)
+        records["incremental_fullsize"]["profiled"] = out
+
+    later.append(profile_updates)
+    out = dict(events=per_event, sample_s=sample_s, host_setup_s=host_setup_s,
+               host_subsystem=host_walls, launches=total,
+               caps=dict(delta_out=eng.delta_out, delta_bind=eng.delta_bind,
+                         delta_rewrite=eng.delta_rewrite),
+               captures=eng.captures)
+    records["incremental_fullsize"] = out
+    print(f"  all events equal a from-scratch card run; launches of the 8 "
+          f"events {json.dumps({k: n for k, n in total.items() if n})}", flush=True)
+    del state, scratch
+    torch.cuda.empty_cache()
+    return total
+
+
 def search_census(ops, run) -> dict:
     """``run()`` (one REW materialisation) under torch.profiler with every
     search call classified: its form (both sides, left, right, prefix of
@@ -1863,8 +2126,12 @@ def main() -> None:
 
     t_start = time.perf_counter()
 
+    records["phase_start_s"] = {}
+
     def phase(title: str) -> None:
-        print(f"{title} [{time.perf_counter() - t_start:.0f} s]", flush=True)
+        at = time.perf_counter() - t_start
+        records["phase_start_s"][title.rstrip(":")] = at
+        print(f"{title} [{at:.0f} s]", flush=True)
 
     # torch.profiler work waits until every wall and event time is taken:
     # a finished profiler session leaves host cost on every later launch
@@ -1887,6 +2154,10 @@ def main() -> None:
     phase("REW at full size (main path):")
     launches = fullsize_phase(ops, records, kg, later)
 
+    phase("incremental maintenance (add/delete), card == CPU == from scratch:")
+    incremental_midsize(records)
+    incremental_fullsize(ops, records, kg, later)
+
     phase("LM serving at full width (SmolLM-135M, flash):")
     launches["flash_attention"] = lm_serving_phase(ops, records, later)
 
@@ -1898,7 +2169,7 @@ def main() -> None:
     phase("GNN inference on the sameAs-deduplicated KG (GatedGCN, PNA):")
     launches["segment_sum"] = gnn_phase(ops, records, kg)
 
-    phase("device times under torch.profiler (kernels, REW, LM and FM serving):")
+    phase("device times under torch.profiler (kernels, REW, updates, LM and FM serving):")
     for job in later:
         job()
 

@@ -6,7 +6,10 @@ reference.  It imports ``torch`` and numpy, never ``jax`` and nothing of
 (:mod:`repro_torch.kernels`): the REW base materialisation
 (:class:`repro_torch.core.engine.TorchEngine`, whose default round loop is
 the fused one of :mod:`repro_torch.core.fused`, a CUDA graph a round on the
-card) with the paper's oracle and AX baseline
+card) and its incremental add and delete
+(:mod:`repro_torch.core.incremental_spmd`, one device; the numpy host
+subsystem :mod:`repro_torch.core.incremental`) with the paper's oracle and
+AX baseline
 (:mod:`repro_torch.core.materialise`), LM serving
 (:mod:`repro_torch.serve`, :mod:`repro_torch.models.transformer`), FM
 serving (:mod:`repro_torch.models.recsys`) and GNN inference on a

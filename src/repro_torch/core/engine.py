@@ -30,6 +30,18 @@ gives the same arrays in both packages:
   * every buffer has a static capacity with an overflow flag; the host
     restarts the run with the exhausted capacity doubled.
 
+:class:`TorchEngine` also maintains a materialised state under updates, as
+the reference's engine does (``add_facts``, ``delete_facts``,
+``materialise_incremental``; the phases live in
+:mod:`repro_torch.core.incremental_spmd`): additions resume the round loop
+at the next epoch; deletions tag tombstones (``tomb``, matched by the
+PRED_TSTORE/TDELTA predicates of the overdelete plans), split suspect
+cliques and rederive through head-bound plans (:func:`build_rederive_plan`);
+a rho merge that rewrites a rule constant during an update evaluates one
+merge-anchored plan (:func:`classify_remerge`, :func:`build_merge_plan`)
+instead of requeuing the whole rule.  Updates emit into narrow delta
+buffers and roll back to a snapshot and retry on overflow.
+
 The device work goes through the hand-written kernels
 (:mod:`repro_torch.kernels.ops`): the stable dedup order, the sorted-key
 search, the rho rewrite and the union-find.  Packed keys are native int64;
@@ -41,6 +53,7 @@ starts from a fresh one), saving an arena copy per round.
 
 from __future__ import annotations
 
+import copy
 import time
 from dataclasses import dataclass
 
@@ -62,8 +75,13 @@ I32 = torch.int32
 I64 = torch.int64
 KEY_MAX = (1 << 63) - 1  # > any packed key (IDs < 2^21 - 1)
 
-# epoch predicates for matching in the forward rounds
+# epoch predicates for matching.  PRED_OLD/DELTA/ALL drive the forward
+# rounds; PRED_TSTORE/TDELTA the overdelete waves of the incremental delete
+# path (repro_torch.core.incremental_spmd): a deleted row is tagged in the
+# ``tomb`` column with the wave that retracted it (-1 = live), and wave w
+# matches Delta = (tomb == w-1) against the whole pre-deletion store.
 PRED_OLD, PRED_DELTA, PRED_ALL = 0, 1, 2
+PRED_TSTORE, PRED_TDELTA = 3, 4
 
 
 class CapacityError(RuntimeError):
@@ -84,10 +102,22 @@ def _pack_cols(cols: list[torch.Tensor]) -> torch.Tensor:
     return key
 
 
-def _epoch_ok(epoch, marked, r, pred: int) -> torch.Tensor:
-    """Row-selection predicates of the forward rounds (``r`` an int or a 0-d
-    tensor)."""
+def _pow2(n: int) -> int:
+    """Smallest power of two >= max(n, 1)."""
+    return 1 << max(int(n) - 1, 0).bit_length()
+
+
+def _epoch_ok(epoch, marked, r, pred: int, tomb=None) -> torch.Tensor:
+    """Row-selection predicates (``r`` an int or a 0-d tensor).  The
+    forward predicates ignore ``tomb`` (the forward rounds run only when
+    every tombstone has been finalised into ``marked``); the tombstone
+    predicates match the pre-deletion store, so a tombstoned row still
+    joins during the backward closure."""
     live = (epoch >= 0) & ~marked
+    if pred == PRED_TSTORE:
+        return live
+    if pred == PRED_TDELTA:
+        return live & (tomb == r - 1)
     if pred == PRED_OLD:
         return live & (epoch <= r - 2)
     if pred == PRED_DELTA:
@@ -236,8 +266,15 @@ def _atom_static(atom, bound_vars: set[int]):
     return const_mask, tuple(eq_pairs), bound, free
 
 
-def build_plans(rule: Rule, full: bool) -> list[list[_AtomSpec]]:
-    """Delta plans (or the single full-evaluation plan) of a rule."""
+def build_plans(rule: Rule, full: bool,
+                tombstone: bool = False) -> list[list[_AtomSpec]]:
+    """Delta plans (or the single full-evaluation plan) of a rule.
+
+    ``tombstone=True`` builds the overdelete variants: the delta atom
+    matches the last overdelete wave (PRED_TDELTA), every other atom the
+    whole pre-deletion store (PRED_TSTORE); they count nothing."""
+    if full and tombstone:
+        raise ValueError("a tombstone plan is a delta plan")
     plans = []
     delta_positions = [0] if full else list(range(len(rule.body)))
     for i in delta_positions:
@@ -249,7 +286,10 @@ def build_plans(rule: Rule, full: bool) -> list[list[_AtomSpec]]:
                 pred = PRED_ALL
             else:
                 pred = PRED_OLD if j < i else (PRED_DELTA if j == i else PRED_ALL)
-            count_appl = (pred == PRED_DELTA) or (full and j == 0)
+            if tombstone:
+                pred = PRED_TDELTA if pred == PRED_DELTA else PRED_TSTORE
+            count_appl = not tombstone and (
+                (pred == PRED_DELTA) or (full and j == 0))
             specs.append(_AtomSpec(j, const_mask, eq_pairs, b, f, pred, count_appl))
             bound |= {v for v, _ in b} | {v for v, _ in f}
         plans.append(specs)
@@ -258,7 +298,7 @@ def build_plans(rule: Rule, full: bool) -> list[list[_AtomSpec]]:
 
 def _expand_join_index(cols, valid, spo, epoch, marked, r, sorted_keys,
                        sort_perm, consts, spec: _AtomSpec, k: int, comp: tuple,
-                       out_cap: int):
+                       out_cap: int, tomb=None):
     """Index-backed variant of :func:`_expand_join` for prefix-key atoms.
 
     Each binding's matches in the live store are one contiguous range of the
@@ -285,7 +325,8 @@ def _expand_join_index(cols, valid, spo, epoch, marked, r, sorted_keys,
     srow = sort_perm[pos].to(I64)
     out_valid = j < total
     rows = spo[srow]
-    okr = _epoch_ok(epoch[srow], marked[srow], r, spec.pred)
+    okr = _epoch_ok(epoch[srow], marked[srow], r, spec.pred,
+                    None if tomb is None else tomb[srow])
     okr = _match_atom(rows, okr, consts, spec.const_mask, spec.eq_pairs)
     out_valid = out_valid & okr
     new_cols = {v: torch.where(out_valid, cols[v][seg], 0) for v in cols}
@@ -295,18 +336,19 @@ def _expand_join_index(cols, valid, spo, epoch, marked, r, sorted_keys,
 
 
 def _join_step(cols, valid, spo, epoch, marked, r, sorted_keys, sort_perm,
-               consts, spec: _AtomSpec, bind_cap: int):
-    """One join step: prefix-key atoms whose predicate admits every live row
-    (PRED_ALL) run as index range scans, the rest as the generic
+               consts, spec: _AtomSpec, bind_cap: int, tomb=None):
+    """One join step of :func:`eval_plan` and :func:`eval_plan_rederive`:
+    prefix-key atoms whose predicate admits every live row (PRED_ALL,
+    PRED_TSTORE) run as index range scans, the rest as the generic
     binding-sorting join.  Returns ``(cols, valid, overflow)``."""
-    if spec.pred == PRED_ALL:
+    if spec.pred in (PRED_ALL, PRED_TSTORE):
         k, comp = _index_prefix(spec)
         if k is not None:
             return _expand_join_index(
                 cols, valid, spo, epoch, marked, r, sorted_keys, sort_perm,
-                consts, spec, k, comp, bind_cap,
+                consts, spec, k, comp, bind_cap, tomb,
             )
-    ok = _epoch_ok(epoch, marked, r, spec.pred)
+    ok = _epoch_ok(epoch, marked, r, spec.pred, tomb)
     ok = _match_atom(spo, ok, consts, spec.const_mask, spec.eq_pairs)
     return _expand_join(cols, valid, spo, ok, spec.bound_items,
                         spec.free_items, bind_cap)
@@ -331,8 +373,10 @@ def _emit_heads(cols, valid, head_consts, head_var_slots: tuple, out_cap: int):
 
 def eval_plan(spo, epoch, marked, sorted_keys, sort_perm, r, atom_consts,
               head_consts, plan: tuple, head_var_slots: tuple, bind_cap: int,
-              out_cap: int):
-    """Evaluate one delta plan at round ``r`` (an int or a 0-d tensor).
+              out_cap: int, tomb=None):
+    """Evaluate one plan at round ``r`` (an int or a 0-d tensor; a
+    tombstone plan's wave).  ``tomb`` is the tombstone column the
+    tombstone predicates read.
 
     ``atom_consts`` (n_atoms, 3) holds each body atom's IDs (variables'
     entries are ignored) and ``head_consts`` (3,) the head's: int32 tensors
@@ -352,7 +396,7 @@ def eval_plan(spo, epoch, marked, sorted_keys, sort_perm, r, atom_consts,
         consts = atom_consts[spec.index]
         is_join = not (step == 0 and not spec.bound_items)
         if spec.count_appl or not is_join:
-            ok = _epoch_ok(epoch, marked, r, spec.pred)
+            ok = _epoch_ok(epoch, marked, r, spec.pred, tomb)
             ok = _match_atom(spo, ok, consts, spec.const_mask, spec.eq_pairs)
             if spec.count_appl:
                 n_appl = n_appl + ok.sum()
@@ -363,13 +407,109 @@ def eval_plan(spo, epoch, marked, sorted_keys, sort_perm, r, atom_consts,
         else:
             cols, valid, ov = _join_step(
                 cols, valid, spo, epoch, marked, r, sorted_keys, sort_perm,
-                consts, spec, bind_cap,
+                consts, spec, bind_cap, tomb,
             )
         overflow = overflow | ov
     out, out_valid, n_deriv, ov = _emit_heads(
         cols, valid, head_consts, head_var_slots, out_cap
     )
     return out, out_valid, n_deriv, n_appl, overflow, ov
+
+
+def _chain(rule: Rule, remaining: list[int], bound: set[int],
+           pred: int) -> list[_AtomSpec]:
+    """Specs of the ``remaining`` body atoms at ``pred``, ordered greedily:
+    next the first atom sharing a variable with the ``bound`` set, else the
+    first left."""
+    specs: list[_AtomSpec] = []
+    while remaining:
+        j = next((i for i in remaining
+                  if any(is_var(t) and t in bound for t in rule.body[i])),
+                 remaining[0])
+        remaining.remove(j)
+        const_mask, eq_pairs, b, f = _atom_static(rule.body[j], bound)
+        specs.append(_AtomSpec(j, const_mask, eq_pairs, b, f, pred))
+        bound |= {v for v, _ in b} | {v for v, _ in f}
+    return specs
+
+
+def build_rederive_plan(rule: Rule) -> tuple[list[_AtomSpec], tuple[int, ...]]:
+    """The single head-bound plan of a rule for targeted rederivation.
+
+    The head variables are pre-bound to the overdeleted instances and every
+    body atom matches the surviving live store (PRED_TSTORE); atoms are
+    ordered greedily so each step shares a variable with the bound set
+    where it can, so bound positions form index prefixes.  Returns
+    ``(specs, head_vars)``, ``head_vars`` the head's first-occurrence
+    variable order: the seed table's column order.
+    """
+    head_vars = tuple(dict.fromkeys(t for t in rule.head if is_var(t)))
+    return _chain(rule, list(range(len(rule.body))), set(head_vars),
+                  PRED_TSTORE), head_vars
+
+
+def eval_plan_rederive(spo, epoch, marked, sorted_keys, sort_perm, atom_consts,
+                       head_consts, seeds, seed_valid, plan: tuple,
+                       head_var_slots: tuple, seed_vars: tuple, bind_cap: int,
+                       out_cap: int, tomb=None):
+    """Head-bound rederivation join: the binding table starts from the seed
+    columns ((m, len(seed_vars)) int32, one per head variable) instead of a
+    store scan, so every join scales with the overdelete delta.  Returns
+    ``(heads, valid, n_deriv, bind_overflow, out_overflow)``."""
+    dev = spo.device
+    atom_consts = torch.as_tensor(atom_consts, dtype=I32, device=dev)
+    head_consts = torch.as_tensor(head_consts, dtype=I32, device=dev)
+    cols = {v: seeds[:, i].to(I32) for i, v in enumerate(seed_vars)}
+    valid = seed_valid
+    overflow = torch.zeros((), dtype=torch.bool, device=dev)
+    for spec in plan:  # PRED_TSTORE ignores the round
+        cols, valid, ov = _join_step(
+            cols, valid, spo, epoch, marked, 0, sorted_keys, sort_perm,
+            atom_consts[spec.index], spec, bind_cap, tomb,
+        )
+        overflow = overflow | ov
+    out, out_valid, n_deriv, ov_out = _emit_heads(
+        cols, valid, head_consts, head_var_slots, out_cap
+    )
+    return out, out_valid, n_deriv, overflow, ov_out
+
+
+def classify_remerge(rule_old: Rule, rule_new: Rule):
+    """How to re-evaluate a rule whose constants a rho merge rewrote:
+    ``("skip", None)`` when only the head changed (the sweep re-normalises
+    the stored heads), ``("anchor", j)`` for the merge-targeted plan of
+    :func:`build_merge_plan` anchored at changed body atom ``j`` (among
+    changed atoms with a variable, the one sharing most variables with the
+    rest of the body, ties to the earliest), or ``("full", None)`` when
+    every changed body atom is ground (whole-rule requeue)."""
+    changed = [j for j, (a, b) in enumerate(zip(rule_old.body, rule_new.body))
+               if a != b]
+    if not changed:
+        return "skip", None
+    scored = []
+    for j in changed:
+        vs = {t for t in rule_new.body[j] if is_var(t)}
+        if not vs:
+            continue
+        rest = {t for i, atom in enumerate(rule_new.body) if i != j
+                for t in atom if is_var(t)}
+        scored.append((len(vs & rest), -j))
+    if not scored:
+        return "full", None
+    _, neg_j = max(scored)
+    return "anchor", -neg_j
+
+
+def build_merge_plan(rule: Rule, anchor: int) -> list[_AtomSpec]:
+    """The single merge-targeted plan of a rule a rho merge rewrote: the
+    changed ``anchor`` atom scans the pre-merge store (PRED_OLD; it feeds
+    'Rule appl.'), the other atoms chain through the live store (PRED_ALL),
+    ordered bound-first.  Matches that use a row of the merge round's fresh
+    delta are the ordinary delta plans' work."""
+    const_mask, eq_pairs, b, f = _atom_static(rule.body[anchor], set())
+    first = _AtomSpec(anchor, const_mask, eq_pairs, b, f, PRED_OLD, True)
+    rest = [j for j in range(len(rule.body)) if j != anchor]
+    return [first] + _chain(rule, rest, {v for v, _ in b + f}, PRED_ALL)
 
 
 def _squeeze_stream(cands, valid, target: int):
@@ -633,16 +773,39 @@ _STATE_ARRAYS = {
 }
 
 
+def _unpack3(keys: torch.Tensor) -> torch.Tensor:
+    """(n,) packed int64 keys -> (n, 3) int32 rows."""
+    m = (1 << 21) - 1
+    return torch.stack([(keys >> 42) & m, (keys >> 21) & m, keys & m],
+                       dim=1).to(I32)
+
+
+def _rebuild_index(spo, epoch, marked):
+    """Full rebuild of the sorted arena index (the stable order of the live
+    rows' keys, KEY_MAX behind): the one arena sort, paid at most once per
+    capacity growth of the store."""
+    live = (epoch >= 0) & ~marked
+    keys = torch.where(live, _pack3(spo), KEY_MAX)
+    perm = ops.dedup_order(keys)
+    return perm, keys[perm.to(I64)]
+
+
 @dataclass
 class EngineState:
-    """Materialisation state on one device.
+    """Materialisation state on one device, maintained across updates.
 
     ``sort_perm``/``sorted_keys`` is the persistent sorted arena index: the
     packed int64 keys of exactly the live (``epoch >= 0 & ~marked``) rows in
-    ascending order, KEY_MAX padding behind, and each entry's arena row.
-    ``tomb`` is the incremental delete path's tombstone column (-1 = live),
-    carried for state exchange with the reference; the base run never sets
-    it.  ``r`` is the running round counter.
+    ascending order, KEY_MAX padding behind, and each entry's arena row;
+    ``index_dirty`` marks it stale after the arena grew (the next update
+    rebuilds it).  ``tomb`` is the delete path's tombstone column (-1 =
+    live, else the overdelete wave that tagged the row; all -1 between
+    operations).  ``r`` is the running round counter: epochs keep growing
+    across updates, so the delta discipline carries over.  ``explicit`` is
+    the explicit fact set as sorted distinct packed keys on the device
+    (:meth:`TorchEngine.explicit_rows` unpacks it); ``base_program`` the
+    program as given, ``program`` its rewriting under rho;
+    ``update_epoch`` counts the completed updates.
     """
 
     spo: torch.Tensor
@@ -656,6 +819,16 @@ class EngineState:
     program: Program
     r: int
     stats: MatStats
+    base_program: Program | None = None
+    explicit: torch.Tensor | None = None
+    update_epoch: int = 0
+    index_dirty: bool = False
+
+    def __post_init__(self) -> None:
+        if self.base_program is None:
+            self.base_program = self.program
+        if self.explicit is None:
+            self.explicit = torch.zeros(0, dtype=I64, device=self.spo.device)
 
     @property
     def n_res(self) -> int:
@@ -751,19 +924,31 @@ class RoundLog:
 
 
 class TorchEngine:
-    """REW materialisation with static capacities on one device.
+    """REW materialisation with static capacities on one device, and its
+    incremental maintenance.
 
     Runs on the card unless the caller passes ``device="cpu"``; with no card
     and no explicit CPU device, construction raises.  ``materialise``
-    restarts with the exhausted capacity doubled on overflow, so callers
-    normally never see :class:`CapacityError`.
+    restarts with the exhausted capacity doubled on overflow, and
+    :meth:`add_facts` / :meth:`delete_facts` roll an update back and retry
+    it, so callers normally never see :class:`CapacityError`.
 
     ``fuse_rounds`` (default True, as the reference's) runs the rounds at
-    the stream width through the fused loop (:mod:`repro_torch.core.fused`);
-    False keeps the host loop.  On the card the fused round is one replay
-    of a captured CUDA graph, and the engine keeps the graph of its last
-    key across calls; on the CPU the same body runs eagerly.
-    ``last_split`` holds the last call's :class:`RoundLog` split.
+    the stream width through the fused loop (:mod:`repro_torch.core.fused`)
+    and a delete's overdelete waves through the fused wave loop; False
+    keeps the host loops.  On the card a fused round and a fused wave are
+    each one replay of a captured CUDA graph; the engine keeps its graphs
+    across calls, keyed by width, capacities and plans, and frees them when
+    a capacity grows.  On the CPU the same bodies run eagerly.
+
+    Updates emit into narrow delta buffers (``delta_out`` / ``delta_bind``
+    / ``delta_rewrite``, the reference's defaults); an update that
+    overflows one retries on the wide base-run buffers, sticky for 4
+    updates.  ``rederive_mode`` is the delete side's rederivation:
+    "targeted" (head-bound joins from the overdeleted instances) or
+    "requeue" (whole rules).  ``seed_chunk`` pads every query batch of the
+    delete path to a multiple of it (one call a batch).  ``last_split``
+    holds the last call's wall split.
     """
 
     def __init__(
@@ -776,6 +961,9 @@ class TorchEngine:
         delta_window: int = 4096,
         device: str | torch.device = "cuda",
         fuse_rounds: bool = True,
+        seed_chunk: int = 2048,
+        delta_out_cap: int | None = None,
+        rederive_mode: str = "targeted",
     ) -> None:
         self.device = resolve(device, "TorchEngine")
         self.n_resources = n_resources
@@ -787,11 +975,107 @@ class TorchEngine:
         # next round's plan-skipping masks; rounds that insert more fall back
         # to all-True masks (sound, unfiltered; stats.delta_mask_fallbacks)
         self.delta_window = delta_window
+        self.seed_chunk = seed_chunk
+        # the narrow buffers of updates (the base run uses the wide ones)
+        self.delta_out = delta_out_cap or min(out_cap, max(1 << 12, out_cap >> 4))
+        self.delta_bind = min(bind_cap, max(1 << 13, bind_cap >> 4))
+        self.delta_rewrite = min(rewrite_cap, max(1 << 11, rewrite_cap >> 4))
+        if rederive_mode not in ("targeted", "requeue"):
+            raise ValueError(f"unknown rederive_mode {rederive_mode!r}")
+        self.rederive_mode = rederive_mode
         self.fuse_rounds = fuse_rounds
-        self._graph = None  # fused.RoundGraph of the last key
+        self._delta_fallback = False  # sticky wide-buffer retry of updates
+        self._fallback_since: int | None = None
+        self._set_update_buffers(False)
+        self._graphs: dict = {}  # captured fused rounds and waves by key
+        self._use_graphs = self.device.type == "cuda"
+        self._graph = None  # the RoundGraph the last fused round ran on
+        self.captures = 0  # graphs captured by this engine
         self._tables: tuple | None = None  # (program, device constant tables)
         self.last_split: dict | None = None
         self._log = RoundLog(self.device)
+
+    # -- buffers and capacities ----------------------------------------------
+    def _set_update_buffers(self, updating: bool) -> None:
+        """Select the buffers delta and tombstone plans emit into: the
+        narrow delta buffers during an update (unless it falls back to the
+        wide ones), the wide base-run buffers otherwise.  The active kind
+        names the capacity a retry must grow."""
+        narrow = updating and not self._delta_fallback
+        self._updating = updating
+        self._active_delta_out = self.delta_out if narrow else self.out_cap
+        self._active_delta_kind = "delta_out" if narrow else "out"
+        self._active_bind = self.delta_bind if narrow else self.bind_cap
+        self._active_bind_kind = "delta_bind" if narrow else "bind"
+        self._active_rewrite = self.delta_rewrite if narrow else self.rewrite_cap
+        self._active_rewrite_kind = "delta_rewrite" if narrow else "rewrite"
+
+    def _free_graphs(self) -> None:
+        """Drop every captured graph (their capacities are outgrown)."""
+        if self._graphs:
+            self._graphs.clear()
+            self._graph = None
+            if self.device.type == "cuda":
+                torch.cuda.empty_cache()
+
+    def _grow_for(self, kind: str) -> None:
+        """Double exactly the capacity a :class:`CapacityError` names (x4
+        for a wide one while an update is in its fallback retry).  A narrow
+        delta buffer doubles for later updates, clamped at its wide
+        buffer, and the running update retries on the wide buffers."""
+        wide_factor = 4 if self._delta_fallback else 2
+        if kind == "store":
+            self.capacity *= 2
+        elif kind == "bind":
+            self.bind_cap *= wide_factor
+        elif kind in ("out", "out_cap"):
+            self.out_cap *= wide_factor
+        elif kind == "rewrite":
+            self.rewrite_cap *= wide_factor
+        elif kind in ("delta_out", "delta_bind", "delta_rewrite"):
+            wide = {"delta_out": "out_cap", "delta_bind": "bind_cap",
+                    "delta_rewrite": "rewrite_cap"}[kind]
+            if getattr(self, kind) < getattr(self, wide):
+                setattr(self, kind, getattr(self, kind) * 2)
+            self._delta_fallback = True
+            self._fallback_since = None
+        else:  # an unknown kind grows everything
+            for attr in ("capacity", "bind_cap", "delta_bind", "out_cap",
+                         "delta_out", "rewrite_cap", "delta_rewrite"):
+                setattr(self, attr, getattr(self, attr) * 2)
+        self._set_update_buffers(self._active_delta_kind == "delta_out")
+        self._free_graphs()
+
+    def _maybe_reset_fallback(self, state: EngineState) -> None:
+        """The sticky wide-buffer fallback probes the narrow buffers again
+        4 updates after it was entered."""
+        if not self._delta_fallback:
+            self._fallback_since = None
+            return
+        if self._fallback_since is None:
+            self._fallback_since = state.update_epoch
+        elif state.update_epoch - self._fallback_since >= 4:
+            self._delta_fallback = False
+            self._fallback_since = None
+
+    def _presize_delta(self, n_rows: int) -> None:
+        """Grow the delta buffers (and, past them, the wide ones) to hold a
+        known cardinality — the admitted batch, the overdeleted rows — at a
+        phase boundary, with no restart; at least the minimum width."""
+        need = _pow2(max(int(n_rows), 1))
+        grew = False
+        for attr, wide in (("delta_out", "out_cap"), ("delta_bind", "bind_cap"),
+                           ("delta_rewrite", "rewrite_cap")):
+            if getattr(self, wide) < need:
+                setattr(self, wide, need)
+                grew = True
+            target = min(need, getattr(self, wide))
+            if getattr(self, attr) < target:
+                setattr(self, attr, target)
+                grew = True
+        self._set_update_buffers(True)
+        if grew:
+            self._free_graphs()
 
     # -- state lifecycle -----------------------------------------------------
     def _fresh_state(self, program: Program) -> EngineState:
@@ -813,30 +1097,97 @@ class TorchEngine:
         )
 
     def _pad_cands(self, rows: np.ndarray):
-        """Pad a host candidate batch to the candidate stream width."""
+        """Pad a host candidate batch to the active stream width: the
+        narrow ``delta_out`` during updates, ``out_cap`` in the base run."""
         rows = np.asarray(rows, np.int32).reshape(-1, 3)
-        if rows.shape[0] > self.out_cap:
-            raise CapacityError("out")
-        cands = torch.zeros((self.out_cap, 3), dtype=I32, device=self.device)
+        width = self._active_delta_out
+        if rows.shape[0] > width:
+            raise CapacityError(self._active_delta_kind)
+        cands = torch.zeros((width, 3), dtype=I32, device=self.device)
         cands[: rows.shape[0]] = torch.from_numpy(rows).to(self.device)
-        cand_valid = torch.arange(self.out_cap, device=self.device) < rows.shape[0]
+        cand_valid = torch.arange(width, device=self.device) < rows.shape[0]
         return cands, cand_valid
 
     @staticmethod
-    def _count_distinct(cands, cand_valid) -> torch.Tensor:
-        """Distinct valid rows of a padded stream, on its device: the stable
-        dedup order of the packed keys, then the first of each run."""
+    def _distinct_keys(cands, cand_valid):
+        """The valid rows of a padded stream as sorted keys on its device
+        (the stable dedup order of the packed keys) and the mask of each
+        key's first occurrence."""
         keys = torch.where(cand_valid, _pack3(cands), KEY_MAX)
         sk = keys[ops.dedup_order(keys).to(I64)]
         first = torch.ones_like(cand_valid)
         first[1:] = sk[1:] != sk[:-1]
-        return (first & (sk < KEY_MAX)).sum()
+        return sk, first & (sk < KEY_MAX)
 
-    def _grow_for(self, kind: str) -> None:
-        """Double exactly the capacity a :class:`CapacityError` names."""
-        attr = {"store": "capacity", "bind": "bind_cap", "out": "out_cap",
-                "rewrite": "rewrite_cap"}[kind]
-        setattr(self, attr, getattr(self, attr) * 2)
+    def _grow_state_arena(self, state: EngineState, old_cap: int) -> None:
+        """Re-layout the arena after ``capacity`` grew: the new rows are
+        free, the old trash row becomes an ordinary free row, and the index
+        is rebuilt at the next update's start."""
+        extra = self.capacity - old_cap
+        dev = self.device
+
+        def grow(x, fill):
+            pad = torch.full((extra, *x.shape[1:]), fill, dtype=x.dtype, device=dev)
+            return torch.cat([x, pad], dim=0)
+
+        state.spo = grow(state.spo, 0)
+        state.epoch = grow(state.epoch, -1)
+        state.marked = grow(state.marked, False)
+        state.tomb = grow(state.tomb, -1)
+        state.index_dirty = True
+
+    _SNAP_TENSORS = ("spo", "epoch", "marked", "tomb", "n_used", "rep",
+                     "sort_perm", "sorted_keys", "explicit")
+
+    @classmethod
+    def _snapshot(cls, state: EngineState) -> dict:
+        """What a rollback restores.  The round bodies write the arena in
+        place, so every tensor is cloned (the reference keeps references
+        to immutable arrays)."""
+        snap = {f: getattr(state, f).clone() for f in cls._SNAP_TENSORS}
+        for f in ("index_dirty", "program", "r", "update_epoch"):
+            snap[f] = getattr(state, f)
+        snap["stats"] = copy.copy(state.stats)
+        return snap
+
+    @staticmethod
+    def _restore(state: EngineState, snap: dict) -> None:
+        for f, v in snap.items():
+            setattr(state, f, v)
+
+    def _recover_capacity(self, state: EngineState, snap: dict,
+                          err: CapacityError) -> None:
+        """Roll back to ``snap``, grow the exhausted capacity and re-layout
+        the arena if the store grew; books the retry."""
+        self._restore(state, snap)
+        old_cap = self.capacity
+        kind = str(err)
+        self._grow_for(kind)
+        if self.capacity != old_cap:
+            self._grow_state_arena(state, old_cap)
+        state.stats.capacity_retries += 1
+        if kind in ("bind", "out", "out_cap", "rewrite"):
+            state.stats.wide_growth_restarts += 1
+
+    def _ensure_index(self, state: EngineState) -> None:
+        """Rebuild the sorted index if the arena was re-laid out."""
+        if not state.index_dirty:
+            return
+        state.sort_perm, state.sorted_keys = _rebuild_index(
+            state.spo, state.epoch, state.marked)
+        state.index_dirty = False
+        state.stats.index_rebuilds += 1
+
+    def _barrier(self, state: EngineState) -> None:
+        """An update's fixpoint is complete (no-effect updates too)."""
+        state.update_epoch += 1
+        self._refresh_stats(state)
+
+    def _grow_rep(self, state: EngineState, hi: int) -> None:
+        """Extend rho with identities up to id ``hi`` (exclusive)."""
+        if hi > state.n_res:
+            ext = torch.arange(state.n_res, hi, dtype=I32, device=self.device)
+            state.rep = torch.cat([state.rep, ext])
 
     def _bucket_cands(self, bufs):
         """Concatenate plan output buffers, padding each width group with
@@ -861,11 +1212,12 @@ class TorchEngine:
         return torch.cat(heads, dim=0), torch.cat(valids, dim=0)
 
     def _refresh_stats(self, state: EngineState) -> None:
+        """The store's counters, in one host read."""
+        ids = torch.arange(state.n_res, dtype=I32, device=self.device)
         stats = state.stats
-        stats.triples_total = int(state.n_used.sum())
-        stats.merged_resources = int(
-            (self.state_rep(state) != np.arange(state.n_res)).sum()
-        )
+        stats.triples_total, stats.merged_resources = torch.stack([
+            state.n_used.sum().to(I64), (state.rep != ids).sum()]).tolist()
+        stats.triples_explicit = int(state.explicit.shape[0])
 
     def state_triples(self, state: EngineState) -> np.ndarray:
         """The current normal-form store as a host (n, 3) array."""
@@ -877,16 +1229,39 @@ class TorchEngine:
         """rho on the host; ``merge_pairs`` leaves it compressed."""
         return state.rep.to("cpu", copy=True).numpy()
 
-    def _rewrite_program(self, state: EngineState, stats: MatStats) -> list[int]:
-        """Rewrite the program under the current rho; every changed rule is
-        requeued for full evaluation (Algorithm 1 lines 6-9)."""
+    @staticmethod
+    def explicit_rows(state: EngineState) -> np.ndarray:
+        """The explicit fact set as host (n, 3) rows, in key order."""
+        return _unpack3(state.explicit).cpu().numpy()
+
+    # -- rule evaluation -----------------------------------------------------
+    def _rewrite_program(self, state: EngineState, stats: MatStats):
+        """Rewrite the program under the current rho and classify each
+        changed rule (Algorithm 1 lines 6-9).  Returns ``(merge_q,
+        full_q)``: ``[(rule, anchor atom)]`` for merge-targeted evaluation
+        (only while updating in "targeted" mode) and the rules requeued
+        for full evaluation."""
         rep = self._log.read(lambda: self.state_rep(state))
-        p_new, changed_idx = state.program.rewrite(rep)
+        p_old = state.program
+        p_new, changed_idx = p_old.rewrite(rep)
+        merge_q: list[tuple[int, int]] = []
+        full_q: list[int] = []
         if changed_idx:
             stats.rule_rewrites += 1
             stats.rules_requeued += len(changed_idx)
+            targeted = self._updating and self.rederive_mode == "targeted"
+            for k in changed_idx:
+                if not targeted:
+                    full_q.append(k)
+                    continue
+                how, anchor = classify_remerge(p_old.rules[k], p_new.rules[k])
+                if how == "anchor":
+                    merge_q.append((k, anchor))
+                elif how == "full":
+                    full_q.append(k)
+                    stats.remerge_full_fallback += 1
         state.program = p_new
-        return changed_idx
+        return merge_q, full_q
 
     def _program_tables(self, program: Program):
         """The program's constant tables on the device, made once a program."""
@@ -907,71 +1282,168 @@ class TorchEngine:
                 return False
         return True
 
+    def _read_ints(self, tensors) -> list[int]:
+        """One host read of a plan's 0-d counts and overflow bits."""
+        return self._log.read(torch.stack([t.to(I64) for t in tensors]).tolist)
+
     def _eval_rule(self, state: EngineState, r: int, k: int, mode: str,
-                   stats: MatStats, delta_masks: np.ndarray | None = None):
-        """Evaluate the plans of rule ``k``; ``mode`` is "delta" or "full".
-        ``delta_masks`` (3, n_res) skips delta plans whose delta atom cannot
-        match the current delta."""
+                   stats: MatStats | None, delta_masks: np.ndarray | None = None):
+        """Evaluate the plans of rule ``k``; ``mode`` is "delta", "full" or
+        "tomb" (the overdelete plans at wave ``r``, which count nothing:
+        pass ``stats=None``).  Full plans emit into the wide buffers, the
+        others into the active ones.  ``delta_masks`` (3, n_res) skips
+        delta and tombstone plans whose delta atom cannot match."""
         rule = state.program.rules[k]
         atom_consts, head_consts = self._program_tables(state.program)
         head_slots = tuple(t if is_var(t) else None for t in rule.head)
         full = mode == "full"
+        out_cap = self.out_cap if full else self._active_delta_out
+        bind_cap = self.bind_cap if full else self._active_bind
         out = []
-        for i, plan in enumerate(build_plans(rule, full=full)):
+        for i, plan in enumerate(build_plans(rule, full=full,
+                                             tombstone=mode == "tomb")):
             if (
                 delta_masks is not None
                 and not full
                 and not self._atom_may_match(rule.body[i], delta_masks)
             ):
                 continue
-            heads, valid, n_d, n_a, ov_bind, ov_out = eval_plan(
+            heads, valid, *counts = eval_plan(
                 state.spo, state.epoch, state.marked, state.sorted_keys,
                 state.sort_perm, r, atom_consts[k], head_consts[k],
-                tuple(plan), head_slots, self.bind_cap, self.out_cap,
+                tuple(plan), head_slots, bind_cap, out_cap, tomb=state.tomb,
             )
-            n_d, n_a, ov_bind, ov_out = self._log.read(torch.stack(
-                [n_d.to(I64), n_a, ov_bind.to(I64), ov_out.to(I64)]
-            ).tolist)
+            n_d, n_a, ov_bind, ov_out = self._read_ints(counts)
             if ov_bind:
-                raise CapacityError("bind")
+                raise CapacityError("bind" if full else self._active_bind_kind)
             if ov_out:
-                raise CapacityError("out")
-            stats.derivations += n_d
-            stats.rule_applications += n_a
-            if full:
-                stats.full_plan_evals += 1
+                raise CapacityError("out" if full else self._active_delta_kind)
+            if stats is not None:
+                stats.derivations += n_d
+                stats.rule_applications += n_a
+                if full:
+                    stats.full_plan_evals += 1
             out.append((heads, valid))
         return out
 
-    def _stream_of(self, bufs):
+    @staticmethod
+    def _rule_tables(rule: Rule):
+        """One rule's constants: ``(atom_consts (n_atoms, 3), head_consts
+        (3,))`` as nested lists, variables as 0."""
+        atom_consts = [[0 if is_var(t) else t for t in atom] for atom in rule.body]
+        head_consts = [0 if is_var(t) else t for t in rule.head]
+        return atom_consts, head_consts
+
+    def _eval_rule_merge(self, state: EngineState, r: int, k: int, anchor: int,
+                         stats: MatStats):
+        """Merge-targeted evaluation of rewritten rule ``k``: one plan
+        anchored at its changed body atom, at the active delta buffers."""
+        rule = state.program.rules[k]
+        atom_consts, head_consts = self._rule_tables(rule)
+        head_slots = tuple(t if is_var(t) else None for t in rule.head)
+        heads, valid, *counts = eval_plan(
+            state.spo, state.epoch, state.marked, state.sorted_keys,
+            state.sort_perm, r, atom_consts, head_consts,
+            tuple(build_merge_plan(rule, anchor)), head_slots,
+            self._active_bind, self._active_delta_out, tomb=state.tomb,
+        )
+        n_d, n_a, ov_bind, ov_out = self._read_ints(counts)
+        if ov_bind:
+            raise CapacityError(self._active_bind_kind)
+        if ov_out:
+            raise CapacityError(self._active_delta_kind)
+        stats.derivations += n_d
+        stats.rule_applications += n_a
+        stats.remerge_targeted += 1
+        return [(heads, valid)]
+
+    def _eval_rule_rederive(self, state: EngineState, k: int, rule: Rule,
+                            seeds: np.ndarray) -> np.ndarray:
+        """Head-bound rederivation of ``rule`` from the (m, n_head_vars)
+        host table of head-variable bindings (:func:`build_rederive_plan`'s
+        column order); returns the restored instances as host rows."""
+        plan, seed_vars = build_rederive_plan(rule)
+        atom_consts, head_consts = self._rule_tables(rule)
+        head_slots = tuple(t if is_var(t) else None for t in rule.head)
+        seeds = np.asarray(seeds, np.int32)
+        if seeds.ndim != 2 or seeds.shape[1] != len(seed_vars):
+            raise ValueError(f"seed table shape {seeds.shape} does not match "
+                             f"the head's variable order {seed_vars}")
+        cap = max(64, _pow2(seeds.shape[0]))
+        seeds_t = torch.zeros((cap, len(seed_vars)), dtype=I32, device=self.device)
+        seeds_t[: seeds.shape[0]] = torch.from_numpy(seeds).to(self.device)
+        valid_t = torch.arange(cap, device=self.device) < seeds.shape[0]
+        stats = state.stats
+        stats.rederive_seed_rows += int(seeds.shape[0])
+        stats.rederive_join_width = max(stats.rederive_join_width, cap)
+        out, valid, *counts = eval_plan_rederive(
+            state.spo, state.epoch, state.marked, state.sorted_keys,
+            state.sort_perm, atom_consts, head_consts, seeds_t, valid_t,
+            tuple(plan), head_slots, seed_vars, self._active_bind,
+            self._active_delta_out, tomb=state.tomb,
+        )
+        n_d, ov_bind, ov_out = self._read_ints(counts)
+        if ov_bind:
+            raise CapacityError(self._active_bind_kind)
+        if ov_out:
+            raise CapacityError(self._active_delta_kind)
+        stats.derivations += n_d
+        return self._log.read(lambda: out[valid].cpu().numpy())
+
+    def _stream_of(self, bufs, had_full: bool):
         """The next round's stream from plan buffers: bucketed, squeezed to
-        ``out_cap`` when wider.  Returns ``(cands, cand_valid, have_cands)``."""
+        ``out_cap`` after a round that evaluated full plans, else to the
+        active delta width, when wider.  Returns ``(cands, cand_valid,
+        have_cands)``."""
         cands, cand_valid = self._bucket_cands(bufs)
-        if cands.shape[0] > self.out_cap:
-            cands, cand_valid, sq_ov = _squeeze_stream(
-                cands, cand_valid, self.out_cap
-            )
+        target = self.out_cap if had_full else self._active_delta_out
+        kind = "out" if had_full else self._active_delta_kind
+        if cands.shape[0] > target:
+            cands, cand_valid, sq_ov = _squeeze_stream(cands, cand_valid, target)
             if self._log.read(lambda: bool(sq_ov)):
-                raise CapacityError("out")
+                raise CapacityError(kind)
         return cands, cand_valid, self._log.read(lambda: bool(cand_valid.any()))
+
+    def _round_plans(self, state: EngineState, r: int, merge_q, full_q,
+                     stats: MatStats, delta_masks=None, with_delta=True):
+        """A host round's plan evaluation at ``r``: the delta plans (if the
+        round inserted rows), the merge-targeted plans and the requeued
+        full plans.  Returns the next stream as :meth:`_stream_of` does,
+        or ``(None, None, False)`` when no plan ran."""
+        bufs = []
+        if with_delta:
+            for k in range(len(state.program.rules)):
+                bufs += self._eval_rule(state, r, k, "delta", stats,
+                                        delta_masks=delta_masks)
+        for k, anchor in merge_q:
+            bufs += self._eval_rule_merge(state, r, k, anchor, stats)
+        for k in sorted(set(full_q)):
+            bufs += self._eval_rule(state, r, k, "full", stats)
+        if not bufs:
+            return None, None, False
+        return self._stream_of(bufs, had_full=bool(full_q))
 
     # -- driver --------------------------------------------------------------
     def _forward(self, state: EngineState, cands, cand_valid,
-                 max_rounds: int) -> None:
-        """The bulk-synchronous round loop, from ``state`` to the fixpoint.
+                 requeued: list[int], max_rounds: int) -> None:
+        """The bulk-synchronous round loop, from ``state`` to the fixpoint:
+        the base run (seeded with the facts), additions (the delta) and the
+        delete path's forward pass (the rederivation seeds and the requeued
+        rules).  ``state.r`` keeps growing across calls.
 
-        As the reference's: with ``fuse_rounds``, a stream at the ``out_cap``
-        width with no rule awaiting full evaluation runs through the fused
-        loop (:meth:`_fused_forward`); any other round is a host round.
+        As the reference's: with ``fuse_rounds``, a stream at the active
+        delta width with no rule awaiting full evaluation runs through the
+        fused loop (:meth:`_fused_forward`); any other round is a host
+        round.
         """
         stats = state.stats
         log = self._log
-        requeued: list[int] = []
+        requeued = list(requeued)
         rounds_here = 0
         have_cands = True
         while have_cands or requeued:
             if (self.fuse_rounds and not requeued
-                    and cands.shape[0] == self.out_cap):
+                    and cands.shape[0] == self._active_delta_out):
                 if rounds_here >= max_rounds:
                     raise RuntimeError("did not converge")
                 iters, cands, cand_valid, have_cands = self._fused_forward(
@@ -990,23 +1462,26 @@ class TorchEngine:
              state.sort_perm, state.sorted_keys, flags) = process_candidates(
                 state.spo, state.epoch, state.marked, state.n_used, state.rep,
                 state.sort_perm, state.sorted_keys, cands, cand_valid, r,
-                self.rewrite_cap, self.delta_window, read=log.read,
+                self._active_rewrite, self.delta_window, read=log.read,
             )
             if flags["ov_store"]:
                 raise CapacityError("store")
             if flags["ov_rewrite"]:
-                raise CapacityError("rewrite")
+                raise CapacityError(self._active_rewrite_kind)
             if flags["contradiction"]:
                 raise Contradiction("owl:differentFrom violation")
             stats.sameas_pairs += flags["n_pairs"]
             stats.reflexive_added += flags["n_reflexive"]
             stats.derivations += flags["n_reflexive"]
+            merge_q: list[tuple[int, int]] = []
             if flags["rep_changed"]:
-                requeued.extend(self._rewrite_program(state, stats))
+                mq, full_q = self._rewrite_program(state, stats)
+                merge_q += mq
+                requeued += full_q
 
             # evaluate plans for the new delta, skipping plans whose delta
             # atom is incompatible with the fresh rows' resource masks
-            bufs = []
+            delta_masks = None
             n_new = flags["n_new"]
             if n_new > 0:
                 d_rows = log.read(flags["delta_rows"].cpu().numpy)
@@ -1017,35 +1492,36 @@ class TorchEngine:
                     delta_masks = np.zeros((3, state.n_res), dtype=bool)
                     for pos in range(3):
                         delta_masks[pos][d_rows[:, pos]] = True
-                for k in range(len(state.program.rules)):
-                    bufs += self._eval_rule(state, r + 1, k, "delta", stats,
-                                            delta_masks=delta_masks)
-            for k in sorted(set(requeued)):
-                bufs += self._eval_rule(state, r + 1, k, "full", stats)
+            cands, cand_valid, have_cands = self._round_plans(
+                state, r + 1, merge_q, requeued, stats, delta_masks,
+                with_delta=n_new > 0)
             requeued = []
-            if not bufs:
-                have_cands = False
-            else:
-                cands, cand_valid, have_cands = self._stream_of(bufs)
             log.end_round()
 
     def _round_graph(self, state: EngineState, cands, cand_valid, plans):
-        """The engine's captured round for this key, made anew (and the old
-        one freed, with its memory pool) when the key changed."""
-        from .fused import RoundGraph
+        """The engine's captured round for this key, made on first use.
+        rho lives in a power-of-two buffer in the graph, so an update that
+        interns new ids replays the same graph; the constant tables are as
+        wide as the base program's."""
+        from .fused import RoundGraph, program_tables
 
-        key = (int(cands.shape[0]), plans, self.capacity, self.bind_cap,
-               self.out_cap, self.rewrite_cap, state.n_res)
-        if self._graph is not None and self._graph.key != key:
-            self._graph = None
-            torch.cuda.empty_cache()
-        if self._graph is None:
-            self._graph = RoundGraph(
+        n_pad = _pow2(state.n_res)
+        # rewriting only merges constants: the base program's count bounds
+        # every rewriting's (a split un-merges them again)
+        width = program_tables(state.base_program)[2].shape[0]
+        key = ("round", int(cands.shape[0]), plans, self.capacity,
+               self._active_bind, self._active_delta_out, self._active_rewrite,
+               n_pad, width)
+        graph = self._graphs.get(key)
+        if graph is None:
+            graph = RoundGraph(
                 key, state, cands, cand_valid, plans,
-                dict(rewrite_cap=self.rewrite_cap, bind_cap=self.bind_cap,
-                     plan_out_cap=self.out_cap),
+                dict(rewrite_cap=self._active_rewrite, bind_cap=self._active_bind,
+                     plan_out_cap=self._active_delta_out), n_pad, width,
             )
-        return self._graph
+            self._graphs[key] = graph
+        self._graph = graph
+        return graph
 
     def _fused_forward(self, state: EngineState, cands, cand_valid,
                        rounds_left: int):
@@ -1054,21 +1530,24 @@ class TorchEngine:
         Returns ``(iters, cands, cand_valid, have_cands)``.  Convergence
         returns an empty stream; a rho-reaches-a-rule-constant exit rewrites
         the program, evaluates the exit round's delta plans (the loop
-        nullified its own evaluation of that round) and the requeued rules'
-        full plans on the host, and hands the stream back to the round
-        loop.  Overflow and contradiction raise what the host loop raises.
+        nullified its own evaluation of that round), the merge-targeted
+        plans and the requeued rules' full plans on the host, and hands the
+        stream back to the round loop.  Overflow and contradiction raise
+        what the host loop raises.
         """
         from .fused import forward_plan_signature, fused_forward_rounds
 
         stats = state.stats
         plans = forward_plan_signature(state.program)
         graph = (self._round_graph(state, cands, cand_valid, plans)
-                 if self.device.type == "cuda" else None)
+                 if self._use_graphs else None)
         cands, cand_valid, fl = fused_forward_rounds(
             state, cands, cand_valid, rounds_left, plans=plans,
-            rewrite_cap=self.rewrite_cap, bind_cap=self.bind_cap,
-            plan_out_cap=self.out_cap, log=self._log, graph=graph,
+            rewrite_cap=self._active_rewrite, bind_cap=self._active_bind,
+            plan_out_cap=self._active_delta_out, log=self._log, graph=graph,
         )
+        if graph is not None and graph.captured_now:
+            self.captures += 1
         iters = fl["iters"]
         state.r += iters
         stats.rounds += iters
@@ -1079,28 +1558,23 @@ class TorchEngine:
         if fl["ov_store"]:
             raise CapacityError("store")
         if fl["ov_rewrite"]:
-            raise CapacityError("rewrite")
+            raise CapacityError(self._active_rewrite_kind)
         if fl["contradiction"]:
             raise Contradiction("owl:differentFrom violation")
         if fl["ov_bind"]:
-            raise CapacityError("bind")
+            raise CapacityError(self._active_bind_kind)
         if fl["ov_out"] or fl["ov_squeeze"]:
-            raise CapacityError("out")
+            raise CapacityError(self._active_delta_kind)
         if fl["consts_changed"]:
-            full_q = self._rewrite_program(state, stats)
-            r = state.r
-            bufs = []
-            if fl["n_new"] > 0:
-                # the exit round's fresh rows are in the store, but no delta
-                # mask was made of them: every delta plan runs (a plan that
-                # could have been skipped matches no row and counts nothing)
-                for k in range(len(state.program.rules)):
-                    bufs += self._eval_rule(state, r + 1, k, "delta", stats)
-            for k in sorted(set(full_q)):
-                bufs += self._eval_rule(state, r + 1, k, "full", stats)
-            if bufs:
-                cands, cand_valid, have_cands = self._stream_of(bufs)
-                return iters, cands, cand_valid, have_cands
+            merge_q, full_q = self._rewrite_program(state, stats)
+            # the exit round's fresh rows are in the store, but no delta
+            # mask was made of them: every delta plan runs (a plan that
+            # could have been skipped matches no row and counts nothing)
+            new_cands, new_valid, have = self._round_plans(
+                state, state.r + 1, merge_q, full_q, stats,
+                with_delta=fl["n_new"] > 0)
+            if new_cands is not None:
+                return iters, new_cands, new_valid, have
             return iters, cands, cand_valid, False
         if fl["have_cands"]:
             raise RuntimeError("did not converge")
@@ -1110,23 +1584,25 @@ class TorchEngine:
     def materialise_state(self, facts, program: Program,
                           max_rounds: int = 10_000) -> EngineState:
         """Base REW fixpoint, restarting with grown capacities on overflow.
-        ``triples_explicit`` counts the distinct facts on the device."""
+        The explicit set is kept on the device as the facts' sorted
+        distinct keys, sorted by the dedup kernel."""
         t0 = time.perf_counter()
         facts = np.asarray(facts, np.int32).reshape(-1, 3)
         restarts = 0
         while True:
             self._log = RoundLog(self.device)
             try:
+                self._set_update_buffers(False)
                 state = self._fresh_state(program)
                 cands, cand_valid = self._pad_cands(facts)
-                n_explicit = self._count_distinct(cands, cand_valid)
-                self._forward(state, cands, cand_valid, max_rounds)
+                sk, first = self._distinct_keys(cands, cand_valid)
+                self._forward(state, cands, cand_valid, [], max_rounds)
                 break
             except CapacityError as e:
                 self._grow_for(str(e))
                 restarts += 1
         state.stats.capacity_retries = restarts
-        state.stats.triples_explicit = self._log.read(lambda: int(n_explicit))
+        state.explicit = self._log.read(lambda: sk[first])
         self._refresh_stats(state)
         state.stats.wall_seconds += time.perf_counter() - t0
         self.last_split = self._log.finish()
@@ -1138,3 +1614,92 @@ class TorchEngine:
         """REW materialisation: ``(live triples, compressed rho, stats)``."""
         state = self.materialise_state(facts, program, max_rounds)
         return self.state_triples(state), self.state_rep(state), state.stats
+
+    def add_facts(self, state: EngineState, delta, max_rounds: int = 10_000,
+                  retry: bool = True) -> EngineState:
+        """Add explicit triples and maintain the store on the device."""
+        return self._apply_update(state, "add", delta, max_rounds, retry)
+
+    def delete_facts(self, state: EngineState, delta, max_rounds: int = 10_000,
+                     retry: bool = True) -> EngineState:
+        """Retract explicit triples: tombstone waves, clique split and
+        rederivation on the device (:mod:`repro_torch.core.incremental_spmd`)."""
+        return self._apply_update(state, "delete", delta, max_rounds, retry)
+
+    def _apply_update(self, state, op, delta, max_rounds, retry):
+        """Run an update's phases to its epoch barrier, rolling back and
+        retrying with the exhausted capacity grown on overflow.
+        ``last_split`` gets, on the host clock, the time from the last
+        attempt's start to each phase label, the earlier attempts' time
+        (``retries_s``) and the last attempt's (``attempt_s``, the snapshot
+        included), and the graphs captured."""
+        from .incremental_spmd import spmd_add_phases, spmd_delete_phases
+
+        t0 = time.perf_counter()
+        captures0 = self.captures
+        self._maybe_reset_fallback(state)
+        phases = spmd_add_phases if op == "add" else spmd_delete_phases
+        attempts = 0
+        while True:
+            ta = time.perf_counter()
+            snap = self._snapshot(state)
+            attempts += 1
+            self._log = RoundLog(self.device)
+            marks = []
+            try:
+                self._set_update_buffers(True)
+                for label in phases(self, state, delta, max_rounds):
+                    marks.append((label, time.perf_counter() - ta))
+                break
+            except CapacityError as e:
+                if not retry:
+                    raise
+                self._recover_capacity(state, snap, e)
+        end = time.perf_counter()
+        self._barrier(state)
+        state.stats.wall_seconds += time.perf_counter() - t0
+        self.last_split = dict(self._log.finish(), op=op, phases=marks,
+                               retries_s=ta - t0, attempt_s=end - ta,
+                               attempts=attempts, captures=self.captures - captures0)
+        return state
+
+    def materialise_incremental(self, facts, program: Program, updates,
+                                max_rounds: int = 10_000, on_device: bool = True):
+        """Base REW materialisation, then maintenance through ``updates``,
+        an iterable of ``("add" | "delete", delta)`` pairs (each delta an
+        (n, 3) int array of explicit triples).  On the device by default;
+        ``on_device=False`` replays the updates through the host subsystem
+        (:mod:`repro_torch.core.incremental`).  Returns ``(spo, rep,
+        stats)`` like :meth:`materialise`."""
+        if on_device:
+            state = self.materialise_state(facts, program, max_rounds)
+            for op, delta in updates:
+                if op == "add":
+                    self.add_facts(state, delta, max_rounds)
+                elif op in ("delete", "del"):
+                    self.delete_facts(state, delta, max_rounds)
+                else:
+                    raise ValueError(f"unknown update op {op!r}")
+            return self.state_triples(state), self.state_rep(state), state.stats
+
+        from .incremental import IncrementalState, add_facts, delete_facts
+        from .triples import TripleArena, dedup_rows
+
+        spo, rep, stats = self.materialise(facts, program, max_rounds)
+        arena = TripleArena()
+        arena.add_batch(spo)
+        p_cur, _ = program.rewrite(rep)
+        host_state = IncrementalState(
+            arena=arena, rep=rep.astype(np.int32), program=p_cur,
+            base_program=program, explicit=dedup_rows(facts),
+            n_resources=self.n_resources, stats=stats,
+        )
+        for op, delta in updates:
+            if op == "add":
+                add_facts(host_state, delta, max_rounds)
+            elif op in ("delete", "del"):
+                delete_facts(host_state, delta, max_rounds)
+            else:
+                raise ValueError(f"unknown update op {op!r}")
+        host_state.result()  # refresh the triple and memory counters
+        return host_state.triples(), host_state.rep, host_state.stats

@@ -1,6 +1,7 @@
-"""Fused forward rounds: the round loop with its flags on the device.
+"""Fused rounds and waves: the round loops with their flags on the device.
 
-The port of ``repro.core.fused``'s forward half.  The host round loop of
+The port of ``repro.core.fused``: the forward rounds and the overdelete
+waves of the incremental delete path.  The host round loop of
 :meth:`repro_torch.core.engine.TorchEngine._forward` (``fuse_rounds=False``)
 reads counts and flags from the device several times a round and sizes the
 insertion by them.  Here one round is a static-shape body,
@@ -22,8 +23,15 @@ the host reads that vector once a round to decide whether to go on:
   the stream width, the plan signature and the capacities, and the engine
   keeps it across ``materialise_state`` calls.
 
-The loop exits as the reference's does: when the stream empties, when a
-capacity flag fires, on a contradiction, when rho reaches a rule constant
+The overdelete waves go the same way (:func:`fused_delete_waves`): one wave
+is :func:`delete_wave` (every tombstone plan, squeezed to the delta width,
+then :func:`repro_torch.core.incremental_spmd._od_step`), its flags one
+vector read once a wave; on the card :class:`WaveGraph` captures it after
+an eager first wave and replays it wave after wave, delete after delete.
+The wave counter lives in the carry and restarts at 0 on each delete.
+
+The forward loop exits as the reference's does: when the stream empties,
+when a capacity flag fires, on a contradiction, when rho reaches a rule constant
 (``consts_changed``: that round's plan evaluation runs at the impossible
 round :data:`_NULL_ROUND`, so it counts and emits nothing, and the host
 rewrites the program and evaluates the round again), or after ``max_inner``
@@ -53,8 +61,12 @@ from .terms import is_var
 __all__ = [
     "FLAGS",
     "RoundGraph",
+    "WAVE_FLAGS",
+    "WaveGraph",
+    "delete_wave",
     "forward_plan_signature",
     "forward_round",
+    "fused_delete_waves",
     "fused_forward_rounds",
     "program_tables",
 ]
@@ -85,14 +97,14 @@ def _pow2(n: int) -> int:
     return p
 
 
-def forward_plan_signature(program) -> tuple:
+def forward_plan_signature(program, tombstone: bool = False) -> tuple:
     """Static plan signature of a program: one ``(rule_idx, plan,
-    head_var_slots)`` entry per delta plan — what the round body closes
-    over (the constants are :func:`program_tables`)."""
+    head_var_slots)`` entry per delta (or tombstone) plan — what the round
+    and wave bodies close over (the constants are :func:`program_tables`)."""
     sig = []
     for k, rule in enumerate(program.rules):
         head_slots = tuple(t if is_var(t) else None for t in rule.head)
-        for plan in build_plans(rule, full=False):
+        for plan in build_plans(rule, full=False, tombstone=tombstone):
             sig.append((k, tuple(plan), head_slots))
     return tuple(sig)
 
@@ -142,7 +154,7 @@ def program_tables(program, width: int | None = None):
 
 def eval_plans(spo, epoch, marked, sorted_keys, sort_perm, r_eval,
                atom_consts, head_consts, plans: tuple, width: int, *,
-               bind_cap: int, plan_out_cap: int):
+               bind_cap: int, plan_out_cap: int, tomb=None):
     """Evaluate the static ``plans`` at round ``r_eval`` and squeeze (or
     pad) their concatenated heads to ``width`` rows.  Returns ``(heads,
     valid, n_deriv, n_appl, ov_bind, ov_out, ov_squeeze)``, the last five
@@ -156,7 +168,7 @@ def eval_plans(spo, epoch, marked, sorted_keys, sort_perm, r_eval,
         o, v, nd, na, ovb, ovo = eval_plan(
             spo, epoch, marked, sorted_keys, sort_perm, r_eval,
             atom_consts[k], head_consts[k], plan, head_slots,
-            bind_cap, plan_out_cap,
+            bind_cap, plan_out_cap, tomb=tomb,
         )
         outs.append(o)
         vals.append(v)
@@ -251,45 +263,29 @@ def forward_round(c: dict, t: dict, plans: tuple, *, rewrite_cap: int,
     c["r"].copy_(r)
 
 
-class RoundGraph:
-    """:func:`forward_round` captured once into a CUDA graph over static
-    carry and table buffers.
+class _Captured:
+    """A step body captured once into a CUDA graph over static buffers.
 
-    :meth:`load` copies a state, a stream and the program's constants into
-    the buffers; :meth:`start_round` starts one round (eagerly until the capture,
-    which follows the first round, then by replay) and an asynchronous copy
-    of the flag vector to pinned memory; :meth:`carry_out` hands the state
-    back as copies, so a later run through the same graph leaves it alone.
-    A replay launches no kernel through :mod:`repro_torch.kernels.ops`, so
-    each adds the capture's launch counts to ``ops.LAUNCHES`` (the capture
-    itself runs nothing and counts nothing).
+    :meth:`start` runs the body eagerly the first time (the warm-up; the
+    capture records without running, so no step runs twice), captures it
+    the second time and replays it from then on, then starts an
+    asynchronous copy of the flag vector to pinned memory.  A replay
+    launches no kernel through :mod:`repro_torch.kernels.ops`, so each adds
+    the capture's launch counts to ``ops.LAUNCHES`` (the capture itself
+    counts nothing).
     """
 
-    def __init__(self, key, state, cands, cand_valid, plans,
-                 caps: dict) -> None:
+    def __init__(self, key, n_flags: int) -> None:
         self.key = key
-        self.plans = plans
-        self.caps = caps
-        self.carry = {k: v.clone() for k, v in
-                      new_carry(state, cands, cand_valid).items()}
-        self.tables = round_tables(state.program, state.spo.device)
-        self.flags_host = torch.empty(len(FLAGS), dtype=I64, pin_memory=True)
+        self.flags_host = torch.empty(n_flags, dtype=I64, pin_memory=True)
         self.graph: torch.cuda.CUDAGraph | None = None
         self.warm = False
         self.launches: dict[str, int] = {}
         self.capture_s = 0.0
-
-    def load(self, state, cands, cand_valid) -> None:
-        src = new_carry(state, cands, cand_valid)
-        for k in CARRY:
-            self.carry[k].copy_(src[k])
-        width = self.tables["const_vals"].shape[0]
-        names = ("atom_consts", "head_consts", "const_vals", "const_valid")
-        for k, v in zip(names, program_tables(state.program, width)):
-            self.tables[k].copy_(torch.from_numpy(v))
+        self.captured_now = False  # the last run through it captured
 
     def _body(self) -> None:
-        forward_round(self.carry, self.tables, self.plans, **self.caps)
+        raise NotImplementedError
 
     def _capture(self) -> None:
         t0 = time.perf_counter()
@@ -302,10 +298,11 @@ class RoundGraph:
         ops.LAUNCHES.update(before)
         self.graph = graph
         self.capture_s = time.perf_counter() - t0
+        self.captured_now = True
 
-    def start_round(self) -> torch.Tensor:
+    def start(self) -> torch.Tensor:
         if not self.warm:
-            self._body()  # the warm-up round; the capture follows it
+            self._body()  # the warm-up step; the capture follows it
             self.warm = True
         else:
             if self.graph is None:
@@ -316,9 +313,59 @@ class RoundGraph:
         self.flags_host.copy_(self.carry["flags"], non_blocking=True)
         return self.flags_host
 
+
+def _load_rep(buf: torch.Tensor, rep: torch.Tensor) -> None:
+    """rho into its power-of-two graph buffer: identities past its end."""
+    n = rep.shape[0]
+    buf[:n].copy_(rep)
+    buf[n:].copy_(torch.arange(n, buf.shape[0], dtype=buf.dtype, device=buf.device))
+
+
+class RoundGraph(_Captured):
+    """:func:`forward_round` captured once into a CUDA graph over static
+    carry and table buffers.
+
+    :meth:`load` copies a state, a stream and the program's constants into
+    the buffers; :meth:`start` starts one round (eagerly until the
+    capture, which follows the first round, then by replay);
+    :meth:`carry_out` hands the state back as copies, so a later run
+    through the same graph leaves it alone.  rho sits in a buffer of
+    ``n_pad`` entries, identities past the state's: the same graph serves
+    a state whose rho grew within it.  The constant tables are ``width``
+    entries wide (default: the program's own count, to a power of two).
+    """
+
+    def __init__(self, key, state, cands, cand_valid, plans,
+                 caps: dict, n_pad: int, width: int | None = None) -> None:
+        super().__init__(key, len(FLAGS))
+        self.plans = plans
+        self.caps = caps
+        carry = new_carry(state, cands, cand_valid)
+        carry["rep"] = torch.empty(n_pad, dtype=I32, device=state.spo.device)
+        self.carry = {k: v.clone() for k, v in carry.items()}
+        self.tables = round_tables(state.program, state.spo.device, width)
+
+    def load(self, state, cands, cand_valid) -> None:
+        self.captured_now = False
+        src = new_carry(state, cands, cand_valid)
+        for k in CARRY:
+            if k == "rep":
+                _load_rep(self.carry["rep"], src["rep"])
+            else:
+                self.carry[k].copy_(src[k])
+        width = self.tables["const_vals"].shape[0]
+        names = ("atom_consts", "head_consts", "const_vals", "const_valid")
+        for k, v in zip(names, program_tables(state.program, width)):
+            self.tables[k].copy_(torch.from_numpy(v))
+
+    def _body(self) -> None:
+        forward_round(self.carry, self.tables, self.plans, **self.caps)
+
     def carry_out(self, state) -> tuple:
         """Copies of the carry: the state's tensors and the stream."""
+        n_res = state.n_res
         c = {k: v.clone() for k, v in self.carry.items()}
+        c["rep"] = c["rep"][:n_res]
         _to_state(state, c)
         return c["cands"], c["cand_valid"]
 
@@ -362,7 +409,7 @@ def fused_forward_rounds(state, cands, cand_valid, max_inner: int, *,
             return c["flags"]
     else:
         graph.load(state, cands, cand_valid)
-        start_round = graph.start_round
+        start_round = graph.start
     while True:
         log.begin_round()
         flags = start_round()
@@ -375,3 +422,150 @@ def fused_forward_rounds(state, cands, cand_valid, max_inner: int, *,
         return c["cands"], c["cand_valid"], fl
     cands, cand_valid = graph.carry_out(state)
     return cands, cand_valid, fl
+
+
+# the wave's flag vector: ``iters`` and ``n_od`` accumulate, ``n_new`` is
+# the last wave's, the overflow bits are sticky (``ov_route`` stays 0 on
+# one device: the reference's owner routing is the identity there)
+WAVE_FLAGS = ("iters", "n_od", "n_new", "ov_route", "ov_refl", "ov_bind",
+              "ov_out", "ov_squeeze")
+_WAVE_SUMS = ("iters", "n_od")
+_WAVE_STOPS = ("ov_route", "ov_refl", "ov_bind", "ov_out", "ov_squeeze")
+# what a wave reads and leaves alone (tombstone tagging never changes
+# liveness, so the sorted index stays exact for every wave's probes)
+WAVE_CONSTS = ("spo", "epoch", "marked", "sorted_keys", "sort_perm", "rep", "sizes")
+# what a wave updates in place
+WAVE_CARRY = ("tomb", "suspect", "w", "flags")
+
+
+def wave_tables(program, device) -> dict:
+    """The tombstone plans' constant tables and the wave flags' masks."""
+    ac, hc, _, _ = program_tables(program)
+    return dict(
+        atom_consts=torch.from_numpy(ac).to(device),
+        head_consts=torch.from_numpy(hc).to(device),
+        sums=torch.tensor([f in _WAVE_SUMS for f in WAVE_FLAGS], device=device),
+        stops=torch.tensor([f in _WAVE_STOPS for f in WAVE_FLAGS], device=device),
+    )
+
+
+def delete_wave(c: dict, k: dict, t: dict, plans: tuple, *, bind_cap: int,
+                plan_out_cap: int, refl_cap: int) -> None:
+    """One fused overdelete wave on the carry ``c`` (updated in place) over
+    the loop constants ``k``: every tombstone plan at wave ``w + 1``,
+    squeezed to ``plan_out_cap`` rows, then the od step without its masks.
+    Makes no host read."""
+    from .incremental_spmd import _od_step  # the module imports this one
+
+    w = c["w"] + 1
+    heads, hv, _nd, _na, ov_bind, ov_out, ov_squeeze = eval_plans(
+        k["spo"], k["epoch"], k["marked"], k["sorted_keys"], k["sort_perm"], w,
+        t["atom_consts"], t["head_consts"], plans, plan_out_cap,
+        bind_cap=bind_cap, plan_out_cap=plan_out_cap, tomb=c["tomb"],
+    )
+    tomb, suspect, n_new, ov_route, ov_refl, _masks = _od_step(
+        k["spo"], k["epoch"], k["marked"], c["tomb"], k["sorted_keys"],
+        k["sort_perm"], k["rep"], k["sizes"], c["suspect"], heads, hv, w,
+        refl_cap=refl_cap, with_masks=False,
+    )
+    one = torch.ones((), dtype=I64, device=w.device)
+    now = dict(iters=one, n_od=n_new, n_new=n_new, ov_route=ov_route,
+               ov_refl=ov_refl, ov_bind=ov_bind, ov_out=ov_out,
+               ov_squeeze=ov_squeeze)
+    upd = torch.stack([now[f].to(I64) for f in WAVE_FLAGS])
+    f = c["flags"]
+    f.copy_(torch.where(t["sums"], f + upd, torch.where(t["stops"], f | upd, upd)))
+    c["tomb"].copy_(tomb)
+    c["suspect"].copy_(suspect)
+    c["w"].copy_(w)
+
+
+class WaveGraph(_Captured):
+    """:func:`delete_wave` captured once into a CUDA graph.
+
+    :meth:`load` copies a state's arena, index, rho, the clique sizes and
+    the program's constants into the loop-constant buffers and starts the
+    carry (the tombstones, no suspect, wave 0, zero flags); :meth:`carry_out`
+    hands back copies of the tombstone column and the suspect mask.  rho,
+    the sizes and the suspect mask sit in buffers of ``n_pad`` entries.
+    """
+
+    def __init__(self, key, state, plans, caps: dict, n_pad: int) -> None:
+        super().__init__(key, len(WAVE_FLAGS))
+        self.plans = plans
+        self.caps = caps
+        dev = state.spo.device
+        self.consts = {f: getattr(state, f).clone() for f in WAVE_CONSTS[:5]}
+        self.consts["rep"] = torch.empty(n_pad, dtype=I32, device=dev)
+        self.consts["sizes"] = torch.zeros(n_pad, dtype=I32, device=dev)
+        self.carry = dict(
+            tomb=state.tomb.clone(),
+            suspect=torch.zeros(n_pad, dtype=torch.bool, device=dev),
+            w=torch.zeros((), dtype=I32, device=dev),
+            flags=torch.zeros(len(WAVE_FLAGS), dtype=I64, device=dev),
+        )
+        self.tables = wave_tables(state.program, dev)
+
+    def load(self, state, sizes, suspect) -> None:
+        self.captured_now = False
+        for f in WAVE_CONSTS[:5]:
+            self.consts[f].copy_(getattr(state, f))
+        _load_rep(self.consts["rep"], state.rep)
+        n = sizes.shape[0]
+        self.consts["sizes"][:n].copy_(sizes)
+        self.consts["sizes"][n:].zero_()
+        self.carry["tomb"].copy_(state.tomb)
+        self.carry["suspect"].zero_()
+        self.carry["suspect"][:n].copy_(suspect)
+        self.carry["w"].zero_()
+        self.carry["flags"].zero_()
+        ac, hc, _, _ = program_tables(state.program)
+        self.tables["atom_consts"].copy_(torch.from_numpy(ac))
+        self.tables["head_consts"].copy_(torch.from_numpy(hc))
+
+    def _body(self) -> None:
+        delete_wave(self.carry, self.consts, self.tables, self.plans, **self.caps)
+
+    def carry_out(self, n_res: int):
+        return self.carry["tomb"].clone(), self.carry["suspect"][:n_res].clone()
+
+
+def _waves_go_on(fl: dict, max_inner: int) -> bool:
+    """The reference's wave-loop condition after at least one wave."""
+    stop = any(fl[k] for k in _WAVE_STOPS)
+    return fl["n_new"] > 0 and not stop and fl["iters"] < max_inner
+
+
+def fused_delete_waves(state, sizes, suspect, max_inner: int, *, plans: tuple,
+                       bind_cap: int, plan_out_cap: int, refl_cap: int, log,
+                       graph: WaveGraph | None = None):
+    """The overdelete wave loop with its flags on the device: waves run
+    until one tags nothing new, an overflow bit is set, or ``max_inner``
+    waves ran; at least one runs.  With ``graph`` (on the card) through its
+    replays, else eagerly on ``state.tomb`` in place.  Returns ``(tomb,
+    suspect, flags)`` with ``flags`` by :data:`WAVE_FLAGS` name."""
+    if graph is None:
+        dev = state.spo.device
+        k = {f: getattr(state, f) for f in WAVE_CONSTS[:6]}
+        k["sizes"] = sizes
+        c = dict(tomb=state.tomb, suspect=suspect.clone(),
+                 w=torch.zeros((), dtype=I32, device=dev),
+                 flags=torch.zeros(len(WAVE_FLAGS), dtype=I64, device=dev))
+        t = wave_tables(state.program, dev)
+        caps = dict(bind_cap=bind_cap, plan_out_cap=plan_out_cap,
+                    refl_cap=refl_cap)
+
+        def start_wave() -> torch.Tensor:
+            delete_wave(c, k, t, plans, **caps)
+            return c["flags"]
+    else:
+        graph.load(state, sizes, suspect)
+        start_wave = graph.start
+    while True:
+        fl = dict(zip(WAVE_FLAGS, log.read(start_wave().tolist)))
+        if not _waves_go_on(fl, max_inner):
+            break
+    if graph is None:
+        return c["tomb"], c["suspect"], fl
+    tomb, suspect = graph.carry_out(state.n_res)
+    return tomb, suspect, fl

@@ -11,8 +11,9 @@ is unique whatever the order of hooks.
 
 * ``compress_np`` / ``merge_pairs_np`` — numpy copies of the reference's
   host versions,
-* ``clique_sizes`` / ``clique_members`` — numpy copies of the reference's
-  host clique utilities (the Theorem 1 oracle expands cliques with them),
+* ``clique_sizes`` / ``clique_members`` / ``split_cliques`` — numpy copies
+  of the reference's host clique utilities (the Theorem 1 oracle expands
+  cliques with them; the incremental delete path splits suspect cliques),
 * ``compress`` / ``merge_pairs`` — the torch counterparts of
   ``_compress_jax`` / ``merge_pairs_jax``; on the card, union and
   compression run as the union-find kernels (:func:`repro_torch.kernels.ops.uf_union_`,
@@ -66,6 +67,24 @@ def _sizes_compressed(rep: np.ndarray) -> np.ndarray:
 def clique_sizes(rep: np.ndarray) -> np.ndarray:
     """sizes[r] = |clique represented by r| (1 for singletons, 0 for non-roots)."""
     return _sizes_compressed(compress_np(np.asarray(rep)))
+
+
+def split_cliques(rep: np.ndarray, suspect_reps: np.ndarray) -> np.ndarray:
+    """Reset every member of the suspect cliques to a singleton.
+
+    The inverse of min-hooking: members (the representative included)
+    become their own roots, and the delete path's forward pass re-merges
+    whatever equalities the surviving facts still support.
+    """
+    if suspect_reps.shape[0] == 0:
+        return rep
+    rep = rep.copy()
+    members = clique_members(rep)
+    for r in suspect_reps:
+        mem = members.get(int(r))
+        if mem is not None:
+            rep[mem] = mem.astype(rep.dtype)
+    return compress_np(rep)
 
 
 def _members_compressed(rep: np.ndarray) -> dict[int, np.ndarray]:

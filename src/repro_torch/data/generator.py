@@ -1,8 +1,9 @@
 """Clique-injected synthetic KG families mirroring the paper's five datasets.
 
-The port's own copy of ``repro.data.generator`` (``generate`` and
-``PROFILES``; the update-stream sampler waits for the incremental slice):
-same code, same seeds, same facts, and no import of the JAX package.
+The port's own copy of ``repro.data.generator`` (``generate``,
+``sample_update_stream`` and ``PROFILES``): same code, same seeds, same
+facts and events, and no import of the JAX package.  The sampler's query
+events (``p_query > 0``) wait for the serving tier and raise.
 
 The paper evaluates on Claros / DBpedia / OpenCyc / UniProt / UOBM, whose
 shared structural features are: (a) owl:sameAs triples derived DURING
@@ -42,7 +43,7 @@ import numpy as np
 from repro_torch.core.rules import Program, parse_program
 from repro_torch.core.terms import Dictionary
 
-__all__ = ["generate", "PROFILES"]
+__all__ = ["generate", "sample_update_stream", "PROFILES"]
 
 
 def generate(
@@ -141,6 +142,69 @@ def generate(
     facts = np.asarray(rows, dtype=np.int32)
     return facts, program, dic
 
+
+def sample_update_stream(
+    facts: np.ndarray,
+    dic: Dictionary,
+    n_events: int = 6,
+    batch: int = 24,
+    p_delete: float = 0.5,
+    p_merge_add: float = 0.4,
+    p_query: float = 0.0,
+    seed: int = 0,
+) -> list[tuple[str, np.ndarray]]:
+    """Sample an update stream for incremental-maintenance workloads.
+
+    Returns ``[(op, delta), ...]`` with ``op in {"add", "delete"}``, each
+    delta an (m, 3) int32 batch of explicit triples, consistent as a
+    sequence (deletions only target facts explicit at that point).  The
+    additions include fresh ``:idProp`` edges between existing entities —
+    under the generator's inverse-functional rule those derive new sameAs
+    merges, and their later deletion forces clique splits.  Plain payload
+    additions reuse existing resources.  Query events (``p_query > 0``)
+    need the serving tier, which the port does not have yet.
+    """
+    if p_query > 0:
+        raise NotImplementedError(
+            "query events need the serving tier (ROADMAP Queue 1 item 5)")
+    rng = np.random.default_rng(seed)
+    current: list[tuple[int, int, int]] = [tuple(map(int, r)) for r in facts]
+    id_prop = dic.intern(":idProp")
+    events: list[tuple[str, np.ndarray]] = []
+    n_upd_vals = 0
+
+    for ev in range(n_events):
+        do_delete = current and rng.random() < p_delete
+        if do_delete:
+            m = min(batch, len(current))
+            idx = rng.choice(len(current), size=m, replace=False)
+            delta = np.asarray([current[i] for i in idx], dtype=np.int32)
+            keep = np.ones(len(current), dtype=bool)
+            keep[idx] = False
+            current = [row for row, k in zip(current, keep) if k]
+            events.append(("delete", delta))
+            continue
+        subjects = sorted({r[0] for r in current})
+        if len(subjects) < 2:  # (re)bootstrap an emptied stream
+            subjects += dic.intern_many([f":seed{ev}_{i}" for i in range(2)])
+        rows: list[tuple[int, int, int]] = []
+        for _ in range(batch):
+            if not current or rng.random() < p_merge_add:
+                # fresh inverse-functional value shared by two existing
+                # entities -> derives a new sameAs merge when applied
+                a, b = rng.choice(len(subjects), size=2, replace=False)
+                vid = dic.intern(f":updval{n_upd_vals}")
+                n_upd_vals += 1
+                rows.append((subjects[a], id_prop, vid))
+                rows.append((subjects[b], id_prop, vid))
+            else:
+                src = current[rng.integers(len(current))]
+                s = subjects[rng.integers(len(subjects))]
+                rows.append((s, src[1], src[2]))
+        delta = np.unique(np.asarray(rows, dtype=np.int32), axis=0)
+        current.extend(tuple(map(int, r)) for r in delta)
+        events.append(("add", delta))
+    return events
 
 # Reduced-scale stand-ins for the paper's datasets (Table 2 rows).
 PROFILES: dict[str, dict] = {

@@ -239,6 +239,18 @@ def rewrite_triples(spo: torch.Tensor, rho: torch.Tensor, *,
     return out, changed
 
 
+def rewrite_owner(spo: torch.Tensor, rho: torch.Tensor, n_shards: int):
+    """``(rho[spo], owner)`` for (n, 3) int32 triples, ``owner`` the
+    subject's representative mod ``n_shards`` (int32): the routing key of
+    the delete path's tombstone seed queries.  The rewrite is
+    :func:`rewrite_triples` (the kernel on the card); the modulus is taken
+    outside it, as the reference's wrapper takes it."""
+    if n_shards < 1:
+        raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+    out, _changed = rewrite_triples(spo, rho)
+    return out, torch.remainder(out[:, 0], n_shards).to(torch.int32)
+
+
 def uf_compress_(rep: torch.Tensor) -> None:
     """Compress the union-find forest ``rep`` (int32) in place: every entry
     ends on its root, the fixpoint of ``rep = rep[rep]``."""

@@ -60,6 +60,13 @@ def rewrite_triples(spo, rho, valid=None, epoch=None, marked=None):
     return out.to(torch.int32), changed
 
 
+def rewrite_owner(spo, rho, n_shards: int):
+    """``(rho[spo], rho[s] mod n_shards)``: :func:`rewrite_triples` and the
+    owner shard of each row."""
+    out, _changed = rewrite_triples(spo, rho)
+    return out, torch.remainder(out[:, 0], n_shards).to(torch.int32)
+
+
 def uf_compress_(rep: torch.Tensor) -> None:
     """Compress ``rep`` in place to the fixpoint of ``rep = rep[rep]``."""
     while True:

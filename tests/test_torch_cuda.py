@@ -23,7 +23,7 @@ from kernel_patterns import (
 )
 from repro_torch.core.engine import TorchEngine
 from repro_torch.core.triples import pack
-from repro_torch.data.generator import PROFILES, generate
+from repro_torch.data.generator import PROFILES, generate, sample_update_stream
 from repro_torch.configs import get_arch
 from repro_torch.kernels import ops, ref
 from repro_torch.data.graphs import build_graph_from_kg, dedup_graph, graph_to, random_graph
@@ -323,6 +323,92 @@ def test_fused_round_body_makes_no_sync(dev):
         torch.cuda.set_sync_debug_mode("default")
     fl = dict(zip(fused.FLAGS, carry["flags"].tolist()))
     assert fl["iters"] == 2
+
+
+@pytest.mark.parametrize("n_shards", [1, 4])
+def test_rewrite_owner(dev, n_shards):
+    spo, rho, *_ = rewrite_case("rows", 100_003, seed=11)
+    args = (torch.from_numpy(spo).to(dev), torch.from_numpy(rho).to(dev))
+    before = ops.LAUNCHES["rewrite_triples"]
+    got = ops.rewrite_owner(*args, n_shards)
+    assert ops.LAUNCHES["rewrite_triples"] == before + 1
+    _same(got, ref.rewrite_owner(*args, n_shards))
+
+
+def _update_stream(name="opencyc_like", n_events=4, batch=8, seed=0):
+    kw = dict(PROFILES[name], n_groups=8, n_plain=120)
+    facts, program, dic = generate(**kw)
+    events = sample_update_stream(facts, dic, n_events=n_events, batch=batch,
+                                  seed=seed)
+    return facts, program, dic.n_resources, events
+
+
+def _state_arrays(state):
+    from repro_torch.core.engine import state_to_arrays
+
+    return {k: v.copy() for k, v in state_to_arrays(state).items()}
+
+
+@pytest.mark.parametrize("fuse", [True, False], ids=["fused", "host_loop"])
+def test_incremental_stream_on_card_equals_cpu(dev, fuse):
+    """add_facts/delete_facts on the card (the fused loops: a round graph
+    and a wave graph replayed) equal the CPU's after every event: the
+    arrays, the explicit set, the program and every counter."""
+    facts, program, n_res, events = _update_stream(n_events=6, seed=1)
+    assert {"add", "delete"} <= {op for op, _ in events}
+    engines = [TorchEngine(n_res, device=d, fuse_rounds=fuse) for d in (dev, "cpu")]
+    states = [e.materialise_state(facts, program) for e in engines]
+    for op, delta in events:
+        for e, st in zip(engines, states):
+            (e.add_facts if op == "add" else e.delete_facts)(st, delta)
+        card, host = (_state_arrays(st) for st in states)
+        for k in card:
+            np.testing.assert_array_equal(card[k], host[k], err_msg=f"{op} {k}")
+        assert (np.sort(pack(TorchEngine.explicit_rows(states[0])))
+                == np.sort(pack(TorchEngine.explicit_rows(states[1])))).all()
+        assert states[0].program.rules == states[1].program.rules
+        same = {"wall_seconds": 0}
+        assert states[0].stats.as_dict() | same == states[1].stats.as_dict() | same
+        labels = [[lb for lb, _ in e.last_split["phases"]] for e in engines]
+        assert labels[0] == labels[1]
+    assert states[0].stats.overdeleted and states[0].stats.od_waves
+
+
+def test_wave_graph_is_reused_across_deletes(dev):
+    """The fused waves of a delete run as replays of one captured graph
+    with one host read a wave; a later delete with the same key replays
+    the same graph, captured once."""
+    from repro_torch.core import fused
+
+    facts, program, n_res, events = _update_stream(n_events=6, seed=1)
+    eng = TorchEngine(n_res, device=dev)
+    state = eng.materialise_state(facts, program)
+    graphs = set()
+    for op, delta in events:
+        waves = state.stats.od_waves
+        (eng.add_facts if op == "add" else eng.delete_facts)(state, delta)
+        for g in eng._graphs.values():
+            if isinstance(g, fused.WaveGraph):
+                graphs.add(g)
+        if op == "delete" and state.stats.od_waves - waves > 1:
+            assert any(g.graph is not None for g in graphs)
+    wave_graphs = [g for g in eng._graphs.values() if isinstance(g, fused.WaveGraph)]
+    assert len(wave_graphs) == len(graphs) == 1  # the same key each delete
+    assert wave_graphs[0].graph is not None
+
+
+def test_a_state_is_unchanged_by_another_states_updates(dev):
+    """The graphs' buffers are the engine's: a state handed out before is
+    left alone by the updates of another state through the same graphs."""
+    facts, program, n_res, events = _update_stream(n_events=6, seed=1)
+    eng = TorchEngine(n_res, device=dev)
+    first = eng.materialise_state(facts, program)
+    before = _state_arrays(first)
+    second = eng.materialise_state(facts, program)
+    for op, delta in events:
+        (eng.add_facts if op == "add" else eng.delete_facts)(second, delta)
+    for k, v in _state_arrays(first).items():
+        np.testing.assert_array_equal(v, before[k], err_msg=k)
 
 
 @pytest.mark.parametrize("b,s,t,h,kv,d,causal,q_offset", [

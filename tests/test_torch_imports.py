@@ -16,6 +16,7 @@ MODULES = [
     "repro_torch.core.triples", "repro_torch.core.stats",
     "repro_torch.core.fused", "repro_torch.core.axiom",
     "repro_torch.core.seminaive", "repro_torch.core.materialise",
+    "repro_torch.core.incremental", "repro_torch.core.incremental_spmd",
     "repro_torch.kernels.ops", "repro_torch.kernels.ref",
     "repro_torch.kernels.merge", "repro_torch.kernels._build",
     "repro_torch.data.generator", "repro_torch.data.datasets",

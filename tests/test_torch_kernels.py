@@ -200,6 +200,23 @@ def test_rewrite_triples(pattern, n):
     np.testing.assert_array_equal(changed_s.numpy(), diff & (epoch >= 0) & ~marked)
 
 
+@pytest.mark.parametrize("n_shards", [1, 4])
+@pytest.mark.parametrize("pattern,n", [("rows", 5), ("rows", 1027), ("unaligned", 1029)])
+def test_rewrite_owner(pattern, n, n_shards):
+    """``rewrite_owner``: the rewrite and the subject's owner shard, as the
+    reference's wrapper of the Pallas kernel (interpret mode) gives them."""
+    from repro.kernels.rewrite_triples import rewrite_owner
+
+    spo, rho, *_, start = rewrite_case(pattern, n, seed=n + n_shards)
+    spo = spo[start:]
+    out, owner = ops.rewrite_owner(torch.from_numpy(spo), torch.from_numpy(rho),
+                                   n_shards)
+    want_out, want_owner = rewrite_owner(jnp.asarray(spo), jnp.asarray(rho), n_shards)
+    np.testing.assert_array_equal(out.numpy(), np.asarray(want_out))
+    np.testing.assert_array_equal(owner.numpy(), np.asarray(want_owner))
+    assert owner.dtype == torch.int32
+
+
 @pytest.mark.parametrize("na,nb", [(1, 1), (40, 7), (300, 300), (1000, 64)])
 def test_merge_matches_reference(na, nb):
     """Rank-merge of a fresh sorted delta into a KEY_MAX-padded index, the
