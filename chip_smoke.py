@@ -73,6 +73,22 @@ on failure (the script then exits non-zero and prints no result):
    wall is printed beside); the numpy host subsystem timed on the first
    add and the first delete (stopped after an event of more than 60 s).
    At the end, one add and one delete profiled;
+5c. the serving tier: at mid size, phase 4's profiles each take a mixed
+   trace (``sample_update_stream`` with ``p_query=0.5``, four point
+   lookups after each event) through a ``TripleStore`` on the card and one
+   on the CPU under one tick pattern (the same answers and epochs, every
+   published snapshot bit for bit), then through a threaded store on the
+   card (each answer and snapshot equal to the CPU's at its epoch). At full
+   size, a store on phase 5's facts (caps 2^22): 4,096 point lookups
+   drained in shape groups and in bursts of 256 (a seeded sample of 512
+   against the host scalar path, timed; of 512 queries of the generator's
+   mix, those no wider than the matcher's width against it too), phase
+   5b's 8 change sets through the cooperative scheduler with a burst of
+   256 lookups after each phase step, each answer held against the scalar
+   path at its epoch, the final snapshot against a from-scratch card run,
+   then the same stream on a threaded store while this thread reads;
+   publication times and their split, per-query latency idle and busy,
+   launches by phase, peak memory, and at the end a profiled drain;
 6. LM serving at full width: SmolLM-135M (random weights from seed 0) with
    the flash kernel behind ``ServeEngine`` (16 slots, 1024 rows) answers 64
    requests of 32-512 prompt tokens and 32 new tokens; wall, tokens per
@@ -1846,6 +1862,7 @@ def incremental_fullsize(ops, records: dict, kg: dict, later: list) -> dict:
     t0 = time.perf_counter()
     events = sample_update_stream(facts, dic, **INC_FULL_EVENTS)
     sample_s = time.perf_counter() - t0
+    kg["update_stream"] = (dic, events)  # phase 5c serves the same stream
     print(f"  sampled {len(events)} events ({[op for op, _ in events]}, "
           f"{[int(d.shape[0]) for _, d in events]} rows) in {sample_s:.1f} s",
           flush=True)
@@ -1945,6 +1962,461 @@ def incremental_fullsize(ops, records: dict, kg: dict, later: list) -> dict:
     del state, scratch
     torch.cuda.empty_cache()
     return total
+
+
+SERVE_POINTS = 4096  # the idle drain's point lookups
+SERVE_BURST = 256    # point queries admitted between two phases
+SERVE_SAMPLE = 512   # batched answers held against the full host scalar path
+SERVE_MIX = 512      # queries of the generator's §5 mix; those no wider than
+SERVE_MIX_LIMIT_S = 15.0  # the matcher's width drained in chunks of 64 until
+                          # a chunk ends past this much wall (their host
+                          # clique expansion holds them: 25 ms a query)
+SERVE_MID_EVENTS = dict(n_events=6, batch=24, p_query=0.5, seed=0)
+
+
+def point_queries(facts: np.ndarray, n: int, seed: int) -> list:
+    """A copy of ``benchmarks/bench_serve_updates.py``'s ``_point_queries``:
+    (s,p,?), (s,?,?) and (?,p,o) lookups whose constants come from real
+    triples with a subject out-degree or a (p,o) fan-in of at most 32."""
+    from repro_torch.sparql import Query
+
+    rng = np.random.default_rng(seed)
+    key_po = facts[:, 1].astype(np.int64) << 32 | facts[:, 2].astype(np.int64)
+    _, inv, cnt = np.unique(key_po, return_inverse=True, return_counts=True)
+    _, inv_s, cnt_s = np.unique(facts[:, 0], return_inverse=True,
+                                return_counts=True)
+    sel_po = np.flatnonzero(cnt[inv] <= 32)
+    sel_s = np.flatnonzero(cnt_s[inv_s] <= 32)
+    out = []
+    for _ in range(n):
+        kind = int(rng.integers(3))
+        pool = sel_po if kind == 2 else sel_s
+        if pool.shape[0] == 0:
+            pool = np.arange(facts.shape[0])
+        s, p, o = (int(t) for t in facts[pool[rng.integers(pool.shape[0])]])
+        if kind == 0:
+            q = Query([(s, p, -1)], [], [-1], False)
+        elif kind == 1:
+            q = Query([(s, -1, -2)], [], [-1, -2], False)
+        else:
+            q = Query([(-1, p, o)], [], [-1], False)
+        out.append(q)
+    return out
+
+
+def point_kind(q) -> int:
+    """0 for (s,p,?), 1 for (s,?,?), 2 for (?,p,o)."""
+    s, p, _o = q.patterns[0]
+    return 2 if s < 0 else (1 if p < 0 else 0)
+
+
+class PointOracle:
+    """The scalar host path on the rows a point query can match: a
+    published snapshot's host triples indexed by subject and by (p,o).
+    ``answer(q)`` is ``evaluate`` on the query's slice, which equals
+    ``evaluate`` on every row for a one-atom query whose subject, or whose
+    (p,o), is a constant (checked against ``evaluate_at`` on a sample)."""
+
+    def __init__(self, snap) -> None:
+        t = snap.triples
+        self.snap = snap
+        self.answers: dict = {}
+        self.s_order = np.argsort(t[:, 0], kind="stable")
+        self.s_sorted = t[self.s_order, 0].astype(np.int64)
+        po = t[:, 1].astype(np.int64) << 21 | t[:, 2]
+        self.po_order = np.argsort(po, kind="stable")
+        self.po_sorted = po[self.po_order]
+
+    def answer(self, q, dic):
+        """The answer of ``q``, kept for the same query object."""
+        key = id(q)
+        if key not in self.answers:
+            self.answers[key] = (q, self._answer(q, dic))
+        return self.answers[key][1]
+
+    def _answer(self, q, dic):
+        from repro_torch.sparql import evaluate
+        from repro_torch.sparql.executor import _normalise_query
+
+        (s, p, o), = _normalise_query(q, self.snap.rho.rep).patterns
+        if s >= 0:
+            order, keys, key = self.s_order, self.s_sorted, s
+        else:
+            order, keys, key = self.po_order, self.po_sorted, p << 21 | o
+        key = np.int64(key)  # keys' own type: no copy of the keys a search
+        lo, hi = np.searchsorted(keys, key, "left"), np.searchsorted(keys, key, "right")
+        rows = self.snap.triples[np.sort(order[lo:hi])]
+        return evaluate(q, rows, self.snap.rho, dic)
+
+
+def ms_stats(seconds: list) -> dict:
+    a = np.asarray(seconds, np.float64) * 1e3
+    if a.size == 0:
+        return dict(n=0)
+    return dict(n=int(a.size), mean=float(a.mean()), p50=float(np.percentile(a, 50)),
+                p99=float(np.percentile(a, 99)))
+
+
+def wider_than(bx, queries: list, snap) -> np.ndarray:
+    """Per query, True where the batched matcher flags an answer wider than
+    its width (the store would answer it on the host) or finds no plan.
+    At OpenCyc scale the §5 mix's scans and joins on a hub predicate or
+    object are such queries, and their host answers (a join's bag grows
+    with the square of a hub's fan-in) take minutes each."""
+    from repro_torch.core.terms import is_var
+    from repro_torch.sparql import batched
+    from repro_torch.sparql.executor import _normalise_query
+
+    groups: dict = {}
+    for i, q in enumerate(queries):
+        qn = _normalise_query(q, snap.rho.rep)
+        sig, _ = batched.shape_signature(qn.patterns)
+        groups.setdefault(sig, []).append((i, qn))
+    wide = np.zeros(len(queries), dtype=bool)
+    views = snap.device_views()
+    for sig, items in groups.items():
+        plan = batched.build_plan(sig)
+        idx = [i for i, _ in items]
+        if plan is None:
+            wide[idx] = True
+            continue
+        consts = torch.tensor([[t for atom in qn.patterns for t in atom if not is_var(t)]
+                               for _, qn in items], dtype=torch.int32, device=views[1].device)
+        _, _, overflow = batched._bgp(plan.probes, plan.var_order, bx.width, *views,
+                                      consts)
+        wide[idx] = overflow.cpu().numpy()
+    return wide
+
+
+def record_publications(store) -> list:
+    """Every snapshot the store publishes from now on, its construction's
+    first."""
+    snaps = [store.snapshot]
+    inner = store._publish
+
+    def publish():
+        snap = inner()
+        snaps.append(snap)
+        return snap
+
+    store._publish = publish
+    return snaps
+
+
+def same_snapshot(label: str, a, b) -> None:
+    """Raise unless two published snapshots hold the same four arrays (on
+    any device), n_live, epoch and rho."""
+    if (a.epoch, a.n_live) != (b.epoch, b.n_live):
+        raise AssertionError(f"{label}: epoch or n_live differs")
+    for k in ("d_triples", "d_keys", "d_triples_pos", "d_keys_pos"):
+        x, y = getattr(a, k), getattr(b, k)
+        if not torch.equal(x, y.to(x.device)):
+            raise AssertionError(f"{label}: {k} differs")
+    if not np.array_equal(a.rho.rep, b.rho.rep):
+        raise AssertionError(f"{label}: rho differs")
+
+
+def serving_midsize(records: dict) -> None:
+    """Each mid-size profile's mixed trace (``sample_update_stream`` with
+    query events, four point lookups after each event) through a store on the card
+    and one on the CPU under the cooperative scheduler and one tick
+    pattern: the same answers and epochs, every published snapshot bit for
+    bit; then a threaded store on the card, each answer equal to the CPU
+    store's at its epoch and each snapshot to the CPU's of the same epoch."""
+    from repro_torch.data.generator import PROFILES, generate, sample_update_stream
+    from repro_torch.serve import TripleStore
+    from repro_torch.sparql import evaluate_at
+
+    out = {}
+    for name in MIDSIZE:
+        t0 = time.perf_counter()
+        facts, program, dic = generate(**PROFILES[name])
+        points = point_queries(facts, 64, 1)
+        trace = []  # four point lookups after each event of the mixed trace
+        for i, ev in enumerate(sample_update_stream(facts, dic, **SERVE_MID_EVENTS)):
+            trace += [ev] + [("query", q) for q in points[4 * i:4 * i + 4]]
+        stores = {d: TripleStore(facts, program, dic, device=d) for d in ("cuda", "cpu")}
+        pubs = {d: record_publications(s) for d, s in stores.items()}
+        tickets = {d: [] for d in stores}
+        rng = np.random.default_rng(0)
+        for op, payload in trace:
+            for d, store in stores.items():
+                if op == "query":
+                    tickets[d].append(store.submit_query(payload))
+                else:
+                    store.submit_update(op, payload)
+            for _ in range(int(rng.integers(0, 3))):
+                for store in stores.values():
+                    store.step()
+        for store in stores.values():
+            store.drain()
+        for a, b in zip(tickets["cuda"], tickets["cpu"]):
+            if (a.epoch, a.answer) != (b.epoch, b.answer):
+                raise AssertionError(f"{name}: query {a.uid} differs on the card")
+        if len(pubs["cuda"]) != len(pubs["cpu"]):
+            raise AssertionError(f"{name}: publications differ")
+        for a, b in zip(pubs["cuda"], pubs["cpu"]):
+            same_snapshot(f"{name} epoch {a.epoch} card vs cpu", a, b)
+        cpu_at = {s.epoch: s for s in pubs["cpu"]}
+        threaded = TripleStore(facts, program, dic, device="cuda", threaded=True)
+        tpub = record_publications(threaded)
+        answered = []
+        try:
+            for op, payload in trace:
+                if op == "query":
+                    answered.append(threaded.submit_query(payload))
+                else:
+                    threaded.submit_update(op, payload)
+                if rng.random() < 0.6:
+                    threaded._drain_queries()
+            while threaded.pending():  # reads while the worker runs
+                answered.append(threaded.query_now(points[len(answered) % 64]))
+            threaded.drain()
+        finally:
+            threaded.close()
+        for t in answered:
+            if t.answer != evaluate_at(t.query, cpu_at[t.epoch], dic)[0]:
+                raise AssertionError(f"{name}: threaded query {t.uid} differs")
+        for a in tpub:
+            same_snapshot(f"{name} threaded epoch {a.epoch}", a, cpu_at[a.epoch])
+        out[name] = dict(
+            events=[op for op, _ in trace], queries=len(tickets["cuda"]),
+            epochs=stores["cuda"].epoch, batched=stores["cuda"]._batched.stats,
+            threaded_epochs_read=sorted({t.epoch for t in answered}),
+            wall_s=time.perf_counter() - t0)
+        print(f"  {name}: card == cpu (answers, epochs, {len(pubs['cpu'])} snapshots "
+              f"bit for bit), threaded card == cpu at each epoch; "
+              f"{json.dumps(out[name])}", flush=True)
+        del stores, threaded
+        torch.cuda.empty_cache()
+    records["serving_midsize"] = out
+
+
+def serving_fullsize(ops, records: dict, kg: dict, later: list) -> dict:
+    """The serving tier at OpenCyc scale (phase 5's facts, caps 2^22):
+    (a) idle: 4,096 point lookups drained in shape groups, then in bursts
+    of 256 for per-query latency; a seeded sample of 512 against the full
+    host scalar path (timed: the scalar drain); the generator's §5 mix of
+    512: those no wider than the matcher's width drained in chunks against
+    the scalar path until a chunk ends past 15 s (the wider ones counted:
+    their host answers take minutes);
+    (b) busy: phase 5b's 8 change sets through the cooperative scheduler,
+    a burst of 256 point lookups after every phase step, each answer held
+    against the scalar path at its epoch; the final snapshot against a
+    from-scratch card run; (c) threaded: the same stream on a threaded
+    store while this thread drains bursts ending in ``query_now``, each
+    answer and snapshot held against (b)'s at the same epoch.  Returns the
+    launches of (a)-(b) by kernel."""
+    from repro_torch import TorchEngine
+    from repro_torch.data.generator import sample_update_stream
+    from repro_torch.serve import TripleStore
+    from repro_torch.sparql import evaluate_at
+
+    facts, program = kg["facts"], kg["program"]
+    dic, events = kg["update_stream"]
+    caps = dict(capacity=FULL_CAP, bind_cap=FULL_CAP, out_cap=FULL_CAP,
+                rewrite_cap=FULL_CAP)
+    t0 = time.perf_counter()
+    points = point_queries(facts, SERVE_POINTS, 2)
+    mix = [q for _, q in sample_update_stream(facts, dic, n_events=SERVE_MIX,
+                                              p_query=1.0, seed=1)]
+    out: dict = dict(queries_s=time.perf_counter() - t0)
+
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    store = TripleStore(facts, program, dic,
+                        engine=TorchEngine(FULL_RESOURCES, device="cuda", **caps))
+    torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - t0
+    snaps = record_publications(store)
+    snap0, bx = store.snapshot, store._batched
+
+    # (a) idle
+    drains = []
+    for _ in range(2):  # the first drain grows the allocator's pools
+        tk = [store.submit_query(q) for q in points]
+        ta = time.perf_counter()
+        store.drain()
+        drains.append(time.perf_counter() - ta)
+    if any(t.epoch != 0 or t.status != "done" for t in tk):
+        raise AssertionError("idle drain: a query not answered at epoch 0")
+    idle = []
+    for at in range(0, SERVE_POINTS, SERVE_BURST):
+        burst = [store.submit_query(q) for q in points[at:at + SERVE_BURST]]
+        store._drain_queries()
+        idle += [t.wall_s for t in burst]
+    rng = np.random.default_rng(3)
+    sample = sorted(rng.choice(SERVE_POINTS, SERVE_SAMPLE, replace=False).tolist())
+    kinds = {point_kind(points[i]) for i in sample}
+    if kinds != {0, 1, 2}:
+        raise AssertionError(f"the sample holds shapes {kinds}, want all three")
+    squeries = [points[i] for i in sample]
+    ta = time.perf_counter()
+    scalar = [evaluate_at(q, snap0, dic) for q in squeries]
+    scalar_s = time.perf_counter() - ta
+    ta = time.perf_counter()
+    batched = bx.run(squeries, snap0, dic)
+    batched_s = time.perf_counter() - ta
+    oracle0 = PointOracle(snap0)
+    for i, q, want, got in zip(sample, squeries, scalar, batched):
+        if got != want or tk[i].answer != want[0]:
+            raise AssertionError(f"point query {i}: batched != scalar at epoch 0")
+        if oracle0.answer(q, dic) != want[0]:
+            raise AssertionError(f"point query {i}: the sliced oracle != scalar")
+    stats0 = dict(bx.stats)
+    wide = wider_than(bx, mix, snap0)
+    narrow = [q for q, w in zip(mix, wide) if not w]
+    mix_done, mix_s, mix_scalar_s = 0, 0.0, 0.0
+    while mix_done < len(narrow) and mix_s + mix_scalar_s < SERVE_MIX_LIMIT_S:
+        chunk = narrow[mix_done:mix_done + 64]
+        ta = time.perf_counter()
+        got = bx.run(chunk, snap0, dic)
+        mix_s += time.perf_counter() - ta
+        ta = time.perf_counter()
+        want = [evaluate_at(q, snap0, dic) for q in chunk]
+        mix_scalar_s += time.perf_counter() - ta
+        if got != want:
+            raise AssertionError(f"the mix from query {mix_done}: batched != scalar")
+        mix_done += len(chunk)
+    out["idle"] = dict(
+        drain_s=drains, drain_qps=SERVE_POINTS / drains[-1],
+        per_query_ms=ms_stats(idle),
+        sample=dict(n=SERVE_SAMPLE, batched_s=batched_s, scalar_s=scalar_s,
+                    batched_qps=SERVE_SAMPLE / batched_s,
+                    scalar_qps=SERVE_SAMPLE / scalar_s,
+                    speedup=scalar_s / batched_s),
+        mix=dict(n=len(mix), wider_than_w=int(wide.sum()), drained=mix_done,
+                 batched_s=mix_s, scalar_s=mix_scalar_s,
+                 stats={k: bx.stats[k] - stats0[k] for k in bx.stats}),
+        stats=dict(bx.stats))
+    print(f"  idle: {json.dumps(out['idle'])}", flush=True)
+
+    # (b) busy, cooperative
+    oracles = {0: oracle0}
+    busy, per_event, qi = [], [], 0
+    for i, (op, delta) in enumerate(events):
+        t = store.submit_update(op, delta)
+        steps, bursts = [], []
+        while t.status != "done":
+            torch.cuda.synchronize()
+            ta = time.perf_counter()
+            store.step()
+            torch.cuda.synchronize()
+            steps.append((store.inflight_phase or "barrier",
+                          time.perf_counter() - ta))
+            qs = [points[(qi + k) % SERVE_POINTS] for k in range(SERVE_BURST)]
+            qi += SERVE_BURST
+            burst = [store.submit_query(q) for q in qs]
+            ta = time.perf_counter()
+            store._drain_queries()
+            bursts.append(time.perf_counter() - ta)
+            busy += burst
+        oracles[store.epoch] = PointOracle(store.snapshot)
+        row = dict(op=op, rows=int(delta.shape[0]), epoch=t.epoch, wall_s=t.wall_s,
+                   steps=steps, burst_s=bursts, publish_ms=t.publish_ms,
+                   publish_split=store.publish_split[-1])
+        per_event.append(row)
+        print(f"  event {i}: {json.dumps(row)}", flush=True)
+    torch.cuda.synchronize()
+    launches = {k: n for k, n in ops.LAUNCHES.items() if n}
+    ta = time.perf_counter()
+    for t in busy:
+        if t.answer != oracles[t.epoch].answer(t.query, dic):
+            raise AssertionError(f"busy query {t.uid}: != scalar at epoch {t.epoch}")
+    check_s = time.perf_counter() - ta
+    state = store.state
+    scratch = TorchEngine(state.n_res, device="cuda", **caps)
+    sstate = scratch.materialise_state(TorchEngine.explicit_rows(state), program)
+    final = store.snapshot
+    same_store("serving, final snapshot vs from scratch", final.rho.rep,
+               final.triples, scratch.state_rep(sstate), scratch.state_triples(sstate))
+    del sstate, scratch
+    dc = store.dispatch_counts
+    idle_p50 = out["idle"]["per_query_ms"]["p50"]
+    out["busy"] = dict(
+        events=per_event, per_query_ms=ms_stats([t.wall_s for t in busy]),
+        epochs_read=sorted({t.epoch for t in busy}), check_s=check_s,
+        publish_ms=store.publish_ms, publish_split=store.publish_split,
+        stats=dict(bx.stats))
+    out["busy_over_idle"] = out["busy"]["per_query_ms"]["p50"] / idle_p50
+    out["launches"] = launches
+    out["dispatch_counts"] = dc
+    out["drain_launches"] = {k.split("/")[1]: n for k, n in dc["by_phase"].items()
+                             if k.startswith("query/")}
+    out["publish_launches"] = {k.split("/")[1]: n for k, n in dc["by_phase"].items()
+                               if k.startswith("publish/")}
+    for phase, want in (("drain", "prefix_range_bounds"), ("publish", "dedup_order")):
+        if not out[f"{phase}_launches"].get(want):
+            raise AssertionError(f"the {phase} launched no {want}")
+    missing = [k for k in REW_KERNELS if not launches.get(k)]
+    if missing:
+        raise AssertionError(f"the served updates launched no {missing}")
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    out["max_memory_reserved"] = torch.cuda.max_memory_reserved()
+    print(f"  busy: {len(busy)} answers right at epochs {out['busy']['epochs_read']}; "
+          f"per query {json.dumps(out['busy']['per_query_ms'])}, busy/idle "
+          f"{out['busy_over_idle']:.3f}; final snapshot == from scratch; "
+          f"publish ms {[round(x, 2) for x in store.publish_ms]}; drain launches "
+          f"{json.dumps(out['drain_launches'])}, publish launches "
+          f"{json.dumps(out['publish_launches'])}; peak memory "
+          f"{out['max_memory_allocated'] / 1e9:.2f} GB allocated, "
+          f"{out['max_memory_reserved'] / 1e9:.2f} GB reserved", flush=True)
+    coop = {s.epoch: s for s in snaps}
+    del store
+    torch.cuda.empty_cache()
+
+    # (c) threaded, with reads on this thread while the worker runs
+    ta = time.perf_counter()
+    threaded = TripleStore(facts, program, dic, threaded=True,
+                           engine=TorchEngine(FULL_RESOURCES, device="cuda", **caps))
+    build_s = time.perf_counter() - ta
+    tsnaps = record_publications(threaded)
+    answered, reads_busy = [], 0
+    try:
+        ta = time.perf_counter()
+        for op, delta in events:
+            threaded.submit_update(op, delta)
+        while threaded.pending():
+            qs = [points[(qi + k) % SERVE_POINTS] for k in range(SERVE_BURST)]
+            qi += SERVE_BURST
+            burst = [threaded.submit_query(q) for q in qs[:-1]]
+            burst.append(threaded.query_now(qs[-1]))
+            answered += burst
+            reads_busy += 1
+        threaded.drain()
+        wall = time.perf_counter() - ta
+        captures = dict(threaded.engine.captures_by_family)
+    finally:
+        threaded.close()
+    for t in answered:
+        if t.answer != oracles[t.epoch].answer(t.query, dic):
+            raise AssertionError(f"threaded query {t.uid}: != scalar at epoch {t.epoch}")
+    for s in tsnaps:
+        same_snapshot(f"threaded epoch {s.epoch} vs cooperative", s, coop[s.epoch])
+    out["threaded"] = dict(
+        build_s=build_s, wall_s=wall, bursts=reads_busy, answers=len(answered),
+        epochs_read=sorted({t.epoch for t in answered}), captures=captures,
+        per_query_ms=ms_stats([t.wall_s for t in answered]),
+        publish_ms=threaded.publish_ms)
+    print(f"  threaded: {json.dumps(out['threaded'])}", flush=True)
+    del threaded, tsnaps, coop, snaps, oracles
+    torch.cuda.empty_cache()
+
+    def profile_drain():
+        """The idle drain of the 4,096 point lookups under torch.profiler
+        (the final snapshot)."""
+        prof, wall, _ = profiled(lambda: bx.run(points, final, dic))
+        res = dict(profiled_wall_s=wall, device_time=device_time(prof, wall))
+        records["serving_fullsize"]["profiled_drain"] = res
+        print(f"  serving, profiled drain of {SERVE_POINTS} lookups: "
+              f"{json.dumps(res)}", flush=True)
+
+    later.append(profile_drain)
+    records["serving_fullsize"] = out
+    return launches
 
 
 def search_census(ops, run) -> dict:
@@ -2157,6 +2629,11 @@ def main() -> None:
     phase("incremental maintenance (add/delete), card == CPU == from scratch:")
     incremental_midsize(records)
     incremental_fullsize(ops, records, kg, later)
+
+    phase("the serving tier (SPARQL over epoch snapshots), card == CPU == scalar:")
+    serving_midsize(records)
+    serving_fullsize(ops, records, kg, later)
+    del kg["update_stream"]
 
     phase("LM serving at full width (SmolLM-135M, flash):")
     launches["flash_attention"] = lm_serving_phase(ops, records, later)

@@ -69,7 +69,7 @@ from .rules import Program, Rule
 from .stats import MatStats
 from .terms import DIFFERENT_FROM, SAME_AS, is_var
 from .triples import pack
-from .uf import merge_pairs
+from .uf import FrozenRho, merge_pairs
 
 I32 = torch.int32
 I64 = torch.int64
@@ -835,6 +835,141 @@ class EngineState:
         return int(self.rep.shape[0])
 
 
+class StoreSnapshot:
+    """Immutable, epoch-consistent read view of an :class:`EngineState`.
+
+    Published at epoch barriers only, after a maintenance operation's
+    fixpoint, so a query evaluated against it observes exactly the fixpoint
+    of maintenance epoch ``epoch``; ``rho`` is the frozen representative
+    view whose clique tables every query of the epoch shares (the serving
+    contract of :mod:`repro_torch.serve.triple_store`).
+
+    Two backing forms, as the reference's:
+
+      * **host**: ``triples`` is an eager host copy of the live normal-form
+        store (:meth:`TorchEngine.read_snapshot`);
+      * **device-resident** (:meth:`TorchEngine.publish_snapshot`): the
+        live rows stay on the device in two sorted orders, ``(s,p,o)``
+        packed-key order (``d_triples``/``d_keys``) and ``(p,o,s)`` order
+        (``d_triples_pos``/``d_keys_pos``), each padded to the arena
+        length with KEY_MAX keys behind the ``n_live`` live rows, which the
+        batched matcher (:mod:`repro_torch.sparql.batched`) range-probes;
+        ``triples`` is copied to the host on first use.
+
+    The device tensors are made at publication, never views of the state:
+    the engine writes its arena and index in place, so a view would change
+    under its readers at the next update.  On the card ``ready`` is an
+    event recorded after the publication's last write, on the stream that
+    published; :meth:`device_views` orders a reader's stream after it.
+    """
+
+    __slots__ = (
+        "epoch", "rho", "_triples", "n_live",
+        "d_triples", "d_keys", "d_triples_pos", "d_keys_pos",
+        "ready", "_streams",
+    )
+
+    def __init__(self, epoch: int, rho: FrozenRho,
+                 triples: np.ndarray | None = None, device: tuple | None = None,
+                 ready: "torch.cuda.Event | None" = None) -> None:
+        self.epoch = epoch
+        self.rho = rho
+        self._triples = triples
+        self.ready = ready
+        self._streams: set[int] = set()
+        if device is not None:
+            (self.d_triples, self.d_keys, self.d_triples_pos,
+             self.d_keys_pos, self.n_live) = device
+        else:
+            self.d_triples = self.d_keys = None
+            self.d_triples_pos = self.d_keys_pos = None
+            self.n_live = None if triples is None else int(triples.shape[0])
+
+    @property
+    def on_device(self) -> bool:
+        return self.d_keys is not None
+
+    def device_views(self) -> tuple:
+        """``(d_triples, d_keys, d_triples_pos, d_keys_pos)``, safe to read
+        on the caller's current stream: the first time a stream asks, it
+        waits for the publication's event, and the allocator learns that
+        the stream reads the tensors (a retired snapshot's memory is not
+        reused while that stream may still read it)."""
+        views = (self.d_triples, self.d_keys, self.d_triples_pos, self.d_keys_pos)
+        if self.ready is not None:
+            stream = torch.cuda.current_stream(self.d_keys.device)
+            if stream.cuda_stream not in self._streams:
+                stream.wait_event(self.ready)
+                for t in views:
+                    t.record_stream(stream)
+                self._streams.add(stream.cuda_stream)
+        return views
+
+    @property
+    def triples(self) -> np.ndarray:
+        """Host copy of the normal-form store (lazy for device snapshots)."""
+        if self._triples is None:
+            d_triples = self.device_views()[0]
+            t = d_triples[: self.n_live].cpu().numpy()
+            t.setflags(write=False)
+            self._triples = t
+        return self._triples
+
+    @property
+    def n_res(self) -> int:
+        return len(self.rho)
+
+
+class _StageClock:
+    """Stage times of one publication in ms: CUDA events on the card
+    (device time between marks), the host clock on the CPU."""
+
+    def __init__(self, device: torch.device) -> None:
+        self.cuda = device.type == "cuda"
+        self.marks: list[tuple[str, object]] = []
+        self.mark("start")
+
+    def mark(self, name: str) -> None:
+        if self.cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.marks.append((name, ev))
+        else:
+            self.marks.append((name, time.perf_counter()))
+
+    def ms(self) -> dict:
+        """Each stage's time, after the device has passed the last mark."""
+        out = {}
+        for (_, a), (name, b) in zip(self.marks, self.marks[1:]):
+            out[f"{name}_ms"] = a.elapsed_time(b) if self.cuda else (b - a) * 1e3
+        return out
+
+
+def _publish_snapshot(spo, sort_perm, sorted_keys, clock: _StageClock):
+    """Device-resident snapshot build: the publication step at a barrier.
+
+    Gathers the live rows through the persistent sorted index (the
+    ``(s,p,o)``-ordered view is the index itself) and derives the
+    ``(p,o,s)``-ordered view with one stable sort of its keys through the
+    dedup kernel (the reference's ``jnp.argsort``; padding rows keep their
+    order, so every array equals the reference's over its whole padded
+    length).  Returns ``(tri, keys, tri_pos, keys_pos, n_live)``, every
+    tensor newly made (``keys`` a copy of the index) and ``n_live`` a 0-d
+    tensor; padding rows carry KEY_MAX keys behind the live prefix.
+    """
+    tri = spo[sort_perm.to(I64)]
+    live = sorted_keys < KEY_MAX
+    n_live = live.sum()
+    s, p, o = (tri[:, k].to(I64) for k in range(3))
+    pos_keys = torch.where(live, (p << 42) | (o << 21) | s, KEY_MAX)
+    keys = sorted_keys.clone()
+    clock.mark("gather")
+    perm2 = ops.dedup_order(pos_keys).to(I64)
+    out = tri, keys, tri[perm2], pos_keys[perm2], n_live
+    clock.mark("sort")
+    return out
+
+
 def state_from_arrays(arrays: dict, program: Program, r: int,
                       device: str | torch.device) -> EngineState:
     """An :class:`EngineState` on ``device`` from the reference state's
@@ -990,9 +1125,10 @@ class TorchEngine:
         self._graphs: dict = {}  # captured fused rounds and waves by key
         self._use_graphs = self.device.type == "cuda"
         self._graph = None  # the RoundGraph the last fused round ran on
-        self.captures = 0  # graphs captured by this engine
+        self.captures_by_family: dict[str, int] = {}  # "round" / "wave"
         self._tables: tuple | None = None  # (program, device constant tables)
         self.last_split: dict | None = None
+        self.last_publish: dict | None = None  # stage times of publish_snapshot
         self._log = RoundLog(self.device)
 
     # -- buffers and capacities ----------------------------------------------
@@ -1009,6 +1145,15 @@ class TorchEngine:
         self._active_bind_kind = "delta_bind" if narrow else "bind"
         self._active_rewrite = self.delta_rewrite if narrow else self.rewrite_cap
         self._active_rewrite_kind = "delta_rewrite" if narrow else "rewrite"
+
+    @property
+    def captures(self) -> int:
+        """Graphs captured by this engine."""
+        return sum(self.captures_by_family.values())
+
+    def _count_capture(self, graph) -> None:
+        family = graph.key[0]
+        self.captures_by_family[family] = self.captures_by_family.get(family, 0) + 1
 
     def _free_graphs(self) -> None:
         """Drop every captured graph (their capacities are outgrown)."""
@@ -1233,6 +1378,69 @@ class TorchEngine:
     def explicit_rows(state: EngineState) -> np.ndarray:
         """The explicit fact set as host (n, 3) rows, in key order."""
         return _unpack3(state.explicit).cpu().numpy()
+
+    # -- epoch snapshots (the serving tier's read views) ---------------------
+    def snapshot_arrays(self, spo, epoch, marked, rep, at_epoch: int,
+                        sort_perm=None, sorted_keys=None,
+                        index_dirty: bool = True) -> StoreSnapshot:
+        """A host :class:`StoreSnapshot` from barrier-consistent arrays (a
+        state between updates, or the rollback snapshot of an update in
+        flight).  With a clean sorted index the live rows come out through
+        it, in packed-key order; otherwise by a scan of the arena."""
+        if sorted_keys is not None and not index_dirty:
+            live = sort_perm[sorted_keys < KEY_MAX]
+            triples = spo[live.to(I64)].cpu().numpy()
+        else:
+            triples = spo[(epoch >= 0) & ~marked].cpu().numpy()
+        triples.setflags(write=False)  # shared by every reader at this epoch
+        return StoreSnapshot(at_epoch, FrozenRho(rep.cpu().numpy()), triples=triples)
+
+    def read_snapshot(self, state: EngineState) -> StoreSnapshot:
+        """Epoch-versioned host snapshot (host triples and a frozen rho);
+        valid at an epoch barrier only (no update in flight on ``state``)."""
+        snap = self.snapshot_arrays(
+            state.spo, state.epoch, state.marked, state.rep, state.update_epoch,
+            sort_perm=state.sort_perm, sorted_keys=state.sorted_keys,
+            index_dirty=state.index_dirty,
+        )
+        state.stats.triples_unmarked = int(snap.triples.shape[0])
+        return snap
+
+    def publish_snapshot(self, state: EngineState,
+                         prev: StoreSnapshot | None = None) -> StoreSnapshot:
+        """Device-resident epoch snapshot: the serving publication step.
+
+        Valid at an epoch barrier only.  Keeps the live rows on the device
+        in the two sorted orders the batched matcher probes
+        (:func:`_publish_snapshot`), every tensor newly made; reads
+        ``n_live`` and rho to the host in one copy; ``prev`` (the previous
+        snapshot) gives the incremental
+        :meth:`~repro_torch.core.uf.FrozenRho.refreshed` rho refresh.  On
+        the card the snapshot carries an event recorded after its last
+        write.  ``last_publish`` gets the stage times in ms: ``gather``
+        and ``sort`` (device time on the card), ``read`` and ``rho``
+        (host clock).
+        """
+        clock = _StageClock(self.device)
+        self._ensure_index(state)
+        tri, keys, tri_pos, keys_pos, n_live = _publish_snapshot(
+            state.spo, state.sort_perm, state.sorted_keys, clock)
+        ready = None
+        if self.device.type == "cuda":
+            ready = torch.cuda.Event()
+            ready.record()
+        t0 = time.perf_counter()
+        host = torch.cat([n_live.to(I32).view(1), state.rep]).cpu().numpy()
+        t1 = time.perf_counter()
+        n_live, rep_host = int(host[0]), host[1:]
+        rho = (prev.rho.refreshed(rep_host) if prev is not None
+               else FrozenRho(rep_host))
+        self.last_publish = dict(clock.ms(), read_ms=(t1 - t0) * 1e3,
+                                 rho_ms=(time.perf_counter() - t1) * 1e3)
+        state.stats.triples_unmarked = n_live
+        return StoreSnapshot(state.update_epoch, rho,
+                             device=(tri, keys, tri_pos, keys_pos, n_live),
+                             ready=ready)
 
     # -- rule evaluation -----------------------------------------------------
     def _rewrite_program(self, state: EngineState, stats: MatStats):
@@ -1547,7 +1755,7 @@ class TorchEngine:
             plan_out_cap=self._active_delta_out, log=self._log, graph=graph,
         )
         if graph is not None and graph.captured_now:
-            self.captures += 1
+            self._count_capture(graph)
         iters = fl["iters"]
         state.r += iters
         stats.rounds += iters

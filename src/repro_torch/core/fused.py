@@ -273,6 +273,11 @@ class _Captured:
     launches no kernel through :mod:`repro_torch.kernels.ops`, so each adds
     the capture's launch counts to ``ops.LAUNCHES`` (the capture itself
     counts nothing).
+
+    The capture runs in the thread-local error mode, on PyTorch's capture
+    stream: another thread may launch, copy to the host and synchronise
+    its own streams meanwhile (the serving tier's readers answer queries
+    while its maintenance worker captures).
     """
 
     def __init__(self, key, n_flags: int) -> None:
@@ -280,7 +285,8 @@ class _Captured:
         self.flags_host = torch.empty(n_flags, dtype=I64, pin_memory=True)
         self.graph: torch.cuda.CUDAGraph | None = None
         self.warm = False
-        self.launches: dict[str, int] = {}
+        self.calls: dict[str, int] = {}  # a replay's launches by entry point
+        self.launches: dict[str, int] = {}  # ... and by kernel
         self.capture_s = 0.0
         self.captured_now = False  # the last run through it captured
 
@@ -289,13 +295,12 @@ class _Captured:
 
     def _capture(self) -> None:
         t0 = time.perf_counter()
-        before = dict(ops.LAUNCHES)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        with ops.recording() as calls, torch.cuda.graph(
+                graph, capture_error_mode="thread_local"):
             self._body()
-        self.launches = {k: ops.LAUNCHES[k] - n for k, n in before.items()
-                         if ops.LAUNCHES[k] != n}
-        ops.LAUNCHES.update(before)
+        self.calls = calls
+        self.launches = ops.by_kernel(calls)
         self.graph = graph
         self.capture_s = time.perf_counter() - t0
         self.captured_now = True
@@ -308,8 +313,7 @@ class _Captured:
             if self.graph is None:
                 self._capture()
             self.graph.replay()
-            for k, n in self.launches.items():
-                ops.LAUNCHES[k] += n
+            ops.book(self.calls)
         self.flags_host.copy_(self.carry["flags"], non_blocking=True)
         return self.flags_host
 

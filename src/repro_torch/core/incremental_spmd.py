@@ -513,7 +513,7 @@ def _fused_waves(engine, state: EngineState, sizes, suspect, max_rounds: int):
         state, sizes, suspect, max_rounds, plans=plans, log=engine._log,
         graph=graph, **caps)
     if graph is not None and graph.captured_now:
-        engine.captures += 1
+        engine._count_capture(graph)
     state.stats.od_waves += fl["iters"]
     if fl["ov_route"]:
         raise CapacityError("route")

@@ -143,6 +143,30 @@ def generate(
     return facts, program, dic
 
 
+def _sample_query(rng, current, dic: Dictionary):
+    """A random BGP query over the stream's current explicit facts.
+
+    Shapes exercise the paper's §5 hazards against a *live* store: a
+    projected-out join variable (clique-size multiplicities), a two-pattern
+    join through a shared variable, and a constant pattern whose resource
+    must be rho-normalised at the epoch the query is served at.  Variables
+    are the executor's negative IDs (?x=-1, ?y=-2, ?z=-3).
+    """
+    from repro_torch.sparql.algebra import Query
+
+    if not current:
+        return Query([(-1, dic.intern(":idProp"), -2)], [], [-1], False)
+    _s, p, o = current[rng.integers(len(current))]
+    kind = int(rng.integers(3))
+    if kind == 0:  # bag semantics: ?y projected out -> clique multiplicities
+        patterns, select = [(-1, p, -2)], [-1]
+    elif kind == 1:  # join through a shared variable
+        patterns, select = [(-1, p, -2), (-3, p, -2)], [-1, -3]
+    else:  # constant object: normalised under the serving epoch's rho
+        patterns, select = [(-1, p, int(o))], [-1]
+    return Query(patterns, [], select, distinct=bool(rng.random() < 0.3))
+
+
 def sample_update_stream(
     facts: np.ndarray,
     dic: Dictionary,
@@ -152,28 +176,35 @@ def sample_update_stream(
     p_merge_add: float = 0.4,
     p_query: float = 0.0,
     seed: int = 0,
-) -> list[tuple[str, np.ndarray]]:
+) -> list[tuple[str, object]]:
     """Sample an update stream for incremental-maintenance workloads.
 
-    Returns ``[(op, delta), ...]`` with ``op in {"add", "delete"}``, each
-    delta an (m, 3) int32 batch of explicit triples, consistent as a
+    Returns ``[(op, payload), ...]`` with ``op in {"add", "delete"}``, each
+    payload an (m, 3) int32 batch of explicit triples, consistent as a
     sequence (deletions only target facts explicit at that point).  The
     additions include fresh ``:idProp`` edges between existing entities —
     under the generator's inverse-functional rule those derive new sameAs
     merges, and their later deletion forces clique splits.  Plain payload
-    additions reuse existing resources.  Query events (``p_query > 0``)
-    need the serving tier, which the port does not have yet.
+    additions reuse existing resources.
+
+    With ``p_query > 0`` the trace is a mixed serving workload: events may
+    also be ``("query", repro_torch.sparql.Query)``, read-only queries
+    sampled over the stream's current explicit facts, which a live store
+    answers at whatever maintenance epoch it has completed when they are
+    admitted (:mod:`repro_torch.serve.triple_store`).  Queries never mutate
+    the stream.  The draws are the reference's, so both packages give the
+    same events for the same seed.
     """
-    if p_query > 0:
-        raise NotImplementedError(
-            "query events need the serving tier (ROADMAP Queue 1 item 5)")
     rng = np.random.default_rng(seed)
     current: list[tuple[int, int, int]] = [tuple(map(int, r)) for r in facts]
     id_prop = dic.intern(":idProp")
-    events: list[tuple[str, np.ndarray]] = []
+    events: list[tuple[str, object]] = []
     n_upd_vals = 0
 
     for ev in range(n_events):
+        if p_query > 0 and rng.random() < p_query:
+            events.append(("query", _sample_query(rng, current, dic)))
+            continue
         do_delete = current and rng.random() < p_delete
         if do_delete:
             m = min(batch, len(current))

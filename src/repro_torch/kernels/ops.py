@@ -5,7 +5,10 @@ strides) and then runs the CUDA kernel for tensors on the card or the plain
 version (:mod:`repro_torch.kernels.ref`) for tensors on the CPU.  There is
 no other route: a CUDA tensor gets the kernel or an exception, never the
 plain version.  ``LAUNCHES`` counts, per kernel, the calls that launched it
-on the card — the proof that a run went through the kernels.  The kernels
+on the card — the proof that a run went through the kernels — and
+:func:`tally` counts one thread's launches by C entry point (the prefix
+form of the search apart from its point form), for the serving tier's
+per-phase ledger.  The kernels
 serve four paths: REW materialisation (dedup, search, rewrite, union-find),
 LM serving (flash attention), FM serving (the FM interaction and the
 embedding bag) and GNN inference (the segment sum, with its plan built by
@@ -19,9 +22,11 @@ synchronise; a non-zero ``cudaGetLastError`` after a launch raises.
 from __future__ import annotations
 
 import array
+import contextlib
 import ctypes
 import dataclasses
 import functools
+import threading
 
 import torch
 
@@ -62,8 +67,71 @@ _ENTRIES = {
 
 def reset_launches() -> None:
     """Set every kernel's launch count to 0 (all paths)."""
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _count_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+# launches are counted from any thread (the serving tier's maintenance
+# worker and its readers launch at once): ``LAUNCHES`` under a lock, the
+# per-thread tallies and the capture's recording in thread-local state
+_count_lock = threading.Lock()
+_local = threading.local()
+
+
+def book(calls: dict[str, int]) -> None:
+    """Count ``calls`` (C entry point -> launches): into ``LAUNCHES`` by
+    kernel and into this thread's open :func:`tally` dicts, or, while this
+    thread records a capture (:func:`recording`), into the recording
+    alone.  A graph replay books its capture's calls."""
+    rec = getattr(_local, "recording", None)
+    if rec is not None:
+        for fn, n in calls.items():
+            rec[fn] = rec.get(fn, 0) + n
+        return
+    with _count_lock:
+        for fn, n in calls.items():
+            LAUNCHES[_ENTRIES[fn][1]] += n
+    for t in getattr(_local, "tallies", ()):
+        for fn, n in calls.items():
+            t[fn] = t.get(fn, 0) + n
+
+
+@contextlib.contextmanager
+def tally():
+    """A dict that counts this thread's launches inside the block, by C
+    entry point (``prefix_range_bounds`` apart from ``search_bounds``);
+    blocks nest, and each open tally counts."""
+    counts: dict[str, int] = {}
+    stack = getattr(_local, "tallies", ())
+    _local.tallies = (*stack, counts)
+    try:
+        yield counts
+    finally:
+        _local.tallies = stack
+
+
+@contextlib.contextmanager
+def recording():
+    """A dict that takes this thread's launches inside the block by C entry
+    point, counted nowhere else: a graph capture records what a replay
+    launches without running it."""
+    counts: dict[str, int] = {}
+    prev = getattr(_local, "recording", None)
+    _local.recording = counts
+    try:
+        yield counts
+    finally:
+        _local.recording = prev
+
+
+def by_kernel(calls: dict[str, int]) -> dict[str, int]:
+    """Launches by C entry point summed by kernel (``LAUNCHES``'s keys)."""
+    out: dict[str, int] = {}
+    for fn, n in calls.items():
+        k = _ENTRIES[fn][1]
+        out[k] = out.get(k, 0) + n
+    return out
 
 
 _entry_points: dict = {}
@@ -95,7 +163,7 @@ def _launch(fn: str, device: torch.device, *args) -> None:
         err = entry(*args, torch._C._cuda_getCurrentRawStream(device.index))
     if err != 0:
         raise RuntimeError(f"CUDA kernel {fn} failed to launch: error {err}")
-    LAUNCHES[_ENTRIES[fn][1]] += 1
+    book({fn: 1})
 
 
 def _ptr(t: torch.Tensor | None):

@@ -30,6 +30,7 @@ from repro_torch.data.graphs import build_graph_from_kg, dedup_graph, graph_to, 
 from repro_torch.models import recsys, transformer as lm
 from repro_torch.models.gnn import gatedgcn, pna
 from repro_torch.serve import Request, ServeEngine
+from repro_torch.sparql import Query, evaluate_at
 
 pytestmark = pytest.mark.cuda
 KEY_MAX = (1 << 63) - 1
@@ -779,3 +780,167 @@ def test_dedup_graph_on_card_equals_cpu(dev):
     host = dedup_graph(graph, rep, "cpu")
     for key in host:
         assert torch.equal(card[key].cpu(), host[key]), key
+
+
+def _serve_case(seed: int = 3):
+    kw = dict(n_groups=2, group_size=3, n_spokes_per=2, n_plain=60,
+              hierarchy_depth=2, chain_rules=True, seed=seed)
+    facts, program, dic = generate(**kw)
+    trace = sample_update_stream(facts, dic, n_events=8, batch=8, p_query=0.5,
+                                 seed=seed)
+    assert {"add", "delete", "query"} <= {op for op, _ in trace}
+    return facts, program, dic, trace
+
+
+_SNAP = ("d_triples", "d_keys", "d_triples_pos", "d_keys_pos")
+
+
+def _serve_store(facts, program, dic, device, **kw):
+    from repro_torch.serve import TripleStore
+
+    # at 2^14 an update's delta width differs from the base run's stream
+    # width, so the worker captures a round graph of its own
+    cap = 1 << 14
+    eng = TorchEngine(dic.n_resources, device=device, capacity=cap, bind_cap=cap,
+                      out_cap=cap, rewrite_cap=cap)
+    return TripleStore(facts, program, dic, engine=eng, **kw)
+
+
+def _published(store) -> list:
+    """Every snapshot the store publishes from now on, with copies of its
+    device arrays taken at publication."""
+    out = [(store.snapshot, {k: getattr(store.snapshot, k).clone() for k in _SNAP})]
+    inner = store._publish
+
+    def publish():
+        snap = inner()
+        out.append((snap, {k: getattr(snap, k).clone() for k in _SNAP}))
+        return snap
+
+    store._publish = publish
+    return out
+
+
+def test_serving_store_on_card_equals_cpu(dev):
+    """The cooperative store on the card equals it on the CPU: every
+    published snapshot bit for bit (the four arrays over their padded
+    length, n_live, rho), every answer and epoch, the batched drain against
+    the host path; the publication launches dedup_order and the drain the
+    search's prefix form; no published snapshot changes after it was
+    published."""
+    facts, program, dic, trace = _serve_case()
+    card, host = (_serve_store(facts, program, dic, d) for d in (dev, "cpu"))
+    pubs = [_published(s) for s in (card, host)]
+    rng = np.random.default_rng(0)
+    tickets = ([], [])
+    for op, payload in trace:
+        for store, tk in zip((card, host), tickets):
+            if op == "query":
+                tk.append(store.submit_query(payload))
+            else:
+                store.submit_update(op, payload)
+        for _ in range(int(rng.integers(0, 3))):
+            card.step()
+            host.step()
+    card.drain()
+    host.drain()
+    assert len(pubs[0]) == len(pubs[1]) > 1
+    for (cs, cclone), (hs, _) in zip(*pubs):
+        assert (cs.epoch, cs.n_live) == (hs.epoch, hs.n_live)
+        for k in _SNAP:
+            assert getattr(cs, k).device.type == "cuda"
+            assert torch.equal(getattr(cs, k).cpu(), getattr(hs, k)), k
+            assert torch.equal(getattr(cs, k), cclone[k]), f"snapshot {cs.epoch} {k}"
+        np.testing.assert_array_equal(cs.rho.rep, hs.rho.rep)
+    for a, b in zip(*tickets):
+        assert (a.epoch, a.answer) == (b.epoch, b.answer)
+    queries = [q for op, q in trace if op == "query"] * 3
+    queries += [Query([(int(s), int(p), -1)], [], [-1], False) for s, p, _ in facts[:16]]
+    drained = [[store.submit_query(q) for q in queries] for store in (card, host)]
+    card.drain()
+    host.drain()
+    for a, b, q in zip(*drained, queries):
+        assert (a.epoch, a.answer) == (b.epoch, b.answer)
+        assert a.answer == evaluate_at(q, card.snapshot, dic)[0]
+    assert card._batched.stats["batched"] > 0
+    by_phase = card.dispatch_counts["by_phase"]
+    assert by_phase.get("query/prefix_range_bounds", 0) > 0
+    assert by_phase.get("publish/dedup_order", 0) >= len(pubs[0])
+    assert host.dispatch_counts["total"] == 0  # the CPU launches nothing
+
+
+def test_threaded_store_on_card_answers_while_worker_captures(dev):
+    """A threaded store on the card: the worker captures its first round
+    and wave graphs while this thread answers queries against the
+    published snapshot (each capture is held open until this thread has
+    answered a few); every answer equals the CPU store's at its epoch, and
+    the final state equals the cooperative CPU store's."""
+    import threading
+
+    from repro_torch.core import fused
+
+    facts, program, dic, trace = _serve_case()
+    updates = [(op, p) for op, p in trace if op != "query"]
+    queries = [q for op, q in trace if op == "query"]
+    queries += [Query([(int(s), int(p), -1)], [], [-1], False) for s, p, _ in facts[:8]]
+    host = _serve_store(facts, program, dic, "cpu")
+    host_pub = _published(host)
+    for op, payload in updates:
+        host.submit_update(op, payload)
+    host.drain()
+    want = {snap.epoch: snap for snap, _ in host_pub}
+    store = _serve_store(facts, program, dic, dev, threaded=True)
+    pub = _published(store)
+    capturing, release = threading.Event(), threading.Event()
+    held = []
+    inner = fused._Captured._capture
+
+    def held_capture(self):
+        body = self._body
+
+        def body_held():
+            if torch.cuda.is_current_stream_capturing() and self.key[0] not in held:
+                held.append(self.key[0])
+                capturing.set()
+                assert release.wait(120), "the main thread never released the capture"
+                release.clear()
+            body()
+
+        self._body = body_held
+        try:
+            inner(self)
+        finally:
+            del self._body
+
+    answered, matched_in_capture = [], 0
+    try:
+        fused._Captured._capture = held_capture
+        for op, payload in updates:
+            store.submit_update(op, payload)
+        while store.pending():
+            held_now = capturing.wait(0.01)
+            before = store._batched.stats["batched"]
+            # a burst drained by query_now: its shape groups run on the card
+            answered += [store.submit_query(q) for q in queries[:-1]]
+            answered.append(store.query_now(queries[-1]))
+            if held_now:  # the worker's capture is open
+                matched_in_capture += store._batched.stats["batched"] - before
+                capturing.clear()
+                release.set()
+            store._worker.check()
+        store.drain()
+    finally:
+        fused._Captured._capture = inner
+        release.set()
+        store.close()
+    assert sorted(held) == ["round", "wave"]
+    assert store.engine.captures_by_family.get("round", 0) >= 1
+    assert store.engine.captures_by_family.get("wave", 0) >= 1
+    assert matched_in_capture > 0
+    for t in answered:
+        assert t.answer == evaluate_at(t.query, want[t.epoch], dic)[0]
+    for snap, clone in pub:
+        for k in _SNAP:
+            assert torch.equal(getattr(snap, k), clone[k])
+            assert torch.equal(getattr(snap, k).cpu(), getattr(want[snap.epoch], k))
+    assert store.epoch == host.epoch == len(updates)

@@ -28,7 +28,10 @@ MODULES = [
     "repro_torch.configs.gatedgcn", "repro_torch.configs.pna",
     "repro_torch.models.gnn", "repro_torch.models.gnn.common",
     "repro_torch.models.gnn.gatedgcn", "repro_torch.models.gnn.pna",
-    "repro_torch.data.graphs", "chip_smoke",
+    "repro_torch.data.graphs", "repro_torch.sparql",
+    "repro_torch.sparql.algebra", "repro_torch.sparql.executor",
+    "repro_torch.sparql.batched", "repro_torch.serve.scheduler",
+    "repro_torch.serve.triple_store", "chip_smoke",
 ]
 
 
@@ -157,3 +160,19 @@ def test_kernel_source_is_hand_written(name):
     path, fn = found.groups()
     assert re.search(rf"^def {fn}\(", (ROOT / path).read_text(), re.M), \
         f"{name}: {path} defines no {fn}"
+
+
+def test_triple_store_without_a_card_raises_unless_cpu_is_asked(monkeypatch):
+    from repro_torch.core.engine import TorchEngine
+    from repro_torch.data.datasets import single_clique
+    from repro_torch.serve import TripleStore
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    facts, prog, dic = single_clique(3)
+    with pytest.raises(RuntimeError):
+        TripleStore(facts, prog, dic)
+    store = TripleStore(facts, prog, dic, device="cpu")
+    assert store.engine.device.type == "cpu" and store.snapshot.d_keys.device.type == "cpu"
+    with pytest.raises(ValueError):
+        TripleStore(facts, prog, dic, device="cuda",
+                    engine=TorchEngine(dic.n_resources, device="cpu"))

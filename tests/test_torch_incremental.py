@@ -134,8 +134,19 @@ def test_sample_update_stream_matches_reference(name, seed, batch, p_delete):
     for (_, d), (_, w) in zip(got, want):
         np.testing.assert_array_equal(d, w)
     assert dic.n_resources == jd.n_resources
-    with pytest.raises(NotImplementedError):
-        sample_update_stream(facts, dic, p_query=0.5)
+    # with query events: the same draws, so the same ops, deltas and queries
+    got = sample_update_stream(facts, dic, n_events=6, batch=batch,
+                               p_delete=p_delete, p_query=0.5, seed=seed)
+    want = jsample(jf, jd, n_events=6, batch=batch, p_delete=p_delete,
+                   p_query=0.5, seed=seed)
+    assert [op for op, _ in got] == [op for op, _ in want]
+    for (op, d), (_, w) in zip(got, want):
+        if op == "query":
+            assert (d.patterns, d.steps, d.select, d.distinct) == (
+                w.patterns, w.steps, w.select, w.distinct)
+        else:
+            np.testing.assert_array_equal(d, w)
+    assert dic.n_resources == jd.n_resources
 
 
 @pytest.mark.parametrize("seed", range(4))
