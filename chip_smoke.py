@@ -42,16 +42,22 @@ on failure (the script then exits non-zero and prints no result):
    one CUDA graph replay a round) on the card equal the host loop
    (``fuse_rounds=False``) on the card and both loops on the CPU
    (triples, rho, counters), and Theorem 1 holds on the card's result
-   against the port's host AX materialisation (``check_theorem1``);
+   against the port's host AX materialisation (``check_theorem1``); the
+   paper's factor rows (``factor_over``: AX over REW) for each profile;
 5. REW at full size: ``opencyc_like`` at OpenCyc's scale (2.4 M explicit
    triples, 361,200 merged resources) materialised on the card through
-   :class:`repro_torch.TorchEngine`: three runs of the host loop, then the
+   :class:`repro_torch.TorchEngine`, built by ``TorchEngine.from_config``
+   from the ``sameas_rew`` config with phase 5's caps (2^22; phases 5b and
+   5c build theirs so too): three runs of the host loop, then the
    default engine's first run (round 1 eager, the capture of the round
    graph, one replay and one host read a round; its wall time is the
    end-to-end number and its launches the main path's) and three reruns
    that replay the graph from round 1; each run's wall split (set-up, each
    round's wall, wait and reads, stats) and peak memory (allocated and
-   reserved, the graph's pool included).  Structural checks of the result;
+   reserved, the graph's pool included), and its dispatches by family
+   (``engine.dispatches``); the first run's ``dedup_order`` launches by
+   key count (the eager ones and those recorded at the graph's capture
+   times its replays).  Structural checks of the result;
    one union and one compression launched per round (the engine merges
    once a round); the host loop, the numpy host REW (timed once) and the
    same run on the CPU under both loops (the kernels' plain versions) give
@@ -70,9 +76,10 @@ on failure (the script then exits non-zero and prints no result):
    generator's yields, waves, rounds, overdeleted rows, splits, rederived
    and re-merged rules, retries, captures, launches by kernel and peak
    memory, and its state equal to a from-scratch fused card run (whose
-   wall is printed beside); the numpy host subsystem timed on the first
-   add and the first delete (stopped after an event of more than 60 s).
-   At the end, one add and one delete profiled;
+   wall is printed beside); the engine's dispatches reconciled with the
+   static phase profile (``dispatch_crosscheck``); the numpy host
+   subsystem timed on the first add and the first delete (stopped after an
+   event of more than 60 s).  At the end, one add and one delete profiled;
 5c. the serving tier: at mid size, phase 4's profiles each take a mixed
    trace (``sample_update_stream`` with ``p_query=0.5``, four point
    lookups after each event) through a ``TripleStore`` on the card and one
@@ -88,7 +95,15 @@ on failure (the script then exits non-zero and prints no result):
    path at its epoch, the final snapshot against a from-scratch card run,
    then the same stream on a threaded store while this thread reads;
    publication times and their split, per-query latency idle and busy,
-   launches by phase, peak memory, and at the end a profiled drain;
+   launches and dispatches by phase, both stores' ``audit()`` empty, peak
+   memory, and at the end a profiled drain;
+5d. the audit: ``repro_torch.analysis.run_report`` on the card at the
+   probe geometry of each of the reference's four probe datasets (every
+   registered unit recorded once, with its kernel launches; the four
+   passes; a driven delete and add reconciled with the static profile):
+   no violation outside the recorded list (empty) and no dispatch problem;
+   the launch records hold every REW kernel; then the dispatch
+   cross-checks of phases 5, 5b and 5c, all empty;
 6. LM serving at full width: SmolLM-135M (random weights from seed 0) with
    the flash kernel behind ``ServeEngine`` (16 slots, 1024 rows) answers 64
    requests of 32-512 prompt tokens and 32 new tokens; wall, tokens per
@@ -1450,12 +1465,15 @@ def midsize_phase(records: dict) -> None:
         check_theorem1(MatResult(arena, rep, program, stats), ax)
         walls["theorem1_s"] = time.perf_counter() - t0
         counters = {k: getattr(stats, k) for k in COUNTERS}
+        factors = stats.factor_over(ax.stats)
         print(f"  {name}: cuda fused == cuda host loop == cpu fused == cpu host "
               f"loop, {counters}; "
               f"Theorem 1 holds against the host AX ({ax.stats.triples_unmarked} "
-              f"triples); {json.dumps(walls)}", flush=True)
+              f"triples); AX/REW factors {json.dumps(factors)}; "
+              f"{json.dumps(walls)}", flush=True)
         records[name] = dict(counters, rule_rewrites=stats.rule_rewrites,
-                             ax_triples=ax.stats.triples_unmarked, **walls)
+                             ax_triples=ax.stats.triples_unmarked,
+                             factor_over_ax=factors, **walls)
 
 
 def full_kg() -> dict:
@@ -1474,6 +1492,66 @@ def full_kg() -> dict:
     return dict(facts=facts, program=program, dic=dic, config=config, gen_s=gen_s)
 
 
+def full_engine(n_resources: int, **kw):
+    """A full-size engine on the card: the ``sameas_rew`` config with phase
+    5's caps (2^22) through ``TorchEngine.from_config``."""
+    from repro_torch import TorchEngine
+    from repro_torch.configs import get_arch
+
+    return TorchEngine.from_config(
+        get_arch("sameas_rew").config, n_resources=n_resources, device="cuda",
+        capacity=FULL_CAP, bind_cap=FULL_CAP, out_cap=FULL_CAP,
+        rewrite_cap=FULL_CAP, **kw)
+
+
+class LaunchCensus:
+    """Kernel launches by entry point and leading operand rows, handed over
+    by ``ops.traced``: the eager ones, and those recorded into a graph
+    capture (by the capture's dict of calls, which the graph keeps as
+    ``calls``), which each replay of that graph launches again."""
+
+    def __init__(self) -> None:
+        self.live: dict = {}
+        self.captured: dict = {}
+
+    def launch(self, fn, operands, capture) -> None:
+        key = (fn, int(operands[0].shape[0]) if operands else 0)
+        into = self.live if capture is None else self.captured.setdefault(
+            id(capture), {})
+        into[key] = into.get(key, 0) + 1
+
+    def plain(self, fn):
+        raise AssertionError(f"a plain version ran on the card: {fn}")
+
+    def by_rows(self, fn: str, graphs) -> dict:
+        """Launches of ``fn`` by leading rows: eager, plus each graph's
+        captured ones times its replays."""
+        out: dict = {}
+        for (name, rows), n in self.live.items():
+            if name == fn:
+                out[rows] = out.get(rows, 0) + n
+        for g in graphs:
+            for (name, rows), n in self.captured.get(id(g.calls), {}).items():
+                if name == fn:
+                    out[rows] = out.get(rows, 0) + n * g.replays
+        return dict(sorted(out.items()))
+
+
+def crosscheck(label: str, engine, program) -> dict:
+    """``engine.dispatches`` reconciled with the static phase profile;
+    raises on any problem.  Returns the dispatches by family and phase."""
+    from repro_torch.analysis import dispatch_crosscheck
+
+    d = engine.dispatches
+    problems = dispatch_crosscheck(d, program)
+    if problems:
+        raise AssertionError(f"{label}: dispatch cross-check: {problems}")
+    return dict(by_family=dict(d.by_family), compiles=dict(d.compiles),
+                by_phase={f"{ph}/{fam}": n for (ph, fam), n in sorted(
+                    d.by_phase.items(), key=lambda kv: (str(kv[0][0]), kv[0][1]))
+                    if ph is not None})
+
+
 def split_summary(split: dict) -> dict:
     """An engine's ``last_split`` with each round's numbers as lists."""
     rounds = split["rounds"]
@@ -1486,21 +1564,29 @@ def split_summary(split: dict) -> dict:
     )
 
 
-def rew_run(ops, eng, facts, program):
+def rew_run(ops, eng, facts, program, census=None):
     """One materialisation on the card: its state, and its wall (ending in
-    a synchronise), launch counts (set to 0 just before), peak memory
-    allocated and reserved (the caching allocator's segments, a CUDA
-    graph's private pool included) and the engine's wall split."""
+    a synchronise), launch counts and dispatches by family (both set to 0
+    just before), peak memory allocated and reserved (the caching
+    allocator's segments, a CUDA graph's private pool included) and the
+    engine's wall split.  A ``census`` (:class:`LaunchCensus`) gets the
+    run's launches."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
     ops.reset_launches()
+    eng.dispatches.reset()
     t0 = time.perf_counter()
-    state = eng.materialise_state(facts, program)
+    if census is None:
+        state = eng.materialise_state(facts, program)
+    else:
+        with ops.traced(census):
+            state = eng.materialise_state(facts, program)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     return state, dict(
         wall_s=wall, launches=dict(ops.LAUNCHES),
+        dispatches=dict(eng.dispatches.by_family),
         max_memory_allocated=torch.cuda.max_memory_allocated(),
         max_memory_reserved=torch.cuda.max_memory_reserved(),
         allocated_before=before, split=split_summary(eng.last_split),
@@ -1547,6 +1633,7 @@ def fullsize_phase(ops, records: dict, kg: dict, later: list) -> dict:
     of both loops and the search census (on the host loop, whose search
     calls a wrapper can count) go to ``later``."""
     from repro_torch import TorchEngine
+    from repro_torch.configs import get_arch
     from repro_torch.core.engine import index_invariant_report
     from repro_torch.core.materialise import materialise_rew
     from repro_torch.core.triples import dedup_rows
@@ -1560,7 +1647,7 @@ def fullsize_phase(ops, records: dict, kg: dict, later: list) -> dict:
     n_distinct = dedup_rows(facts).shape[0]
     dedup_rows_s = time.perf_counter() - t0
 
-    host_eng = TorchEngine(dic.n_resources, device="cuda", fuse_rounds=False, **caps)
+    host_eng = full_engine(dic.n_resources, fuse_rounds=False)
     torch.cuda.empty_cache()
     host_runs, host_result = [], None
     for _ in range(3):
@@ -1584,9 +1671,10 @@ def fullsize_phase(ops, records: dict, kg: dict, later: list) -> dict:
     host_with_dedup_rows_s = time.perf_counter() - t0
     del hstate
 
-    eng = TorchEngine(dic.n_resources, device="cuda", **caps)
+    eng = full_engine(dic.n_resources)
     torch.cuda.empty_cache()
-    state, first = rew_run(ops, eng, facts, program)
+    census = LaunchCensus()
+    state, first = rew_run(ops, eng, facts, program, census)
     wall, launches, stats = first["wall_s"], first["launches"], state.stats
     graph = eng._graph
     if graph is None or graph.graph is None:
@@ -1601,6 +1689,17 @@ def fullsize_phase(ops, records: dict, kg: dict, later: list) -> dict:
           f"allocated {first['max_memory_allocated']} reserved "
           f"{first['max_memory_reserved']} B", flush=True)
     print(f"  fused, split of the first run {json.dumps(first['split'])}", flush=True)
+    dedup_by_keys = census.by_rows("dedup_order", eng._graphs.values())
+    if sum(dedup_by_keys.values()) != launches["dedup_order"]:
+        raise AssertionError(f"dedup_order census {dedup_by_keys} != "
+                             f"{launches['dedup_order']} launches")
+    if first["dispatches"].get("fforward") != stats.rounds:
+        raise AssertionError(f"{stats.rounds} rounds, dispatches "
+                             f"{first['dispatches']}")
+    rew_crosscheck = crosscheck("REW base run", eng, program)
+    print(f"  fused, first run: dispatches by family {json.dumps(first['dispatches'])}"
+          f" (compiles {json.dumps(rew_crosscheck['compiles'])}); dedup_order "
+          f"launches by key count {json.dumps(dedup_by_keys)}", flush=True)
 
     rho = torch.from_numpy(eng.state_rep(state))
     if stats.merged_resources != FULL_MERGED:
@@ -1649,6 +1748,20 @@ def fullsize_phase(ops, records: dict, kg: dict, later: list) -> dict:
         del again
     print(f"  fused, reruns: walls {[r['wall_s'] for r in reruns]}, split of each "
           f"{json.dumps([r['split'] for r in reruns])}", flush=True)
+    # the dispatch counter's host cost: one record call (median of 5 spans
+    # of 100,000), against a rerun's wall at its dispatches
+    counter, n_calls, spans = type(eng.dispatches)(), 100_000, []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for _ in range(n_calls):
+            counter.record("fforward")
+        spans.append((time.perf_counter() - t0) / n_calls)
+    record_s = statistics.median(spans)
+    record_cost = dict(
+        record_us=record_s * 1e6,
+        share_of_rerun_wall=record_s * sum(reruns[0]["dispatches"].values())
+        / reruns[0]["wall_s"])
+    print(f"  the dispatch counter: {json.dumps(record_cost)}", flush=True)
 
     def profile_rerun():
         profiled_out = {}
@@ -1705,7 +1818,12 @@ def fullsize_phase(ops, records: dict, kg: dict, later: list) -> dict:
         fused_first=first, fused_reruns=reruns, host_loop=host_runs,
         max_memory_allocated=first["max_memory_allocated"],
         max_memory_reserved=first["max_memory_reserved"],
-        launches=launches, quiet_sweep=quiet, dedup_rows_s=dedup_rows_s,
+        launches=launches, dispatches=first["dispatches"],
+        dedup_order_by_keys={str(k): n for k, n in dedup_by_keys.items()},
+        crosscheck=rew_crosscheck, host_loop_dispatches=host_runs[0]["dispatches"],
+        dispatch_record_cost=record_cost,
+        config=dataclasses.asdict(get_arch("sameas_rew").config),
+        quiet_sweep=quiet, dedup_rows_s=dedup_rows_s,
         host_loop_with_dedup_rows_s=host_with_dedup_rows_s,
         numpy_host_rew_s=host_rew_s,
         cpu_wall_s=cpu_wall, cpu_host_loop_wall_s=cpu_walls["host_loop"],
@@ -1839,12 +1957,6 @@ def _event_split(split: dict, wall: float) -> dict:
     return out
 
 
-def _copy_state(eng, state):
-    fresh = dataclasses.replace(state)
-    eng._restore(fresh, eng._snapshot(state))
-    return fresh
-
-
 def incremental_fullsize(ops, records: dict, kg: dict, later: list) -> dict:
     """The OpenCyc-scale store under its update stream on the card: each
     event's wall, split, counters, launches and peak memory; each event's
@@ -1866,14 +1978,12 @@ def incremental_fullsize(ops, records: dict, kg: dict, later: list) -> dict:
     print(f"  sampled {len(events)} events ({[op for op, _ in events]}, "
           f"{[int(d.shape[0]) for _, d in events]} rows) in {sample_s:.1f} s",
           flush=True)
-    caps = dict(capacity=FULL_CAP, bind_cap=FULL_CAP, out_cap=FULL_CAP,
-                rewrite_cap=FULL_CAP)
-    eng = TorchEngine(FULL_RESOURCES, device="cuda", **caps)
+    eng = full_engine(FULL_RESOURCES)
     torch.cuda.empty_cache()
     state = eng.materialise_state(facts, program)
     torch.cuda.synchronize()
-    base_state = _copy_state(eng, state)
-    scratch = TorchEngine(FULL_RESOURCES, device="cuda", **caps)
+    base_state = TorchEngine.cloned(state)
+    scratch = full_engine(FULL_RESOURCES)
     per_event, total = [], dict.fromkeys(ops.LAUNCHES, 0)
     for i, (op, delta) in enumerate(events):
         before = state.stats.as_dict()
@@ -1913,6 +2023,10 @@ def incremental_fullsize(ops, records: dict, kg: dict, later: list) -> dict:
         per_event.append(row)
         print(f"  event {i}: {json.dumps(row)}", flush=True)
 
+    inc_crosscheck = crosscheck("the 8 update events", eng, program)
+    print(f"  dispatches of the base run and the 8 events reconcile with the "
+          f"static profile: {json.dumps(inc_crosscheck)}", flush=True)
+
     # the numpy host subsystem from the base state, event by event, until
     # the first add and the first delete are timed
     t0 = time.perf_counter()
@@ -1944,7 +2058,7 @@ def incremental_fullsize(ops, records: dict, kg: dict, later: list) -> dict:
         first = {op: delta for op, delta in reversed(events)}
         for op in ("add", "delete"):
             prof, wall, _ = profiled(
-                lambda op=op: apply_event(eng, _copy_state(eng, base_state), op,
+                lambda op=op: apply_event(eng, TorchEngine.cloned(base_state), op,
                                           first[op]))
             out[op] = dict(profiled_wall_s=wall, device_time=device_time(prof, wall))
         print(f"  incremental, profiled add and delete: {json.dumps(out)}", flush=True)
@@ -1955,7 +2069,7 @@ def incremental_fullsize(ops, records: dict, kg: dict, later: list) -> dict:
                host_subsystem=host_walls, launches=total,
                caps=dict(delta_out=eng.delta_out, delta_bind=eng.delta_bind,
                          delta_rewrite=eng.delta_rewrite),
-               captures=eng.captures)
+               captures=eng.captures, crosscheck=inc_crosscheck)
     records["incremental_fullsize"] = out
     print(f"  all events equal a from-scratch card run; launches of the 8 "
           f"events {json.dumps({k: n for k, n in total.items() if n})}", flush=True)
@@ -2227,8 +2341,7 @@ def serving_fullsize(ops, records: dict, kg: dict, later: list) -> dict:
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     t0 = time.perf_counter()
-    store = TripleStore(facts, program, dic,
-                        engine=TorchEngine(FULL_RESOURCES, device="cuda", **caps))
+    store = TripleStore(facts, program, dic, engine=full_engine(FULL_RESOURCES))
     torch.cuda.synchronize()
     out["build_s"] = time.perf_counter() - t0
     snaps = record_publications(store)
@@ -2334,7 +2447,11 @@ def serving_fullsize(ops, records: dict, kg: dict, later: list) -> dict:
     same_store("serving, final snapshot vs from scratch", final.rho.rep,
                final.triples, scratch.state_rep(sstate), scratch.state_triples(sstate))
     del sstate, scratch
-    dc = store.dispatch_counts
+    dc = store.launch_counts
+    problems = store.audit()
+    if problems:
+        raise AssertionError(f"the cooperative store's audit: {problems}")
+    out["dispatch_ledger"] = store.dispatch_counts
     idle_p50 = out["idle"]["per_query_ms"]["p50"]
     out["busy"] = dict(
         events=per_event, per_query_ms=ms_stats([t.wall_s for t in busy]),
@@ -2343,7 +2460,7 @@ def serving_fullsize(ops, records: dict, kg: dict, later: list) -> dict:
         stats=dict(bx.stats))
     out["busy_over_idle"] = out["busy"]["per_query_ms"]["p50"] / idle_p50
     out["launches"] = launches
-    out["dispatch_counts"] = dc
+    out["launch_counts"] = dc
     out["drain_launches"] = {k.split("/")[1]: n for k, n in dc["by_phase"].items()
                              if k.startswith("query/")}
     out["publish_launches"] = {k.split("/")[1]: n for k, n in dc["by_phase"].items()
@@ -2371,7 +2488,7 @@ def serving_fullsize(ops, records: dict, kg: dict, later: list) -> dict:
     # (c) threaded, with reads on this thread while the worker runs
     ta = time.perf_counter()
     threaded = TripleStore(facts, program, dic, threaded=True,
-                           engine=TorchEngine(FULL_RESOURCES, device="cuda", **caps))
+                           engine=full_engine(FULL_RESOURCES))
     build_s = time.perf_counter() - ta
     tsnaps = record_publications(threaded)
     answered, reads_busy = [], 0
@@ -2388,9 +2505,13 @@ def serving_fullsize(ops, records: dict, kg: dict, later: list) -> dict:
             reads_busy += 1
         threaded.drain()
         wall = time.perf_counter() - ta
-        captures = dict(threaded.engine.captures_by_family)
+        captures = dict(threaded.engine.dispatches.compiles)
+        threaded_problems = threaded.audit()
+        threaded_ledger = threaded.dispatch_counts
     finally:
         threaded.close()
+    if threaded_problems:
+        raise AssertionError(f"the threaded store's audit: {threaded_problems}")
     for t in answered:
         if t.answer != oracles[t.epoch].answer(t.query, dic):
             raise AssertionError(f"threaded query {t.uid}: != scalar at epoch {t.epoch}")
@@ -2399,6 +2520,7 @@ def serving_fullsize(ops, records: dict, kg: dict, later: list) -> dict:
     out["threaded"] = dict(
         build_s=build_s, wall_s=wall, bursts=reads_busy, answers=len(answered),
         epochs_read=sorted({t.epoch for t in answered}), captures=captures,
+        dispatch_ledger=threaded_ledger,
         per_query_ms=ms_stats([t.wall_s for t in answered]),
         publish_ms=threaded.publish_ms)
     print(f"  threaded: {json.dumps(out['threaded'])}", flush=True)
@@ -2417,6 +2539,58 @@ def serving_fullsize(ops, records: dict, kg: dict, later: list) -> dict:
     later.append(profile_drain)
     records["serving_fullsize"] = out
     return launches
+
+
+# violations the card's audit may report: none (ROADMAP Queue 3 would list
+# each with its family, op and size)
+AUDIT_ALLOWED: list = []
+AUDIT_DATASETS = ("pex", "chain", "clique", "dbpedia_like")
+
+
+def audit_phase(records: dict) -> None:
+    """The trace audit on the card at the probe geometry of each probe
+    dataset (``run_report``: every registered unit recorded once with its
+    launches, the four passes, a driven delete and add cross-checked), then
+    the full-size cross-checks phases 5, 5b and 5c made.  Raises on a
+    violation outside ``AUDIT_ALLOWED``, a dispatch problem, or a REW
+    kernel that no unit launched."""
+    from repro_torch.analysis import run_report
+
+    out = {}
+    for name in AUDIT_DATASETS:
+        t0 = time.perf_counter()
+        report = run_report(name, device="cuda")
+        wall = time.perf_counter() - t0
+        extra = [v for v in report["violations"] if v not in AUDIT_ALLOWED]
+        if extra:
+            raise AssertionError(f"audit {name}: violations {extra}")
+        if report["dispatch"]["problems"]:
+            raise AssertionError(f"audit {name}: {report['dispatch']['problems']}")
+        launched = set().union(*map(set, report["launches"].values()))
+        missing = [k for k in (*REW_KERNELS, "prefix_range_bounds")
+                   if k not in launched]
+        if missing:
+            raise AssertionError(f"audit {name}: no unit launched {missing}")
+        out[name] = dict(wall_s=wall, fns=len(report["fns"]),
+                         arena_rows=report["arena_rows"],
+                         violations=report["violations"],
+                         launches=report["launches"],
+                         runtime_by_phase=report["dispatch"]["runtime_by_phase"])
+        print(f"  {name}: {len(report['fns'])} units, arena "
+              f"{report['arena_rows']}, no violation, no dispatch problem, "
+              f"{wall:.2f} s; launches {json.dumps(report['launches'])}; "
+              f"dispatches {json.dumps(report['dispatch']['runtime_by_phase'])}",
+              flush=True)
+    full = dict(
+        rew=records["fullsize"]["crosscheck"],
+        updates=records["incremental_fullsize"]["crosscheck"],
+        serving=records["serving_fullsize"]["dispatch_ledger"],
+        serving_threaded=records["serving_fullsize"]["threaded"]["dispatch_ledger"],
+    )
+    print(f"  full size: the dispatch cross-checks of phases 5, 5b and 5c (both "
+          f"stores) found no problem; phase 5c's ledger "
+          f"{json.dumps(full['serving']['by_phase'])}", flush=True)
+    records["audit"] = dict(probe=out, fullsize=full)
 
 
 def search_census(ops, run) -> dict:
@@ -2634,6 +2808,9 @@ def main() -> None:
     serving_midsize(records)
     serving_fullsize(ops, records, kg, later)
     del kg["update_stream"]
+
+    phase("the audit (probe traces on the card, full-size dispatch cross-checks):")
+    audit_phase(records)
 
     phase("LM serving at full width (SmolLM-135M, flash):")
     launches["flash_attention"] = lm_serving_phase(ops, records, later)

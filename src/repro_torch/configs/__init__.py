@@ -1,9 +1,10 @@
 """Architecture registry of the port: ``get_arch(name)`` returns the
-ArchSpec of a ported architecture.
+ArchSpec of a ported architecture; ``all_archs()`` lists the reference's
+architectures in its order (plus ``sameas_rew``, the paper's own engine
+workload).
 
-The reference (``repro.configs``) registers eleven; the port has the four
-whose model code it carries.  Any other name raises ``KeyError`` naming the
-ROADMAP item that ports it.
+The port carries the five whose code it has.  Any other name raises
+``KeyError`` naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -12,6 +13,19 @@ import importlib
 
 from .base import ArchSpec
 
+_ARCH_MODULES = [
+    "qwen3_moe_235b",
+    "deepseek_moe_16b",
+    "qwen2_1p5b",
+    "smollm_135m",
+    "starcoder2_15b",
+    "dimenet",
+    "egnn",
+    "gatedgcn",
+    "pna",
+    "fm",
+    "sameas_rew",
+]
 _ALIASES = {
     "qwen3-moe-235b-a22b": "qwen3_moe_235b",
     "deepseek-moe-16b": "deepseek_moe_16b",
@@ -19,7 +33,7 @@ _ALIASES = {
     "smollm-135m": "smollm_135m",
     "starcoder2-15b": "starcoder2_15b",
 }
-_PORTED = ("smollm_135m", "fm", "gatedgcn", "pna")
+_PORTED = ("smollm_135m", "fm", "gatedgcn", "pna", "sameas_rew")
 _MOE = "ROADMAP Queue 1 item 8b (MoE: models/moe.py)"
 _GNN = "ROADMAP Queue 1 item 8c (GNNs: egnn, dimenet)"
 _DENSE = "ROADMAP Queue 1 item 8e (the other dense LM configs)"
@@ -27,8 +41,6 @@ _LATER = {
     "qwen3_moe_235b": _MOE, "deepseek_moe_16b": _MOE,
     "qwen2_1p5b": _DENSE, "starcoder2_15b": _DENSE,
     "dimenet": _GNN, "egnn": _GNN,
-    "sameas_rew": "ROADMAP Queue 1 item 7 (tooling: the engine's cells); "
-                  "the engine itself is repro_torch.TorchEngine",
 }
 
 
@@ -38,3 +50,7 @@ def get_arch(name: str) -> ArchSpec:
         where = _LATER.get(module, "no ROADMAP item: the reference has no such arch")
         raise KeyError(f"{name!r} is not ported yet: {where}")
     return importlib.import_module(f"repro_torch.configs.{module}").SPEC
+
+
+def all_archs() -> list[str]:
+    return list(_ARCH_MODULES)

@@ -1,11 +1,12 @@
 """ArchSpec: a model configuration with its reduced twin and its shapes.
 
 A copy of ``repro.configs.base`` (the port imports nothing of ``repro``),
-limited to the families the port runs: the LM, the GNN and the recsys
-shapes.
+limited to the families the port runs: the LM, the GNN, the recsys and
+the engine shapes.
 
 Each shape entry:
-  kind   — 'train', 'prefill'/'decode'/'serve', 'retrieval',
+  kind   — 'train', 'prefill'/'decode'/'serve', 'retrieval', 'engine'
+           (materialisation round),
   dims   — shape-specific sizes,
   skip   — reason string when the cell is skipped.
 """
@@ -27,7 +28,7 @@ class ShapeSpec:
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
     name: str
-    family: str  # 'lm' | 'gnn' | 'recsys'
+    family: str  # 'lm' | 'gnn' | 'recsys' | 'engine'
     config: Any
     reduced: Any
     shapes: tuple[ShapeSpec, ...]

@@ -12,9 +12,10 @@ reference:
     (:func:`process_static` and every delta plan), whose counts and
     overflow bits stay on the device in one flag vector that the host reads
     once a round; on the card the body is one captured CUDA graph a round,
-  * the host loop (``fuse_rounds=False``): :func:`process_candidates`, which
-    reads the round's counts on the host and sizes the insertion by them,
-    then the delta plans the fresh rows' resource masks allow.
+  * the host loop (``fuse_rounds=False``): :func:`process_candidates` (the
+    same state update, with the round's fresh delta), one host read of its
+    counts and bits, then the delta plans the fresh rows' resource masks
+    allow.
 
 Layout and semantics follow the reference exactly, so that the same state
 gives the same arrays in both packages:
@@ -49,11 +50,19 @@ the reference's ``enable_x64`` scopes have no counterpart.  Unlike the
 reference's pure functions, :func:`process_candidates` writes the fresh rows
 into ``spo``/``epoch`` in place (the run owns its arena; a capacity restart
 starts from a fresh one), saving an arena copy per round.
+
+``TorchEngine.dispatches`` (:class:`~repro_torch.core.stats.DispatchCounter`)
+counts every unit of work the reference dispatches as one compiled call, by
+the reference's family names, under the maintenance phase the generators
+tag.  Each family also registers a trace builder in :data:`AUDIT_REGISTRY`
+(:func:`register_auditable`), which :mod:`repro_torch.analysis` runs under
+its recorder at a probe geometry.
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
 import time
 from dataclasses import dataclass
 
@@ -66,7 +75,7 @@ from repro_torch.kernels.merge import merge_sorted
 
 from .materialise import Contradiction
 from .rules import Program, Rule
-from .stats import MatStats
+from .stats import DispatchCounter, MatStats
 from .terms import DIFFERENT_FROM, SAME_AS, is_var
 from .triples import pack
 from .uf import FrozenRho, merge_pairs
@@ -86,6 +95,34 @@ PRED_TSTORE, PRED_TDELTA = 3, 4
 
 class CapacityError(RuntimeError):
     """A static buffer overflowed; the message names the capacity to grow."""
+
+
+# -- auditable-unit registry (repro_torch.analysis) ---------------------------
+#
+# Every family of units the engine dispatches registers a *trace builder*:
+# ``builder(engine, state)`` yields ``(label, run)`` pairs covering the
+# family's variants at the caller's probe geometry, ``run()`` running the
+# unit once on inputs the builder made (copies, where the unit writes in
+# place).  ``repro_torch.analysis`` records each run and checks its passes
+# over the record; ``skip_passes`` names the passes whose invariant the
+# family is exempt from by design, as the reference's registry does.
+
+@dataclass(frozen=True)
+class AuditableFn:
+    name: str
+    builder: callable
+    skip_passes: tuple = ()
+
+
+AUDIT_REGISTRY: dict[str, AuditableFn] = {}
+
+
+def register_auditable(name: str, skip_passes: tuple = ()):
+    def deco(builder):
+        AUDIT_REGISTRY[name] = AuditableFn(name, builder, tuple(skip_passes))
+        return builder
+
+    return deco
 
 
 def _pack3(spo: torch.Tensor) -> torch.Tensor:
@@ -567,106 +604,52 @@ def _fresh_rows(all_c, all_v, sorted_keys):
     return stream, order, sk, fresh, is_refl, contradiction
 
 
-def _read_now(fn):
-    return fn()
-
-
 def process_candidates(spo, epoch, marked, n_used, rep, sort_perm, sorted_keys,
-                       cands, cand_valid, r: int, rewrite_cap: int,
-                       delta_window: int = 4096, read=_read_now):
+                       cands, cand_valid, r, rewrite_cap: int,
+                       delta_window: int = 4096):
     """Normalise, merge equalities, sweep, insert — the state-update half of
-    a round (Algorithms 3-6 in bulk).
+    a host-loop round (Algorithms 3-6 in bulk), with no host read, as the
+    reference's ``process_candidates``.
 
-    Returns ``(spo, epoch, marked, n_used, rep, sort_perm, sorted_keys,
-    flags)``.  ``spo`` and ``epoch`` are updated in place.  ``flags`` holds
-    Python values (``rep_changed``, ``contradiction``, ``ov_rewrite``,
-    ``ov_store``, ``n_new``, ``n_pairs``, ``n_marked``, ``n_reflexive``) and
-    ``delta_rows``, the first ``delta_window`` fresh rows in key order — the
-    host derives the next round's plan-skipping masks from them.  On a store
-    overflow nothing is inserted: the caller restarts the run.  ``read``
-    makes the two host reads (:meth:`RoundLog.read` times and counts them).
+    :func:`process_static`, plus what the host loop reads after it, all on
+    the device: ``flags`` also holds ``rep_changed``, ``n_marked`` (the rows
+    the sweep marked) and the round's fresh delta, ``delta_rows``
+    (``min(stream rows, delta_window)``, 3) with ``delta_valid``: the first
+    fresh rows in key order, which :func:`process_static` wrote to the arena
+    rows from the old ``n_used`` on.  The host derives the next round's
+    plan-skipping masks from them; a round that inserts more than the
+    window falls back to all-True masks.  ``spo`` and ``epoch`` are updated
+    in place; on a store overflow the arena holds garbage and the caller
+    restarts the run (or rolls the update back).
     """
-    dev = spo.device
-    arena_cap = spo.shape[0] - 1  # last row is the trash slot
-    C = sorted_keys.shape[0]
-
-    # 1)-3) normalise, merge sameAs pairs, re-normalise under the new rho
-    new_rep, cands, n_pairs = _merge_round(rep, cands, cand_valid)
-    rep_changed = (new_rep != rep).any()
-    rep = new_rep
-
-    # 4) sweep the store (bulk Algorithm 3); quiet rounds skip the compaction
-    rewritten, changed = ops.rewrite_triples(spo, rep, epoch=epoch, marked=marked)
-    marked = marked | changed
-    n_marked = read(lambda: int(changed.sum()))
-    if n_marked:
-        rw_cols, rw_valid, rw_overflow = _compact(
-            {"s": rewritten[:, 0], "p": rewritten[:, 1], "o": rewritten[:, 2]},
-            changed, rewrite_cap,
-        )
-        rw = torch.stack([rw_cols["s"], rw_cols["p"], rw_cols["o"]], dim=1)
-        sort_perm, sorted_keys = _index_remove(sort_perm, sorted_keys, changed,
-                                               arena_cap)
-    else:
-        rw = torch.zeros((rewrite_cap, 3), dtype=I32, device=dev)
-        rw_valid = torch.zeros(rewrite_cap, dtype=torch.bool, device=dev)
-        rw_overflow = torch.zeros((), dtype=torch.bool, device=dev)
-
-    all_c = torch.cat([cands, rw], dim=0)
-    all_v = torch.cat([cand_valid, rw_valid], dim=0)
-
-    # 5)-8) contradiction check, reflexivity, dedup, membership
-    stream, order, sk, fresh, is_refl, contradiction = _fresh_rows(
-        all_c, all_v, sorted_keys)
-
-    # the host reads every scalar of the round in one transfer
-    (n_fresh, n_refl, n_used_h, n_pairs, rep_changed, contradiction,
-     rw_overflow) = read(torch.stack([
-        fresh.sum(), is_refl.sum(), n_used.reshape(()).to(I64), n_pairs,
-        rep_changed.to(I64), contradiction.to(I64), rw_overflow.to(I64),
-    ]).tolist)
-    insert_overflow = n_used_h + n_fresh > arena_cap
-
-    # 9) write the fresh rows into free slots and rank-merge them, already
-    # in key order, into the persistent index
-    d_rows = torch.zeros((0, 3), dtype=I32, device=dev)
-    if n_fresh and not insert_overflow:
-        slot = n_used_h + torch.cumsum(fresh, 0) - 1
-        d, _, _ = _compact(
-            {"k": sk, "v": slot.to(I32), "row": order}, fresh, n_fresh
-        )
-        d_rows = stream[d["row"]]
-        tgt = d["v"].to(I64)
-        spo[tgt] = d_rows
-        epoch[tgt] = r
-        sorted_keys, sort_perm = merge_sorted(
-            sorted_keys, sort_perm, d["k"], d["v"], out_len=C
-        )
-        n_used = n_used + n_fresh
-
-    flags = {
-        "rep_changed": bool(rep_changed),
-        "contradiction": bool(contradiction),
-        "ov_rewrite": bool(rw_overflow),
-        "ov_store": insert_overflow,
-        "n_new": n_fresh,
-        "n_pairs": n_pairs,
-        "n_marked": n_marked,
-        "n_reflexive": n_refl,
-        "delta_rows": d_rows[:delta_window],
-    }
-    return spo, epoch, marked, n_used, rep, sort_perm, sorted_keys, flags
+    arena_cap = spo.shape[0] - 1
+    used = n_used.reshape(()).to(I64)
+    (spo, epoch, new_marked, n_used, new_rep, sort_perm, sorted_keys,
+     flags) = process_static(spo, epoch, marked, n_used, rep, sort_perm,
+                             sorted_keys, cands, cand_valid, r, rewrite_cap)
+    window = min(4 * (cands.shape[0] + rewrite_cap) + 1, delta_window)
+    j = torch.arange(window, device=spo.device)
+    delta_valid = j < flags["n_new"]
+    rows = spo[(used + j).clamp_(max=arena_cap)]
+    flags.update(
+        rep_changed=(new_rep != rep).any(),
+        n_marked=(new_marked & ~marked).sum(),
+        delta_rows=torch.where(delta_valid[:, None], rows, 0),
+        delta_valid=delta_valid,
+    )
+    return spo, epoch, new_marked, n_used, new_rep, sort_perm, sorted_keys, flags
 
 
 def process_static(spo, epoch, marked, n_used, rep, sort_perm, sorted_keys,
                    cands, cand_valid, r, rewrite_cap: int):
-    """:func:`process_candidates` at static shapes, with no host read: the
-    state update of one round of the fused loop (the reference's
-    ``process_candidates``, which the fused ``lax.while_loop`` inlines).
+    """The state update of one round at static shapes, with no host read:
+    the body of a fused round (the reference's ``process_candidates``,
+    which the fused ``lax.while_loop`` inlines) and of
+    :func:`process_candidates`.
 
-    ``r`` is a 0-d int32 tensor.  Every shape depends on the capacities
-    alone and nothing waits on the device, so the same calls can be
-    captured once into a CUDA graph and replayed round after round:
+    ``r`` is an int or a 0-d int32 tensor.  Every shape depends on the
+    capacities alone and nothing waits on the device, so the same calls can
+    be captured once into a CUDA graph and replayed round after round:
 
       * the store sweep runs every round (a graph has no branch to skip
         it): the rewritten rows compact to ``rewrite_cap`` and leave the
@@ -679,12 +662,12 @@ def process_static(spo, epoch, marked, n_used, rep, sort_perm, sorted_keys,
         slot: the same rows, and the stream's padding makes no writes,
       * every count and overflow bit is a 0-d tensor of ``flags``.
 
-    ``epoch`` is updated in place and ``spo`` too, as in
-    :func:`process_candidates`; the rest comes back new.  Returns ``(spo,
-    epoch, marked, n_used, rep, sort_perm, sorted_keys, flags)`` with
-    ``flags`` the tensors ``contradiction``, ``ov_rewrite``, ``ov_store``,
-    ``n_new``, ``n_pairs`` and ``n_reflexive``.  On a store overflow the
-    arena holds garbage: the caller restarts the run.
+    ``epoch`` is updated in place and ``spo`` too; the rest comes back
+    new.  Returns ``(spo, epoch, marked, n_used, rep, sort_perm,
+    sorted_keys, flags)`` with ``flags`` the tensors ``contradiction``,
+    ``ov_rewrite``, ``ov_store``, ``n_new``, ``n_pairs`` and
+    ``n_reflexive``.  On a store overflow the arena holds garbage: the
+    caller restarts the run.
     """
     dev = spo.device
     arena_cap = spo.shape[0] - 1  # last row is the trash slot
@@ -1058,6 +1041,11 @@ class RoundLog:
         )
 
 
+# what the host loop reads of process_candidates' flags each round
+_ROUND_READ = ("ov_store", "ov_rewrite", "contradiction", "rep_changed",
+               "n_new", "n_pairs", "n_reflexive")
+
+
 class TorchEngine:
     """REW materialisation with static capacities on one device, and its
     incremental maintenance.
@@ -1083,7 +1071,9 @@ class TorchEngine:
     "targeted" (head-bound joins from the overdeleted instances) or
     "requeue" (whole rules).  ``seed_chunk`` pads every query batch of the
     delete path to a multiple of it (one call a batch).  ``last_split``
-    holds the last call's wall split.
+    holds the last call's wall split.  ``dispatches`` counts the units of
+    work by the reference's family names (graph captures under
+    ``compiles``).
     """
 
     def __init__(
@@ -1125,7 +1115,9 @@ class TorchEngine:
         self._graphs: dict = {}  # captured fused rounds and waves by key
         self._use_graphs = self.device.type == "cuda"
         self._graph = None  # the RoundGraph the last fused round ran on
-        self.captures_by_family: dict[str, int] = {}  # "round" / "wave"
+        # the runtime half of the dispatch auditor: every unit of work the
+        # reference dispatches as a compiled call, by family and phase
+        self.dispatches = DispatchCounter()
         self._tables: tuple | None = None  # (program, device constant tables)
         self.last_split: dict | None = None
         self.last_publish: dict | None = None  # stage times of publish_snapshot
@@ -1146,14 +1138,31 @@ class TorchEngine:
         self._active_rewrite = self.delta_rewrite if narrow else self.rewrite_cap
         self._active_rewrite_kind = "delta_rewrite" if narrow else "rewrite"
 
+    @classmethod
+    def from_config(cls, cfg, **overrides):
+        """An engine from a :mod:`repro_torch.configs.sameas_rew`
+        ``EngineConfig``; ``overrides`` replace its fields or add engine
+        arguments (``device``, ``fuse_rounds``, ...).  The config's
+        ``route_cap`` (owner routing between shards) has no counterpart on
+        one device and is ignored, as the reference ignores it without a
+        mesh."""
+        kw = dict(
+            n_resources=cfg.n_resources,
+            capacity=cfg.capacity,
+            bind_cap=cfg.bind_cap,
+            out_cap=cfg.out_cap,
+            rewrite_cap=cfg.rewrite_cap,
+            seed_chunk=cfg.seed_chunk,
+            delta_out_cap=cfg.delta_out_cap,
+        )
+        kw.update(overrides)
+        kw.pop("route_cap", None)
+        return cls(**kw)
+
     @property
     def captures(self) -> int:
         """Graphs captured by this engine."""
-        return sum(self.captures_by_family.values())
-
-    def _count_capture(self, graph) -> None:
-        family = graph.key[0]
-        self.captures_by_family[family] = self.captures_by_family.get(family, 0) + 1
+        return sum(self.dispatches.compiles.values())
 
     def _free_graphs(self) -> None:
         """Drop every captured graph (their capacities are outgrown)."""
@@ -1300,10 +1309,19 @@ class TorchEngine:
         for f, v in snap.items():
             setattr(state, f, v)
 
+    @classmethod
+    def cloned(cls, state: EngineState) -> EngineState:
+        """A copy of ``state`` whose tensors are clones."""
+        out = dataclasses.replace(state)
+        cls._restore(out, cls._snapshot(state))
+        return out
+
     def _recover_capacity(self, state: EngineState, snap: dict,
                           err: CapacityError) -> None:
         """Roll back to ``snap``, grow the exhausted capacity and re-layout
-        the arena if the store grew; books the retry."""
+        the arena if the store grew; books the retry.  Its dispatches count
+        under the ``"retry"`` phase (the restarted generator tags its own)."""
+        self.dispatches.phase = "retry"
         self._restore(state, snap)
         old_cap = self.capacity
         kind = str(err)
@@ -1318,6 +1336,7 @@ class TorchEngine:
         """Rebuild the sorted index if the arena was re-laid out."""
         if not state.index_dirty:
             return
+        self.dispatches.record("rebuild_index")
         state.sort_perm, state.sorted_keys = _rebuild_index(
             state.spo, state.epoch, state.marked)
         state.index_dirty = False
@@ -1419,12 +1438,18 @@ class TorchEngine:
         the card the snapshot carries an event recorded after its last
         write.  ``last_publish`` gets the stage times in ms: ``gather``
         and ``sort`` (device time on the card), ``read`` and ``rho``
-        (host clock).
+        (host clock).  Dispatches count under the ``"publish"`` phase.
         """
         clock = _StageClock(self.device)
-        self._ensure_index(state)
-        tri, keys, tri_pos, keys_pos, n_live = _publish_snapshot(
-            state.spo, state.sort_perm, state.sorted_keys, clock)
+        prev_phase = self.dispatches.phase
+        self.dispatches.phase = "publish"
+        try:
+            self._ensure_index(state)
+            self.dispatches.record("snapshot")
+            tri, keys, tri_pos, keys_pos, n_live = _publish_snapshot(
+                state.spo, state.sort_perm, state.sorted_keys, clock)
+        finally:
+            self.dispatches.phase = prev_phase
         ready = None
         if self.device.type == "cuda":
             ready = torch.cuda.Event()
@@ -1516,6 +1541,7 @@ class TorchEngine:
                 and not self._atom_may_match(rule.body[i], delta_masks)
             ):
                 continue
+            self.dispatches.record("plan")
             heads, valid, *counts = eval_plan(
                 state.spo, state.epoch, state.marked, state.sorted_keys,
                 state.sort_perm, r, atom_consts[k], head_consts[k],
@@ -1549,6 +1575,7 @@ class TorchEngine:
         rule = state.program.rules[k]
         atom_consts, head_consts = self._rule_tables(rule)
         head_slots = tuple(t if is_var(t) else None for t in rule.head)
+        self.dispatches.record("mplan")
         heads, valid, *counts = eval_plan(
             state.spo, state.epoch, state.marked, state.sorted_keys,
             state.sort_perm, r, atom_consts, head_consts,
@@ -1584,6 +1611,7 @@ class TorchEngine:
         stats = state.stats
         stats.rederive_seed_rows += int(seeds.shape[0])
         stats.rederive_join_width = max(stats.rederive_join_width, cap)
+        self.dispatches.record("rplan")
         out, valid, *counts = eval_plan_rederive(
             state.spo, state.epoch, state.marked, state.sorted_keys,
             state.sort_perm, atom_consts, head_consts, seeds_t, valid_t,
@@ -1607,6 +1635,7 @@ class TorchEngine:
         target = self.out_cap if had_full else self._active_delta_out
         kind = "out" if had_full else self._active_delta_kind
         if cands.shape[0] > target:
+            self.dispatches.record("squeeze")
             cands, cand_valid, sq_ov = _squeeze_stream(cands, cand_valid, target)
             if self._log.read(lambda: bool(sq_ov)):
                 raise CapacityError(kind)
@@ -1666,12 +1695,18 @@ class TorchEngine:
             if rounds_here > max_rounds:
                 raise RuntimeError("did not converge")
             log.begin_round()
+            self.dispatches.record("process")
             (state.spo, state.epoch, state.marked, state.n_used, state.rep,
-             state.sort_perm, state.sorted_keys, flags) = process_candidates(
+             state.sort_perm, state.sorted_keys, fl) = process_candidates(
                 state.spo, state.epoch, state.marked, state.n_used, state.rep,
                 state.sort_perm, state.sorted_keys, cands, cand_valid, r,
-                self._active_rewrite, self.delta_window, read=log.read,
+                self._active_rewrite, self.delta_window,
             )
+            # the round's one host read: its counts and bits, then the delta
+            host = log.read(lambda: torch.cat([
+                torch.stack([fl[k].to(I64).reshape(()) for k in _ROUND_READ]),
+                fl["delta_rows"].reshape(-1).to(I64)]).cpu().numpy())
+            flags = dict(zip(_ROUND_READ, host[:len(_ROUND_READ)].tolist()))
             if flags["ov_store"]:
                 raise CapacityError("store")
             if flags["ov_rewrite"]:
@@ -1692,14 +1727,14 @@ class TorchEngine:
             delta_masks = None
             n_new = flags["n_new"]
             if n_new > 0:
-                d_rows = log.read(flags["delta_rows"].cpu().numpy)
+                d_rows = host[len(_ROUND_READ):].reshape(-1, 3)
                 if d_rows.shape[0] < n_new:
                     stats.delta_mask_fallbacks += 1
                     delta_masks = np.ones((3, state.n_res), dtype=bool)
                 else:
                     delta_masks = np.zeros((3, state.n_res), dtype=bool)
                     for pos in range(3):
-                        delta_masks[pos][d_rows[:, pos]] = True
+                        delta_masks[pos][d_rows[:n_new, pos]] = True
             cands, cand_valid, have_cands = self._round_plans(
                 state, r + 1, merge_q, requeued, stats, delta_masks,
                 with_delta=n_new > 0)
@@ -1753,9 +1788,8 @@ class TorchEngine:
             state, cands, cand_valid, rounds_left, plans=plans,
             rewrite_cap=self._active_rewrite, bind_cap=self._active_bind,
             plan_out_cap=self._active_delta_out, log=self._log, graph=graph,
+            dispatches=self.dispatches,
         )
-        if graph is not None and graph.captured_now:
-            self._count_capture(graph)
         iters = fl["iters"]
         state.r += iters
         stats.rounds += iters
@@ -1911,3 +1945,106 @@ class TorchEngine:
                 raise ValueError(f"unknown update op {op!r}")
         host_state.result()  # refresh the triple and memory counters
         return host_state.triples(), host_state.rep, host_state.stats
+
+
+# -- audit trace builders (repro_torch.analysis) -----------------------------
+#
+# Each unit runs once at the caller's probe geometry (the supplied engine
+# and state), single-device and eager, on copies of the state where it
+# writes in place; the widths are the reference's builders'.
+
+def _zeros(shape, dtype, dev):
+    return torch.zeros(shape, dtype=dtype, device=dev)
+
+
+@register_auditable("plan")
+def _audit_plan(engine, state):
+    atom_consts, head_consts = engine._program_tables(state.program)
+    for k, rule in enumerate(state.program.rules):
+        head_slots = tuple(t if is_var(t) else None for t in rule.head)
+        for mode, full, tomb in (("delta", False, False), ("full", True, False),
+                                 ("tomb", False, True)):
+            for i, plan in enumerate(build_plans(rule, full=full, tombstone=tomb)):
+                yield f"plan:rule{k}:{mode}:{i}", (
+                    lambda plan=plan, k=k, head_slots=head_slots: eval_plan(
+                        state.spo, state.epoch, state.marked, state.sorted_keys,
+                        state.sort_perm, 1, atom_consts[k], head_consts[k],
+                        tuple(plan), head_slots, engine.bind_cap, engine.out_cap,
+                        tomb=state.tomb))
+
+
+@register_auditable("rplan")
+def _audit_rplan(engine, state):
+    dev = state.spo.device
+    for k, rule in enumerate(state.program.rules):
+        plan, seed_vars = build_rederive_plan(rule)
+        if not seed_vars:
+            continue  # variable-free head: whole-rule requeue fallback
+        atom_consts, head_consts = engine._rule_tables(rule)
+        head_slots = tuple(t if is_var(t) else None for t in rule.head)
+        seeds = _zeros((64, len(seed_vars)), I32, dev)
+        seed_valid = _zeros(64, torch.bool, dev)
+        yield f"rplan:rule{k}", (
+            lambda plan=plan, seed_vars=seed_vars, ac=atom_consts, hc=head_consts,
+            head_slots=head_slots, seeds=seeds, seed_valid=seed_valid:
+            eval_plan_rederive(
+                state.spo, state.epoch, state.marked, state.sorted_keys,
+                state.sort_perm, ac, hc, seeds, seed_valid, tuple(plan),
+                head_slots, seed_vars, engine.bind_cap, engine.out_cap,
+                tomb=state.tomb))
+
+
+@register_auditable("mplan")
+def _audit_mplan(engine, state):
+    # one run per (rule, anchor) the forward-side targeted re-merge can
+    # dispatch: any body atom with a variable can be the changed anchor
+    for k, rule in enumerate(state.program.rules):
+        atom_consts, head_consts = engine._rule_tables(rule)
+        head_slots = tuple(t if is_var(t) else None for t in rule.head)
+        for anchor in range(len(rule.body)):
+            if not any(is_var(t) for t in rule.body[anchor]):
+                continue
+            plan = build_merge_plan(rule, anchor)
+            yield f"mplan:rule{k}:anchor{anchor}", (
+                lambda plan=plan, ac=atom_consts, hc=head_consts,
+                head_slots=head_slots: eval_plan(
+                    state.spo, state.epoch, state.marked, state.sorted_keys,
+                    state.sort_perm, 1, ac, hc, tuple(plan), head_slots,
+                    engine.bind_cap, engine.out_cap, tomb=state.tomb))
+
+
+@register_auditable("process")
+def _audit_process(engine, state):
+    st = TorchEngine.cloned(state)
+    dev = st.spo.device
+    cands = _zeros((engine.out_cap, 3), I32, dev)
+    cv = _zeros(engine.out_cap, torch.bool, dev)
+    yield "process", lambda: process_candidates(
+        st.spo, st.epoch, st.marked, st.n_used, st.rep, st.sort_perm,
+        st.sorted_keys, cands, cv, 1, engine.rewrite_cap, engine.delta_window)
+
+
+@register_auditable("squeeze")
+def _audit_squeeze(engine, state):
+    wide = 2 * engine.out_cap
+    dev = state.spo.device
+    cands = _zeros((wide, 3), I32, dev)
+    valid = _zeros(wide, torch.bool, dev)
+    yield "squeeze", lambda: _squeeze_stream(cands, valid, engine.out_cap)
+
+
+@register_auditable("rebuild_index", skip_passes=("NoArenaSort",))
+def _audit_rebuild_index(engine, state):
+    # the one allowed arena sort (at most once per arena re-layout, counted
+    # by stats.index_rebuilds)
+    yield "rebuild_index", lambda: _rebuild_index(state.spo, state.epoch,
+                                                  state.marked)
+
+
+@register_auditable("snapshot", skip_passes=("NoArenaSort",))
+def _audit_snapshot(engine, state):
+    # the publication's one sort of the (p,o,s) keys, off the query path,
+    # exempt like the index rebuild it mirrors
+    clock = _StageClock(state.spo.device)
+    yield "snapshot", lambda: _publish_snapshot(state.spo, state.sort_perm,
+                                                state.sorted_keys, clock)

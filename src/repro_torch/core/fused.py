@@ -37,6 +37,12 @@ round :data:`_NULL_ROUND`, so it counts and emits nothing, and the host
 rewrites the program and evaluates the round again), or after ``max_inner``
 rounds.  Every delta plan runs every round: there is no delta-mask skipping
 (a skipped plan matches no row, so the counters are the same).
+
+Each round counts one ``fforward`` dispatch and each wave one ``fwave``
+(the reference counts one of each for a whole stretch of rounds or waves,
+its ``lax.while_loop``); a capture counts under ``compiles``.  Both bodies
+register a trace builder with the audit (:func:`_audit_fforward`,
+:func:`_audit_fwave`).
 """
 
 from __future__ import annotations
@@ -51,10 +57,12 @@ from repro_torch.kernels import ops
 from .engine import (
     I32,
     I64,
+    TorchEngine,
     _squeeze_stream,
     build_plans,
     eval_plan,
     process_static,
+    register_auditable,
 )
 from .terms import is_var
 
@@ -272,7 +280,8 @@ class _Captured:
     asynchronous copy of the flag vector to pinned memory.  A replay
     launches no kernel through :mod:`repro_torch.kernels.ops`, so each adds
     the capture's launch counts to ``ops.LAUNCHES`` (the capture itself
-    counts nothing).
+    counts nothing); ``replays`` counts them.  ``family`` is the dispatch
+    family of a step.
 
     The capture runs in the thread-local error mode, on PyTorch's capture
     stream: another thread may launch, copy to the host and synchronise
@@ -280,8 +289,11 @@ class _Captured:
     while its maintenance worker captures).
     """
 
+    family = ""
+
     def __init__(self, key, n_flags: int) -> None:
         self.key = key
+        self.replays = 0
         self.flags_host = torch.empty(n_flags, dtype=I64, pin_memory=True)
         self.graph: torch.cuda.CUDAGraph | None = None
         self.warm = False
@@ -314,6 +326,7 @@ class _Captured:
                 self._capture()
             self.graph.replay()
             ops.book(self.calls)
+            self.replays += 1
         self.flags_host.copy_(self.carry["flags"], non_blocking=True)
         return self.flags_host
 
@@ -338,6 +351,8 @@ class RoundGraph(_Captured):
     a state whose rho grew within it.  The constant tables are ``width``
     entries wide (default: the program's own count, to a power of two).
     """
+
+    family = "fforward"
 
     def __init__(self, key, state, cands, cand_valid, plans,
                  caps: dict, n_pad: int, width: int | None = None) -> None:
@@ -388,14 +403,17 @@ def _go_on(fl: dict, max_inner: int) -> bool:
 
 def fused_forward_rounds(state, cands, cand_valid, max_inner: int, *,
                          plans: tuple, rewrite_cap: int, bind_cap: int,
-                         plan_out_cap: int, log, graph: RoundGraph | None = None):
+                         plan_out_cap: int, log, dispatches,
+                         graph: RoundGraph | None = None):
     """Run forward rounds from ``state`` until the loop exits (see the
     module docstring); at least one round runs.
 
     With ``graph`` (on the card) the rounds run through it and the state
     gets copies of its buffers back; without, the body runs eagerly on the
     state's own tensors.  ``log`` (a :class:`repro_torch.core.engine.RoundLog`)
-    times each round and makes its one host read.  Returns ``(cands,
+    times each round and makes its one host read; ``dispatches`` (a
+    :class:`~repro_torch.core.stats.DispatchCounter`) counts each round
+    and the capture.  Returns ``(cands,
     cand_valid, flags)`` with ``flags`` the exit report by :data:`FLAGS`
     name (counts summed over the rounds run here).
     """
@@ -416,6 +434,7 @@ def fused_forward_rounds(state, cands, cand_valid, max_inner: int, *,
         start_round = graph.start
     while True:
         log.begin_round()
+        dispatches.record("fforward")
         flags = start_round()
         fl = dict(zip(FLAGS, log.read(flags.tolist)))
         log.end_round()
@@ -424,6 +443,8 @@ def fused_forward_rounds(state, cands, cand_valid, max_inner: int, *,
     if graph is None:
         _to_state(state, c)
         return c["cands"], c["cand_valid"], fl
+    if graph.captured_now:
+        dispatches.record_compile(graph.family)
     cands, cand_valid = graph.carry_out(state)
     return cands, cand_valid, fl
 
@@ -494,6 +515,8 @@ class WaveGraph(_Captured):
     the sizes and the suspect mask sit in buffers of ``n_pad`` entries.
     """
 
+    family = "fwave"
+
     def __init__(self, key, state, plans, caps: dict, n_pad: int) -> None:
         super().__init__(key, len(WAVE_FLAGS))
         self.plans = plans
@@ -542,12 +565,13 @@ def _waves_go_on(fl: dict, max_inner: int) -> bool:
 
 def fused_delete_waves(state, sizes, suspect, max_inner: int, *, plans: tuple,
                        bind_cap: int, plan_out_cap: int, refl_cap: int, log,
-                       graph: WaveGraph | None = None):
+                       dispatches, graph: WaveGraph | None = None):
     """The overdelete wave loop with its flags on the device: waves run
     until one tags nothing new, an overflow bit is set, or ``max_inner``
     waves ran; at least one runs.  With ``graph`` (on the card) through its
-    replays, else eagerly on ``state.tomb`` in place.  Returns ``(tomb,
-    suspect, flags)`` with ``flags`` by :data:`WAVE_FLAGS` name."""
+    replays, else eagerly on ``state.tomb`` in place; ``dispatches`` counts
+    each wave and the capture.  Returns ``(tomb, suspect, flags)`` with
+    ``flags`` by :data:`WAVE_FLAGS` name."""
     if graph is None:
         dev = state.spo.device
         k = {f: getattr(state, f) for f in WAVE_CONSTS[:6]}
@@ -566,10 +590,53 @@ def fused_delete_waves(state, sizes, suspect, max_inner: int, *, plans: tuple,
         graph.load(state, sizes, suspect)
         start_wave = graph.start
     while True:
+        dispatches.record("fwave")
         fl = dict(zip(WAVE_FLAGS, log.read(start_wave().tolist)))
         if not _waves_go_on(fl, max_inner):
             break
     if graph is None:
         return c["tomb"], c["suspect"], fl
+    if graph.captured_now:
+        dispatches.record_compile(graph.family)
     tomb, suspect = graph.carry_out(state.n_res)
     return tomb, suspect, fl
+
+
+# -- audit trace builders (repro_torch.analysis) -----------------------------
+#
+# Each body runs once, eagerly, on a copy of the probe state, at the
+# engine's update widths, as the reference traces its fused fns.
+# ``fforward`` has no exemption: its sorts are stream or binding width and
+# its scatters stream width.  ``fwave`` runs ``_od_step``, whose
+# per-resource masks scatter arena-length index streams by design (the
+# ``od`` family's exemption).
+
+@register_auditable("fforward")
+def _audit_fforward(engine, state):
+    width = engine.delta_out
+    st = TorchEngine.cloned(state)
+    dev = st.spo.device
+    carry = new_carry(st, torch.zeros((width, 3), dtype=I32, device=dev),
+                      torch.zeros(width, dtype=torch.bool, device=dev))
+    tables = round_tables(st.program, dev)
+    plans = forward_plan_signature(st.program)
+    yield "fforward", lambda: forward_round(
+        carry, tables, plans, rewrite_cap=engine.delta_rewrite,
+        bind_cap=engine.delta_bind, plan_out_cap=width)
+
+
+@register_auditable("fwave", skip_passes=("NoArenaScatter",))
+def _audit_fwave(engine, state):
+    width = engine.delta_out
+    st = TorchEngine.cloned(state)
+    dev = st.spo.device
+    k = {f: getattr(st, f) for f in WAVE_CONSTS[:6]}
+    k["sizes"] = torch.zeros(st.n_res, dtype=I32, device=dev)
+    c = dict(tomb=st.tomb, suspect=torch.zeros(st.n_res, dtype=torch.bool, device=dev),
+             w=torch.zeros((), dtype=I32, device=dev),
+             flags=torch.zeros(len(WAVE_FLAGS), dtype=I64, device=dev))
+    tables = wave_tables(st.program, dev)
+    plans = forward_plan_signature(st.program, tombstone=True)
+    yield "fwave", lambda: delete_wave(
+        c, k, tables, plans, bind_cap=engine.delta_bind, plan_out_cap=width,
+        refl_cap=width)

@@ -38,6 +38,12 @@ here (:func:`_mark`).
 After any update sequence the state equals the from-scratch REW
 materialisation of the updated explicit set: the same rho and normal-form
 store (``tests/test_torch_incremental*.py``).
+
+The generators tag ``engine.dispatches.phase`` with the reference's phase
+names (``add:prepare`` ... ``delete:forward``), so every dispatch counts
+under the phase that made it; :func:`static_dispatch_profile` states which
+families each phase may dispatch, and the module registers the trace
+builders of its device steps with the audit.
 """
 
 from __future__ import annotations
@@ -60,6 +66,7 @@ from .engine import (
     _pow2,
     _squeeze_stream,
     _unpack3,
+    register_auditable,
 )
 from .terms import SAME_AS, is_var
 from .triples import dedup_rows, pack
@@ -69,6 +76,7 @@ __all__ = [
     "spmd_add_phases",
     "spmd_delete_facts",
     "spmd_delete_phases",
+    "static_dispatch_profile",
 ]
 
 
@@ -256,6 +264,7 @@ def _padded(engine, rows: torch.Tensor):
 def _member_query(engine, state: EngineState, rows: torch.Tensor) -> torch.Tensor:
     """Membership of device ``rows`` among the live rows: one call."""
     q, qv = _padded(engine, rows)
+    engine.dispatches.record("member")
     return _member(state.sorted_keys, q, qv)[: rows.shape[0]]
 
 
@@ -272,6 +281,7 @@ def _tomb_heads(engine, state: EngineState, w: int, masks: np.ndarray):
                 torch.zeros(0, dtype=torch.bool, device=dev))
     heads, hv = engine._bucket_cands(bufs)
     if heads.shape[0] > engine._active_delta_out:
+        engine.dispatches.record("squeeze")
         heads, hv, sq_ov = _squeeze_stream(heads, hv, engine._active_delta_out)
         if engine._log.read(lambda: bool(sq_ov)):
             raise CapacityError(engine._active_delta_kind)
@@ -318,22 +328,29 @@ def spmd_add_phases(engine, state: EngineState, delta, max_rounds: int):
     A driver exhausts it or rolls the state back to a snapshot taken
     before it started (``TorchEngine._snapshot``).  A no-effect delta
     yields nothing."""
-    engine._ensure_index(state)
-    delta = dedup_rows(delta)
-    if delta.shape[0]:
-        dk = torch.from_numpy(pack(delta)).to(engine.device)
-        known = engine._log.read(lambda: _keys_in(state.explicit, dk).cpu().numpy())
-        delta = delta[~known]
-    if delta.shape[0] == 0:
-        return
-    engine._grow_rep(state, int(delta.max()) + 1)
-    state.explicit = _merge_keys(
-        state.explicit, torch.from_numpy(np.sort(pack(delta))).to(engine.device))
-    state.stats.triples_explicit = int(state.explicit.shape[0])
-    engine._presize_delta(delta.shape[0])
-    cands, cand_valid = engine._pad_cands(delta)
-    yield "prepared"
-    engine._forward(state, cands, cand_valid, [], max_rounds)
+    tag = engine.dispatches
+    try:
+        tag.phase = "add:prepare"
+        engine._ensure_index(state)
+        delta = dedup_rows(delta)
+        if delta.shape[0]:
+            dk = torch.from_numpy(pack(delta)).to(engine.device)
+            known = engine._log.read(
+                lambda: _keys_in(state.explicit, dk).cpu().numpy())
+            delta = delta[~known]
+        if delta.shape[0] == 0:
+            return
+        engine._grow_rep(state, int(delta.max()) + 1)
+        state.explicit = _merge_keys(
+            state.explicit, torch.from_numpy(np.sort(pack(delta))).to(engine.device))
+        state.stats.triples_explicit = int(state.explicit.shape[0])
+        engine._presize_delta(delta.shape[0])
+        cands, cand_valid = engine._pad_cands(delta)
+        yield "prepared"
+        tag.phase = "add:forward"
+        engine._forward(state, cands, cand_valid, [], max_rounds)
+    finally:
+        tag.phase = None
 
 
 def spmd_add_facts(engine, state: EngineState, delta, max_rounds: int) -> EngineState:
@@ -352,8 +369,17 @@ def spmd_delete_phases(engine, state: EngineState, delta, max_rounds: int):
     rewritten), ``"rederive"`` (the targeted joins done); then the forward
     fixpoint runs and the generator ends.  Exhaust it or roll back; a
     no-effect delta yields nothing."""
+    tag = engine.dispatches
+    try:
+        yield from _delete_phases(engine, state, delta, max_rounds, tag)
+    finally:
+        tag.phase = None
+
+
+def _delete_phases(engine, state: EngineState, delta, max_rounds: int, tag):
     dev = engine.device
     log = engine._log
+    tag.phase = "delete:prepare"
     engine._ensure_index(state)
     delta = dedup_rows(delta)
     if delta.shape[0] and state.explicit.shape[0]:
@@ -375,10 +401,13 @@ def spmd_delete_phases(engine, state: EngineState, delta, max_rounds: int):
     nf_t, _owner = ops.rewrite_owner(torch.from_numpy(delta).to(dev), rep_old, 1)
     nf = dedup_rows(log.read(lambda: nf_t.cpu().numpy()))
     q, qv = _padded(engine, torch.from_numpy(nf).to(dev))
+    tag.phase = "delete:seed"
+    tag.record("seed_tombs")
     state.tomb, n_seed = _seed_tombs(state.sorted_keys, state.sort_perm,
                                      state.epoch, state.marked, state.tomb, q, qv)
     n_od_host = log.read(lambda: int(n_seed))
     yield "seeded"
+    tag.phase = "delete:wave"
 
     suspect = torch.zeros(state.n_res, dtype=torch.bool, device=dev)
     if engine.fuse_rounds:
@@ -395,6 +424,7 @@ def spmd_delete_phases(engine, state: EngineState, delta, max_rounds: int):
             w += 1
             state.stats.od_waves += 1
             heads, hv = _tomb_heads(engine, state, w, masks)
+            tag.record("od")
             state.tomb, suspect, n_new, _ov_route, ov_refl, od_masks = _od_step(
                 state.spo, state.epoch, state.marked, state.tomb,
                 state.sorted_keys, state.sort_perm, state.rep, sizes, suspect,
@@ -411,11 +441,13 @@ def spmd_delete_phases(engine, state: EngineState, delta, max_rounds: int):
             yield "wave"
 
     # the rederive seeds and the restored stream scale with the overdelete
+    tag.phase = "delete:finalize"
     engine._presize_delta(max(n_od_host, delta.shape[0]))
 
     # the overdeleted rows for the head-bound joins, before finalize
     od_rows = np.zeros((0, 3), np.int32)
     if n_od_host and engine.rederive_mode == "targeted":
+        tag.record("extract_od")
         rows, rv, ov = _extract_tombed(state.spo, state.tomb, _pow2(n_od_host))
         if log.read(lambda: bool(ov)):
             raise RuntimeError(
@@ -423,6 +455,7 @@ def spmd_delete_phases(engine, state: EngineState, delta, max_rounds: int):
                 f"({n_od_host} rows): tombstone accounting is inconsistent")
         od_rows = log.read(lambda: rows[rv].cpu().numpy())
 
+    tag.record("finalize_tombs")
     (state.marked, state.tomb, state.sorted_keys, state.sort_perm,
      od_mask, n_od) = _finalize_tombs(state.spo, state.epoch, state.marked,
                                       state.tomb, state.sorted_keys,
@@ -439,6 +472,7 @@ def spmd_delete_phases(engine, state: EngineState, delta, max_rounds: int):
     state.rep = rep_split
     state.program = p_split
     yield "split"
+    tag.phase = "delete:rederive"
 
     # -- rederive: restore overdeleted facts still derivable from survivors --
     od_mask_h = log.read(lambda: od_mask.cpu().numpy()) if n_od else None
@@ -473,7 +507,10 @@ def spmd_delete_phases(engine, state: EngineState, delta, max_rounds: int):
         missing = log.read(lambda: rows[miss].cpu().numpy())
         if missing.shape[0]:
             seeds.append(missing)
-    occ = _occupancy(state.spo, state.epoch, state.marked, state.rep) if n_od else None
+    occ = None
+    if n_od:
+        tag.record("occupancy")
+        occ = _occupancy(state.spo, state.epoch, state.marked, state.rep)
     if n_od and log.read(lambda: bool(occ.any())):
         occ[SAME_AS] = True
         res = torch.nonzero(occ).reshape(-1).to(I32)
@@ -488,6 +525,7 @@ def spmd_delete_phases(engine, state: EngineState, delta, max_rounds: int):
     state.explicit = explicit_new
     state.stats.triples_explicit = int(explicit_new.shape[0])
     cj, cv = engine._pad_cands(cands)
+    tag.phase = "delete:forward"
     engine._forward(state, cj, cv, requeued, max_rounds)
 
 
@@ -511,9 +549,7 @@ def _fused_waves(engine, state: EngineState, sizes, suspect, max_rounds: int):
             graph = engine._graphs[key] = WaveGraph(key, state, plans, caps, n_pad)
     tomb, suspect, fl = fused_delete_waves(
         state, sizes, suspect, max_rounds, plans=plans, log=engine._log,
-        graph=graph, **caps)
-    if graph is not None and graph.captured_now:
-        engine._count_capture(graph)
+        dispatches=engine.dispatches, graph=graph, **caps)
     state.stats.od_waves += fl["iters"]
     if fl["ov_route"]:
         raise CapacityError("route")
@@ -535,3 +571,124 @@ def spmd_delete_facts(engine, state: EngineState, delta, max_rounds: int) -> Eng
     for _phase in spmd_delete_phases(engine, state, delta, max_rounds):
         pass
     return state
+
+
+# ---------------------------------------------------------------------------
+# dispatch auditor (static half) + audit trace builders (repro_torch.analysis)
+# ---------------------------------------------------------------------------
+
+def static_dispatch_profile(program=None) -> dict:
+    """Which dispatch families each maintenance phase may dispatch: the
+    reference's table, key for key and count for count.
+
+    The static half of the dispatch auditor.  Keys are the phase labels the
+    generators tag on ``engine.dispatches``; values map each admissible
+    family to its static dispatch count per unit of that phase (per
+    forward round, per overdelete wave, per query batch, or per
+    operation).  With ``program`` the plan counts are exact for that rule
+    set (one delta/tomb plan per body atom, one merge-anchored plan per
+    rule); without it they are ``None`` (family admissible, count
+    unstated).  The runtime counter
+    (:class:`repro_torch.core.stats.DispatchCounter`) is reconciled against
+    it by :func:`repro_torch.analysis.dispatch_crosscheck`.  The counts are
+    the reference's: a fused stretch is one ``fforward`` there and one a
+    round here, which the crosscheck (families, not counts) admits.
+    """
+    n_plans = (
+        sum(len(r.body) for r in program.rules) if program is not None else None
+    )
+    n_rules = len(program.rules) if program is not None else None
+    # the shared forward round: one fused round, or a host round's process
+    # step, delta plans, squeeze and merge-anchored plans
+    forward = {
+        "fforward": 1, "process": 1, "plan": n_plans, "squeeze": 1,
+        "mplan": n_rules,
+    }
+    return {
+        "add:prepare": {"rebuild_index": 1},          # only if index dirty
+        "add:forward": dict(forward),
+        "delete:prepare": {"rebuild_index": 1},       # only if index dirty
+        "delete:seed": {"seed_tombs": 1},             # per query batch
+        # fused: one ``fwave`` a wave; host loop: the tombstone plans +
+        # squeeze + od step a wave
+        "delete:wave": {
+            "fwave": 1, "plan": n_plans, "squeeze": 1, "od": 1,
+        },
+        "delete:finalize": {"extract_od": 1, "finalize_tombs": 1},
+        # per matching rule, plus the membership/occupancy probes that
+        # assemble the forward seeds (member: per query batch)
+        "delete:rederive": {"rplan": n_rules, "member": 1, "occupancy": 1},
+        "delete:forward": dict(forward),
+        # the capacity-retry machinery tags its own dispatches; only the
+        # recovery step itself (at most an index rebuild) may dispatch here
+        "retry": {"rebuild_index": 1},
+        # serving tier: the per-barrier publication (a snapshot build and
+        # an index rebuild after a re-layout) and batched BGP execution
+        # (one ``bgp`` a shape group drained; the count varies with the mix)
+        "publish": {"snapshot": 1, "rebuild_index": 1},
+        "query": {"bgp": None},
+    }
+
+
+# The builders run each device step once, single-device and eager, at the
+# caller's probe geometry.  The ``od`` / ``finalize_tombs`` / ``occupancy``
+# exemptions are the reference's: their per-resource mask reductions
+# scatter arena-length index streams by design, and their arena-length
+# probes are gathers.
+
+def _audit_chunk(engine, dev):
+    q = torch.zeros((engine.seed_chunk, 3), dtype=I32, device=dev)
+    qv = torch.zeros(engine.seed_chunk, dtype=torch.bool, device=dev)
+    return q, qv
+
+
+@register_auditable("seed_tombs")
+def _audit_seed_tombs(engine, state):
+    q, qv = _audit_chunk(engine, state.spo.device)
+    yield "seed_tombs", lambda: _seed_tombs(
+        state.sorted_keys, state.sort_perm, state.epoch, state.marked,
+        state.tomb, q, qv)
+
+
+@register_auditable("od", skip_passes=("NoArenaScatter",))
+def _audit_od(engine, state):
+    dev = state.spo.device
+    n_heads = engine.delta_out
+    sizes = torch.zeros(state.n_res, dtype=I32, device=dev)
+    suspect = torch.zeros(state.n_res, dtype=torch.bool, device=dev)
+    heads = torch.zeros((n_heads, 3), dtype=I32, device=dev)
+    hv = torch.zeros(n_heads, dtype=torch.bool, device=dev)
+    yield "od", lambda: _od_step(
+        state.spo, state.epoch, state.marked, state.tomb, state.sorted_keys,
+        state.sort_perm, state.rep, sizes, suspect, heads, hv, 1,
+        refl_cap=engine.delta_out)
+
+
+@register_auditable("finalize_tombs", skip_passes=("NoArenaScatter",))
+def _audit_finalize_tombs(engine, state):
+    yield "finalize_tombs", lambda: _finalize_tombs(
+        state.spo, state.epoch, state.marked, state.tomb, state.sorted_keys,
+        state.sort_perm, state.rep)
+
+
+@register_auditable("extract_od")
+def _audit_extract_od(engine, state):
+    yield "extract_od", lambda: _extract_tombed(state.spo, state.tomb, 64)
+
+
+@register_auditable("member")
+def _audit_member(engine, state):
+    q, qv = _audit_chunk(engine, state.spo.device)
+    yield "member", lambda: _member(state.sorted_keys, q, qv)
+
+
+@register_auditable("occupancy", skip_passes=("NoArenaScatter",))
+def _audit_occupancy(engine, state):
+    yield "occupancy", lambda: _occupancy(state.spo, state.epoch, state.marked,
+                                          state.rep)
+
+
+# imported for its registration side effect: the fused bodies join the
+# audit inventory (``fforward`` / ``fwave``) whenever the incremental
+# machinery is loaded
+from . import fused  # noqa: E402, F401

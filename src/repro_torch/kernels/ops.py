@@ -8,7 +8,9 @@ plain version.  ``LAUNCHES`` counts, per kernel, the calls that launched it
 on the card — the proof that a run went through the kernels — and
 :func:`tally` counts one thread's launches by C entry point (the prefix
 form of the search apart from its point form), for the serving tier's
-per-phase ledger.  The kernels
+per-phase ledger.  :func:`traced` hands one thread's kernel calls, with
+their operands' sizes, to a tracer (the audit's recorder,
+:mod:`repro_torch.analysis`).  The kernels
 serve four paths: REW materialisation (dedup, search, rewrite, union-find),
 LM serving (flash attention), FM serving (the FM interaction and the
 embedding bag) and GNN inference (the segment sum, with its plan built by
@@ -112,6 +114,32 @@ def tally():
 
 
 @contextlib.contextmanager
+def traced(tracer):
+    """Hand this thread's kernel calls inside the block to ``tracer``:
+    ``tracer.launch(entry, operands, capture)`` after each launch on the
+    card (``operands`` the wrapper's input tensors, ``capture`` the
+    :func:`recording` dict of a graph capture in progress, else None), and
+    ``tracer.plain(entry)``, a context manager, around each plain version
+    run for CPU tensors."""
+    prev = getattr(_local, "tracer", None)
+    _local.tracer = tracer
+    try:
+        yield tracer
+    finally:
+        _local.tracer = prev
+
+
+def _plain(fn: str, *args):
+    """The plain version ``ref.<fn>`` on CPU tensors, inside this thread's
+    tracer's ``plain`` scope when one is set."""
+    tracer = getattr(_local, "tracer", None)
+    if tracer is None:
+        return getattr(ref, fn)(*args)
+    with tracer.plain(fn):
+        return getattr(ref, fn)(*args)
+
+
+@contextlib.contextmanager
 def recording():
     """A dict that takes this thread's launches inside the block by C entry
     point, counted nowhere else: a graph capture records what a replay
@@ -149,9 +177,10 @@ def _entry(fn: str):
     return entry
 
 
-def _launch(fn: str, device: torch.device, *args) -> None:
+def _launch(fn: str, device: torch.device, *args, operands=()) -> None:
     """Call one C entry point on ``device``'s current stream, raise on a
-    non-zero ``cudaGetLastError``, and count the launch.  The host work per
+    non-zero ``cudaGetLastError``, and count the launch (and hand it, with
+    its ``operands``, to this thread's tracer).  The host work per
     call is kept small (a cached entry point, the raw stream handle, the
     device switched only when it is not the current one): a small kernel's
     call time is mostly this."""
@@ -164,6 +193,9 @@ def _launch(fn: str, device: torch.device, *args) -> None:
     if err != 0:
         raise RuntimeError(f"CUDA kernel {fn} failed to launch: error {err}")
     book({fn: 1})
+    tracer = getattr(_local, "tracer", None)
+    if tracer is not None:
+        tracer.launch(fn, operands, getattr(_local, "recording", None))
 
 
 def _ptr(t: torch.Tensor | None):
@@ -206,7 +238,7 @@ def dedup_order(keys: torch.Tensor) -> torch.Tensor:
     """Stable ascending permutation (int32) of int64 ``keys``."""
     _check(keys, "keys", torch.int64, 1)
     if not _on_card(keys):
-        return ref.dedup_order(keys)
+        return _plain("dedup_order", keys)
     n = keys.shape[0]
     if n >= 1 << 31:
         raise ValueError(f"dedup_order kernel: {n} keys, want < 2^31")
@@ -218,7 +250,7 @@ def dedup_order(keys: torch.Tensor) -> torch.Tensor:
                           device=dev)
     _launch("dedup_order", dev, keys.data_ptr(), n, kbuf[0].data_ptr(),
             kbuf[1].data_ptr(), ibuf[0].data_ptr(), ibuf[1].data_ptr(),
-            scratch.data_ptr(), scratch.numel(), out.data_ptr())
+            scratch.data_ptr(), scratch.numel(), out.data_ptr(), operands=(keys,))
     return out
 
 
@@ -226,14 +258,15 @@ def _search(queries, keys, lo: bool, hi: bool):
     _check(queries, "queries", torch.int64, 1)
     _check(keys, "keys", torch.int64, 1)
     if not _on_card(queries, keys):
-        lo_t, hi_t = ref.search_bounds(queries, keys)
+        lo_t, hi_t = _plain("search_bounds", queries, keys)
         return lo_t if lo else None, hi_t if hi else None
     n = queries.shape[0]
     outs = [torch.empty(n, dtype=torch.int32, device=keys.device) if want
             else None for want in (lo, hi)]
     if n:
         _launch("search_bounds", keys.device, queries.data_ptr(), n,
-                keys.data_ptr(), keys.shape[0], _ptr(outs[0]), _ptr(outs[1]))
+                keys.data_ptr(), keys.shape[0], _ptr(outs[0]), _ptr(outs[1]),
+                operands=(queries, keys))
     return outs[0], outs[1]
 
 
@@ -262,13 +295,14 @@ def prefix_range_bounds(prefix_cols: torch.Tensor, keys: torch.Tensor):
     if not 1 <= k <= 3:
         raise ValueError(f"prefix length must be 1..3, got {k}")
     if not _on_card(prefix_cols, keys):
-        return ref.prefix_range_bounds(prefix_cols, keys)
+        return _plain("prefix_range_bounds", prefix_cols, keys)
     n = prefix_cols.shape[0]
     start = torch.empty(n, dtype=torch.int32, device=keys.device)
     end = torch.empty(n, dtype=torch.int32, device=keys.device)
     if n:
         _launch("prefix_range_bounds", keys.device, prefix_cols.data_ptr(), n, k,
-                keys.data_ptr(), keys.shape[0], start.data_ptr(), end.data_ptr())
+                keys.data_ptr(), keys.shape[0], start.data_ptr(), end.data_ptr(),
+                operands=(prefix_cols, keys))
     return start, end
 
 
@@ -298,12 +332,12 @@ def rewrite_triples(spo: torch.Tensor, rho: torch.Tensor, *,
         raise ValueError("epoch and marked go together")
     present = [t for _, t, _ in masks if t is not None]
     if not _on_card(spo, rho, *present):
-        return ref.rewrite_triples(spo, rho, valid, epoch, marked)
+        return _plain("rewrite_triples", spo, rho, valid, epoch, marked)
     out = torch.empty_like(spo)
     changed = torch.empty(n, dtype=torch.bool, device=spo.device)
     _launch("rewrite_triples", spo.device, spo.data_ptr(), n, rho.data_ptr(),
             rho.shape[0], _ptr(valid), _ptr(epoch), _ptr(marked),
-            out.data_ptr(), changed.data_ptr())
+            out.data_ptr(), changed.data_ptr(), operands=(spo, rho))
     return out, changed
 
 
@@ -324,9 +358,10 @@ def uf_compress_(rep: torch.Tensor) -> None:
     ends on its root, the fixpoint of ``rep = rep[rep]``."""
     _check(rep, "rep", torch.int32, 1)
     if not _on_card(rep):
-        ref.uf_compress_(rep)
+        _plain("uf_compress_", rep)
         return
-    _launch("uf_compress", rep.device, rep.data_ptr(), rep.shape[0])
+    _launch("uf_compress", rep.device, rep.data_ptr(), rep.shape[0],
+            operands=(rep,))
 
 
 def uf_union_(rep: torch.Tensor, pairs: torch.Tensor, valid: torch.Tensor) -> None:
@@ -343,10 +378,11 @@ def uf_union_(rep: torch.Tensor, pairs: torch.Tensor, valid: torch.Tensor) -> No
     if rep.shape[0] == 0 and pairs.shape[0]:
         raise ValueError("pairs into an empty rep")
     if not _on_card(rep, pairs, valid):
-        ref.uf_union_(rep, pairs, valid)
+        _plain("uf_union_", rep, pairs, valid)
         return
     _launch("uf_union", rep.device, rep.data_ptr(), rep.shape[0],
-            pairs.data_ptr(), valid.data_ptr(), pairs.shape[0])
+            pairs.data_ptr(), valid.data_ptr(), pairs.shape[0],
+            operands=(rep, pairs, valid))
 
 
 FLASH_HEAD_DIMS = (64, 128)
@@ -391,7 +427,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q_offset < 0:
         raise ValueError(f"q_offset must be >= 0, got {q_offset}")
     if not _on_card(q, k, v):
-        return ref.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+        return _plain("flash_attention", q, k, v, causal, q_offset)
     if d not in FLASH_HEAD_DIMS:
         raise ValueError(f"flash kernel: head dim {d} not in {FLASH_HEAD_DIMS}")
     vec = 16 // q.element_size()
@@ -407,7 +443,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     args = array.array("q", (*ptrs, out.data_ptr(), b, s, t, h, kv, qst[0], qst[1],
                              qst[2], kst[0], kst[1], kst[2], vst[0], vst[1], vst[2],
                              int(causal), q_offset, d, dtype == torch.bfloat16))
-    _launch("flash_attention", q.device, args.buffer_info()[0], 1.0 / d**0.5)
+    _launch("flash_attention", q.device, args.buffer_info()[0], 1.0 / d**0.5,
+            operands=(q, k, v))
     return out
 
 
@@ -416,13 +453,13 @@ def fm_interact(x: torch.Tensor) -> torch.Tensor:
     ``0.5 * sum_k((sum_f x)^2 - sum_f x^2)``, f32 math, x's dtype."""
     _check_float(x, "x", 3)
     if not _on_card(x):
-        return ref.fm_interact(x)
+        return _plain("fm_interact", x)
     b, f, k = x.shape
     out = torch.empty(b, dtype=x.dtype, device=x.device)
     if b == 0:
         return out
     _launch("fm_interact", x.device, x.data_ptr(), out.data_ptr(), b, f, k,
-            int(x.dtype == torch.bfloat16))
+            int(x.dtype == torch.bfloat16), operands=(x,))
     return out
 
 
@@ -476,7 +513,7 @@ def segment_sum(x: torch.Tensor, seg: torch.Tensor, n_segments: int,
                          f"{plan.n_segments} segments for {e} rows and "
                          f"{n_segments} segments")
     if not _on_card(x, seg):
-        return ref.segment_sum(x, seg, n_segments)
+        return _plain("segment_sum", x, seg, n_segments)
     if e >= 1 << 31:
         raise ValueError(f"segment_sum kernel: {e} rows, want < 2^31")
     if plan is None:
@@ -491,7 +528,7 @@ def segment_sum(x: torch.Tensor, seg: torch.Tensor, n_segments: int,
     _launch("segment_sum", x.device, x.data_ptr(), plan.perm.data_ptr(),
             plan.seg.data_ptr(), plan.offsets.data_ptr(), e, n_segments, k,
             out.data_ptr(), carry.data_ptr(), blocks,
-            int(x.dtype == torch.bfloat16))
+            int(x.dtype == torch.bfloat16), operands=(x, seg))
     return out
 
 
@@ -515,11 +552,12 @@ def embedding_bag(ids: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     if v == 0:
         raise ValueError("table is empty")
     if not _on_card(ids, table):
-        return ref.embedding_bag(ids, table)
+        return _plain("embedding_bag", ids, table)
     b, f = ids.shape
     out = torch.empty((b, k), dtype=table.dtype, device=table.device)
     if out.numel() == 0:
         return out
     _launch("embedding_bag", table.device, ids.data_ptr(), table.data_ptr(),
-            b, f, v, k, out.data_ptr(), int(table.dtype == torch.bfloat16))
+            b, f, v, k, out.data_ptr(), int(table.dtype == torch.bfloat16),
+            operands=(ids, table))
     return out

@@ -42,12 +42,17 @@ and synchronise while the worker captures.  A snapshot carries an event
 recorded after its last write; a reader's stream waits for it and records
 its use of the snapshot's tensors (:meth:`StoreSnapshot.device_views`).
 
-``dispatch_counts`` is the port's phase ledger: kernel launches (not
-compiled calls, as the reference counts) by C entry point, tallied per
-thread (:func:`repro_torch.kernels.ops.tally`) around every phase step
+Two ledgers.  ``dispatch_counts`` is the reference's: the engine's units of
+work (:class:`~repro_torch.core.stats.DispatchCounter`) by family and by
+the phase the generators, the engine (``"publish"``, ``"retry"``) and the
+store's query drains (``"query"``) tag; :meth:`TripleStore.audit`
+reconciles it with the static phase profile.  ``launch_counts`` is the
+port's: kernel launches by C entry point, tallied per thread
+(:func:`repro_torch.kernels.ops.tally`) around every phase step
 (``"<op>:<label it reached>"``, the last step ``"<op>:forward"``), every
 rollback (``"retry"``), every publication (``"publish"``) and every query
-drain (``"query"``); graph captures under ``compiles_by_family``.
+drain (``"query"``).  Both count graph captures under
+``compiles_by_family``.
 """
 
 from __future__ import annotations
@@ -208,7 +213,8 @@ class TripleStore:
         self._lock = threading.RLock()
         self._work = threading.Condition(self._lock)
         self._batched = (
-            BatchedExecutor(width=query_width, min_batch=min_batch)
+            BatchedExecutor(width=query_width, min_batch=min_batch,
+                            dispatches=engine.dispatches)
             if batch_queries else None
         )
         self.publish_ms: list[float] = []
@@ -238,6 +244,31 @@ class TripleStore:
 
     @property
     def dispatch_counts(self) -> dict:
+        """The serving engine's units of work since it was made, as the
+        reference reports them.
+
+        ``by_phase`` attributes dispatches to the phase that issued them
+        (``"<phase>/<family>"``: the generators' tags, ``"retry"``,
+        ``"publish"`` and ``"query"``; a retried phase counts twice, the
+        real cost); the base run counts in ``total`` and ``by_family``
+        only.  Graph captures count under ``compiles_by_family``.  The
+        static half is
+        :func:`repro_torch.core.incremental_spmd.static_dispatch_profile`.
+        """
+        d = self.engine.dispatches
+        return {
+            "total": d.total,
+            "by_family": dict(d.by_family),
+            "by_phase": {
+                f"{ph}/{fam}": n
+                for (ph, fam), n in d.by_phase.items()
+                if ph is not None
+            },
+            "compiles_by_family": dict(d.compiles),
+        }
+
+    @property
+    def launch_counts(self) -> dict:
         """Kernel launches of the store by C entry point since it was made.
 
         ``by_phase`` keys are ``"<phase>/<entry point>"``: a maintenance
@@ -255,16 +286,19 @@ class TripleStore:
                 "by_family": dict(self._by_family),
                 "by_phase": {f"{ph}/{fn}": n
                              for (ph, fn), n in self._by_phase.items()},
-                "compiles_by_family": dict(self.engine.captures_by_family),
+                "compiles_by_family": dict(self.engine.dispatches.compiles),
             }
 
     def audit(self) -> list[str]:
-        """The reference cross-checks its dispatches against a static
-        per-phase profile (``repro.analysis``), which the port does not
-        have yet."""
-        raise NotImplementedError(
-            "the dispatch audit needs the port of the analysis tooling "
-            "(ROADMAP Queue 1 item 7)")
+        """Cross-check this store's observed dispatches against the static
+        per-phase profile (the serving half of ``repro_torch.analysis``'s
+        dispatch auditor).  Returns problem strings; empty means every
+        (phase, family) dispatch pair was declared."""
+        from repro_torch.analysis import dispatch_crosscheck  # lazy: serving core
+
+        return dispatch_crosscheck(
+            self.engine.dispatches, self.state.base_program
+        )
 
     def pending(self) -> int:
         """Queued + in-flight work items (0 means ``drain`` would be a no-op).
@@ -437,9 +471,8 @@ class TripleStore:
             with self._reading(), ops.tally() as calls:
                 if self._batched is not None:
                     t0 = time.perf_counter()
-                    res = self._batched.run(
-                        [t.query for t in batch], snap, self.dic
-                    )
+                    res = self._query_phase(self._batched.run,
+                                            [t.query for t in batch], snap, self.dic)
                     per = (time.perf_counter() - t0) / len(batch)
                     for t, (ans, ep) in zip(batch, res):
                         t.answer, t.epoch = ans, ep
@@ -451,6 +484,15 @@ class TripleStore:
                         t.wall_s = time.perf_counter() - t0
                         t.status = "done"
             self._book("query", calls)
+
+    def _query_phase(self, fn, *args):
+        """``fn(*args)`` with this thread's dispatches tagged ``"query"``."""
+        dispatches = self.engine.dispatches
+        prev_phase, dispatches.phase = dispatches.phase, "query"
+        try:
+            return fn(*args)
+        finally:
+            dispatches.phase = prev_phase
 
     def _run_one_update(self, t: UpdateTicket) -> None:
         """Begin an admitted update and advance it to its epoch barrier:

@@ -33,6 +33,11 @@ The search kernel counts only the keys it is given, where the reference's
 the two differ only for a prefix of all-(2^21-1) ids, whose high key is
 KEY_MAX.  :func:`build_plan` never plans an empty prefix and ids stay below
 2^21-1, so the answers agree.
+
+Each group matched counts one ``bgp`` dispatch on the executor's
+``dispatches`` counter (the serving store passes its engine's, under the
+``"query"`` phase it tags), and the matcher registers its trace builder
+with the audit.
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from repro_torch.core.engine import register_auditable
 from repro_torch.core.seminaive import Bindings
 from repro_torch.core.terms import is_var
 from repro_torch.kernels import ops
@@ -280,10 +286,13 @@ class BatchedExecutor:
 
     The matcher runs on the caller's current stream, after it has waited
     for the snapshot's publication (:meth:`StoreSnapshot.device_views`).
+    ``dispatches`` (a :class:`~repro_torch.core.stats.DispatchCounter`)
+    counts each group matched under the family ``"bgp"``.
     """
 
     def __init__(self, width: int = 4096, min_batch: int = 2,
-                 max_batch: int = 256):
+                 max_batch: int = 256, dispatches=None):
+        self.dispatches = dispatches
         self.width = width
         self.min_batch = max(int(min_batch), 1)
         self.max_batch = max(int(max_batch), 1)
@@ -341,6 +350,8 @@ class BatchedExecutor:
             if cs:
                 consts[row] = cs
         views = snapshot.device_views()
+        if self.dispatches is not None:
+            self.dispatches.record("bgp")
         out, valid, overflow = _bgp(
             plan.probes, plan.var_order, W, *views,
             torch.from_numpy(consts).to(views[1].device))
@@ -370,3 +381,36 @@ class BatchedExecutor:
             )
             self.stats["batched"] += 1
         self.stats["groups"] += 1
+
+
+# ---------------------------------------------------------------------------
+# audit trace builder (repro_torch.analysis)
+# ---------------------------------------------------------------------------
+
+# representative shapes of the serving workload's query kinds: a
+# single-predicate scan, an object-join pair and a bound-object lookup;
+# between them both key orders, free-var binding, bound-var post-filters
+# and non-prefix constants
+_AUDIT_SIGS = (
+    ((("v", 0), "c", ("v", 1)),),
+    ((("v", 0), "c", ("v", 1)), (("v", 2), "c", ("v", 1))),
+    ((("v", 0), "c", "c"),),
+)
+
+
+@register_auditable("bgp")
+def _audit_bgp(engine, state):
+    # one query (B 1) at W 256, the reference's per-query trace, against a
+    # snapshot of the probe arena, whose views are arena-length: the
+    # matcher passes NoArenaSort with no exemption (the publication's one
+    # sort is the "snapshot" family's)
+    from repro_torch.core.engine import _publish_snapshot, _StageClock
+
+    views = _publish_snapshot(state.spo, state.sort_perm, state.sorted_keys,
+                              _StageClock(state.spo.device))[:4]
+    for si, sig in enumerate(_AUDIT_SIGS):
+        plan = build_plan(sig)
+        consts = torch.zeros((1, max(plan.n_consts, 1)), dtype=I32,
+                             device=state.spo.device)
+        yield f"bgp:shape{si}", (lambda plan=plan, consts=consts: _bgp(
+            plan.probes, plan.var_order, 256, *views, consts))

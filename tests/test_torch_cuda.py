@@ -863,10 +863,11 @@ def test_serving_store_on_card_equals_cpu(dev):
         assert (a.epoch, a.answer) == (b.epoch, b.answer)
         assert a.answer == evaluate_at(q, card.snapshot, dic)[0]
     assert card._batched.stats["batched"] > 0
-    by_phase = card.dispatch_counts["by_phase"]
+    by_phase = card.launch_counts["by_phase"]
     assert by_phase.get("query/prefix_range_bounds", 0) > 0
     assert by_phase.get("publish/dedup_order", 0) >= len(pubs[0])
-    assert host.dispatch_counts["total"] == 0  # the CPU launches nothing
+    assert host.launch_counts["total"] == 0  # the CPU launches nothing
+    assert card.audit() == [] and host.audit() == []
 
 
 def test_threaded_store_on_card_answers_while_worker_captures(dev):
@@ -934,8 +935,8 @@ def test_threaded_store_on_card_answers_while_worker_captures(dev):
         release.set()
         store.close()
     assert sorted(held) == ["round", "wave"]
-    assert store.engine.captures_by_family.get("round", 0) >= 1
-    assert store.engine.captures_by_family.get("wave", 0) >= 1
+    assert store.engine.dispatches.compiles.get("fforward", 0) >= 1
+    assert store.engine.dispatches.compiles.get("fwave", 0) >= 1
     assert matched_in_capture > 0
     for t in answered:
         assert t.answer == evaluate_at(t.query, want[t.epoch], dic)[0]
@@ -944,3 +945,53 @@ def test_threaded_store_on_card_answers_while_worker_captures(dev):
             assert torch.equal(getattr(snap, k), clone[k])
             assert torch.equal(getattr(snap, k).cpu(), getattr(want[snap.epoch], k))
     assert store.epoch == host.epoch == len(updates)
+
+
+# the entry points each family's units launch at the pex probe (PERF.md §6:
+# REW's round and the host loop's step run all five REW kernels, the
+# publication and the index rebuild the sort, the matcher the prefix search)
+_AUDIT_LAUNCHES = {
+    "bgp": ["prefix_range_bounds"], "extract_od": ["search_bounds"],
+    "fforward": ["dedup_order", "rewrite_triples", "search_bounds",
+                 "uf_compress", "uf_union"],
+    "finalize_tombs": ["search_bounds"],
+    "fwave": ["dedup_order", "rewrite_triples", "search_bounds"],
+    "member": ["search_bounds"], "mplan": ["search_bounds"], "occupancy": [],
+    "od": ["dedup_order", "rewrite_triples", "search_bounds"],
+    "plan": ["search_bounds"],
+    "process": ["dedup_order", "rewrite_triples", "search_bounds",
+                "uf_compress", "uf_union"],
+    "rebuild_index": ["dedup_order"],
+    "rplan": ["prefix_range_bounds", "search_bounds"],
+    "seed_tombs": ["search_bounds"], "snapshot": ["dedup_order"],
+    "squeeze": ["search_bounds"],
+}
+
+
+def test_audit_on_card(dev):
+    """The trace audit at the pex probe on the card: no violation (the
+    recorded list is empty), the driven stream reconciles with the static
+    phase profile, and the launch records hold each family's kernels."""
+    from repro_torch.analysis import run_report
+
+    report = run_report("pex", device="cuda")
+    assert report["device"].startswith("cuda")
+    assert report["violations"] == []
+    assert report["dispatch"]["problems"] == []
+    assert report["launches"] == _AUDIT_LAUNCHES
+
+
+@pytest.mark.parametrize("name", ["arena_sort", "arena_scatter", "int32_key",
+                                  "host_callback", "nested_cond_sort"])
+def test_fixture_trips_expected_pass_on_card(dev, name):
+    """Each planted fixture trips its pass and only it on the card too: the
+    nested sort as the dedup_order kernel's launch."""
+    from repro_torch.analysis import ALL_PASSES
+    from repro_torch.analysis.fixtures import EXPECTED_PASS, trace_fixture
+
+    label, trace, rows = trace_fixture(name, device="cuda")
+    fired = {v.pass_name: v for p in ALL_PASSES for v in p.run(label, trace, rows)}
+    assert set(fired) == {EXPECTED_PASS[name]}
+    if name == "nested_cond_sort":
+        assert (fired["NoArenaSort"].primitive, fired["NoArenaSort"].path) == \
+            ("dedup_order", "launch")

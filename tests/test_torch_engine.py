@@ -150,8 +150,10 @@ def test_process_candidates_matches(ref_state):
     for name in ("rep_changed", "contradiction", "ov_rewrite", "ov_store",
                  "n_new", "n_pairs", "n_marked", "n_reflexive"):
         assert flags[name] == ref_flags[name].reshape(-1)[0], name
+    np.testing.assert_array_equal(flags["delta_valid"].numpy(),
+                                  ref_flags["delta_valid"])
     np.testing.assert_array_equal(
-        flags["delta_rows"].numpy(),
+        flags["delta_rows"][flags["delta_valid"]].numpy(),
         ref_flags["delta_rows"][ref_flags["delta_valid"]],
     )
     # the batch exercised merging and the store sweep

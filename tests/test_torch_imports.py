@@ -31,7 +31,10 @@ MODULES = [
     "repro_torch.data.graphs", "repro_torch.sparql",
     "repro_torch.sparql.algebra", "repro_torch.sparql.executor",
     "repro_torch.sparql.batched", "repro_torch.serve.scheduler",
-    "repro_torch.serve.triple_store", "chip_smoke",
+    "repro_torch.serve.triple_store", "repro_torch.configs.sameas_rew",
+    "repro_torch.analysis", "repro_torch.analysis.passes",
+    "repro_torch.analysis.fixtures", "repro_torch.analysis.__main__",
+    "chip_smoke",
 ]
 
 
@@ -176,3 +179,20 @@ def test_triple_store_without_a_card_raises_unless_cpu_is_asked(monkeypatch):
     with pytest.raises(ValueError):
         TripleStore(facts, prog, dic, device="cuda",
                     engine=TorchEngine(dic.n_resources, device="cpu"))
+
+
+def test_audit_entry_points_without_a_card_raise_unless_cpu_is_asked(monkeypatch):
+    from repro_torch.analysis import build_probe, run_report
+    from repro_torch.analysis.fixtures import trace_fixture
+    from repro_torch.configs import get_arch
+    from repro_torch.core.engine import TorchEngine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    reduced = get_arch("sameas_rew").reduced
+    for call in (lambda: build_probe("chain"), lambda: run_report("chain"),
+                 lambda: trace_fixture("arena_sort"),
+                 lambda: TorchEngine.from_config(reduced)):
+        with pytest.raises(RuntimeError):
+            call()
+    assert TorchEngine.from_config(reduced, device="cpu").device.type == "cpu"
+    assert trace_fixture("arena_sort", "cpu")[1]

@@ -179,7 +179,7 @@ def _port_cfg(jcfg, **kw) -> lm.LMConfig:
 
 
 def test_config_copies_match_the_reference():
-    for name in ("smollm-135m", "fm", "gatedgcn", "pna"):
+    for name in ("smollm-135m", "fm", "gatedgcn", "pna", "sameas_rew"):
         ours, theirs = get_arch(name), ref_arch(name)
         for attr in ("config", "reduced"):
             assert dataclasses.asdict(getattr(ours, attr)) == \
@@ -187,7 +187,7 @@ def test_config_copies_match_the_reference():
         assert [dataclasses.asdict(s) for s in ours.shapes] == \
             [dataclasses.asdict(s) for s in theirs.shapes]
     assert get_arch("smollm-135m").config.param_count() == 134_515_008
-    for name in ("qwen3-moe-235b-a22b", "qwen2-1.5b", "egnn", "sameas_rew"):
+    for name in ("qwen3-moe-235b-a22b", "qwen2-1.5b", "egnn"):
         with pytest.raises(KeyError, match="ROADMAP"):
             get_arch(name)
     assert get_arch("smollm_135m") is get_arch("smollm-135m")

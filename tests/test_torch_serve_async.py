@@ -207,9 +207,11 @@ def counted(monkeypatch):
 
 @pytest.mark.parametrize("threaded", [False, True])
 def test_dispatch_counts_by_phase(counted, threaded):
-    """Launches land under the phase that made them: maintenance steps by
-    the label they reached, publication and queries apart, per thread
-    (queries never sort, publication never probes)."""
+    """Launches land under the phase that made them in the launch ledger:
+    maintenance steps by the label they reached, publication and queries
+    apart, per thread (queries never sort, publication never probes).  The
+    dispatch ledger of the same store reconciles with the static phase
+    profile."""
     (facts, prog, dic), (jf, jp, jd) = both(
         "generate", n_groups=2, group_size=3, n_spokes_per=1, n_plain=20,
         hierarchy_depth=1, seed=3)
@@ -222,7 +224,8 @@ def test_dispatch_counts_by_phase(counted, threaded):
             for q in queries:
                 store.submit_query(q)
             store.drain()
-        dc = store.dispatch_counts
+        dc = store.launch_counts
+        problems = store.audit()
     finally:
         store.close()
     by_phase = dc["by_phase"]
@@ -235,5 +238,40 @@ def test_dispatch_counts_by_phase(counted, threaded):
     for op, _ in tr:
         assert f"{op}:forward" in ops_seen
     assert dc["compiles_by_family"] == {}  # no graph on the CPU
-    with pytest.raises(NotImplementedError, match="item 7"):
-        store.audit()
+    assert problems == []
+
+
+@pytest.mark.parametrize("threaded", [False, True])
+def test_triple_store_dispatch_counts_and_audit(threaded):
+    """The reference's store ledger case: after a mixed add/delete/query
+    stream the dispatch ledger reconciles with the static phase profile,
+    every ``by_phase`` key is ``"<tag>/<family>"`` with a tag of that
+    profile, and the batched drains count under ``"query"``."""
+    from repro_torch.core.incremental_spmd import static_dispatch_profile
+    from repro_torch.data.generator import generate, sample_update_stream
+
+    facts, prog, dic = generate(n_groups=2, group_size=3, n_spokes_per=1,
+                                n_plain=25, hierarchy_depth=1, seed=2)
+    store = cpu_store(facts, prog, dic, threaded=threaded)
+    try:
+        for op, payload in sample_update_stream(facts, dic, n_events=6, batch=5,
+                                                p_query=0.5, seed=2):
+            if op == "query":
+                for q in [payload] * 2:  # a shape group of two: batched
+                    store.submit_query(q)
+            else:
+                store.submit_update(op, payload)
+            store.drain()
+        assert store.audit() == []
+        d = store.dispatch_counts
+    finally:
+        store.close()
+    profile = static_dispatch_profile(prog)
+    assert d["total"] > 0 and d["by_family"]
+    assert d["by_phase"] and sum(d["by_phase"].values()) <= d["total"]
+    for key in d["by_phase"]:
+        tag, fam = key.rsplit("/", 1)
+        assert fam in profile[tag], key
+    tags = {key.rsplit("/", 1)[0] for key in d["by_phase"]}
+    assert {"publish", "add:forward", "delete:seed"} <= tags, tags
+    assert d["compiles_by_family"] == {}  # no graph on the CPU
