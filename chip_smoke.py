@@ -127,7 +127,24 @@ on failure (the script then exits non-zero and prints no result):
    width (16 layers) on both (wall, edges/s, peak memory, in-degree),
    a profiled rerun for the segment sum's share and the segment plan's
    sort and search, PNA on the deduplicated graph; 32 segment-sum launches
-   a GatedGCN forward, and two card runs bit-equal.
+   a GatedGCN forward, and two card runs bit-equal;
+9. the sharded engine (``TorchEngine(mesh=...)`` on ``torch.distributed``,
+   one spawned process a rank; the kernels built above): (a) phase 4's
+   profiles at mid size, at world 1 on NCCL and world 2 on the one card
+   through gloo, each with a loop and exchange (fused or host loop,
+   gathered or routed at ``route_cap`` 256) and 4 events of
+   ``sample_update_stream``: each rank's arrays, rho and counters on the
+   card equal the CPU's through a mesh of the same size, and the gathered
+   store and rho the unsharded card engine's, after every step; (b) phase
+   5's facts at world 1 on NCCL and (c) at world 2 through gloo (which
+   carries the CUDA tensors itself), owner-routed (``route_cap`` 2^25 at
+   world 1, 2^24 above: what a full-size round needs), phase 5's caps:
+   the first run and two reruns, each rank's wall, rounds, launches by
+   kernel (every REW kernel launched), collective calls and bytes, and
+   peak memory; after every run the gathered store, rho and counters
+   equal phase 5's unsharded fused run's, whose rerun walls are recorded
+   beside.  Where the machine has
+   more cards, full size at world = their count on NCCL too.
 
 Each path's launch counters are set to 0 just before its run and read just
 after.  Every wall and every CUDA-event time is taken before the process's
@@ -148,6 +165,8 @@ from __future__ import annotations
 import copy
 import hashlib
 import json
+import pickle
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1804,6 +1823,8 @@ def fullsize_phase(ops, records: dict, kg: dict, later: list) -> dict:
     print(f"  cuda == cpu at full size under both loops (cpu walls "
           f"{json.dumps(cpu_walls)} s)", flush=True)
     kg["rho"] = rho.numpy()
+    kg["triples"] = live
+    kg["counters"] = {k: getattr(stats, k) for k in COUNTERS}
     out = dict(
         explicit_triples=int(facts.shape[0]), resources=int(dic.n_resources),
         wall_s=wall, repeat_wall_s=[r["wall_s"] for r in reruns],
@@ -2593,6 +2614,221 @@ def audit_phase(records: dict) -> None:
     records["audit"] = dict(probe=out, fullsize=full)
 
 
+# -- the sharded engine (torch.distributed) -------------------------------------
+
+# each mid-size profile's (loop, exchange) at world 1 and at world 2, so
+# each world covers both loops, gathering and routing
+SHARD_MID_COMBOS = (("fused", None), ("fused", 256), ("host", None),
+                    ("host", 256))
+SHARD_MID_EVENTS = dict(n_events=4, batch=24, seed=0)
+# owner buckets that hold a full-size round's stream: at world 1 the one
+# bucket takes every row of a round (2^24 overflows in round 1 and grows
+# to 2^25); at world 2 each bucket takes about a quarter, and 2^24 holds
+SHARD_FULL_ROUTE = {1: 1 << 25}
+SHARD_FULL_ROUTE_MANY = 1 << 24
+SHARD_FULL_RUNS = 3  # the first run and two reruns
+SHARD_TIMEOUT_S = 300.0
+
+
+def _shard_device(backend: str, rank: int) -> str:
+    """NCCL gives each rank its own card; gloo puts every rank on card 0."""
+    return f"cuda:{rank}" if backend == "nccl" else "cuda:0"
+
+
+def _shard_stats(stats) -> dict:
+    return {k: v for k, v in stats.as_dict().items()
+            if k not in ("mode", "wall_seconds", "triples_unmarked")}
+
+
+def _shard_mid(rank: int, world: int, mesh, cpu_mesh, device: str) -> dict:
+    """Phase 9 (a) on one rank: each mid-size profile's base run and 4
+    events on the card and the CPU through meshes of the same size, each
+    rank's arrays, rho and counters equal after each; the gathered store
+    and rho equal the unsharded card engine's."""
+    from repro_torch import TorchEngine
+    from repro_torch.core.engine import state_to_arrays
+    from repro_torch.data.generator import PROFILES, generate, sample_update_stream
+
+    out = {}
+    for i, name in enumerate(MIDSIZE):
+        loop, route = SHARD_MID_COMBOS[(i + 2 * (world > 1)) % 4]
+        facts, program, dic = generate(**PROFILES[name])
+        events = sample_update_stream(facts, dic, **SHARD_MID_EVENTS)
+        n_res = dic.n_resources
+        kw = dict(fuse_rounds=loop == "fused", route_cap=route)
+        card = TorchEngine(n_res, device=device, mesh=mesh, **kw)
+        cpu = TorchEngine(n_res, device="cpu", mesh=cpu_mesh, **kw)
+        flat = TorchEngine(n_res, device=device)
+        t0 = time.perf_counter()
+        states = [e.materialise_state(facts, program) for e in (card, cpu, flat)]
+        walls = [time.perf_counter() - t0]
+        for step in range(len(events) + 1):
+            if step:
+                op, delta = events[step - 1]
+                ta = time.perf_counter()
+                for e, s in zip((card, cpu, flat), states):
+                    apply_event(e, s, op, delta)
+                walls.append(time.perf_counter() - ta)
+            tag = f"{name} world {world} rank {rank} step {step}"
+            a, b = state_to_arrays(states[0]), state_to_arrays(states[1])
+            for k in a:
+                if not np.array_equal(a[k], b[k]):
+                    raise AssertionError(f"{tag}: card vs cpu: {k} differs")
+            if _shard_stats(states[0].stats) != _shard_stats(states[1].stats):
+                raise AssertionError(f"{tag}: card vs cpu: counters differ")
+            same_store(f"{tag}: sharded vs unsharded", card.state_rep(states[0]),
+                       card.state_triples(states[0]), flat.state_rep(states[2]),
+                       flat.state_triples(states[2]))
+        st = states[0].stats
+        out[name] = dict(loop=loop, route_cap=route, steps=len(events) + 1,
+                         ops=[op for op, _ in events], walls_s=walls,
+                         rounds=st.rounds, od_waves=st.od_waves,
+                         overdeleted=st.overdeleted,
+                         capacity_retries=st.capacity_retries,
+                         graphs=card.last_split["graphs"],
+                         collectives=mesh.counts())
+        mesh.reset_counts()
+        del card, cpu, flat, states
+        torch.cuda.empty_cache()
+    return out
+
+
+def _shard_full(rank: int, world: int, mesh, device: str, spec: dict) -> dict:
+    """Phase 9 (b)/(c) on one rank: phase 5's facts through the sharded
+    fused engine at phase 5's caps, the first run and the reruns, each
+    rank's launches and collectives; the gathered store and rho equal the
+    unsharded fused engine's of phase 5."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.engine import TorchEngine
+    from repro_torch.core.triples import pack
+    from repro_torch.kernels import ops
+
+    facts = np.load(spec["facts"])
+    with open(spec["program"], "rb") as f:
+        program = pickle.load(f)
+    route_cap = SHARD_FULL_ROUTE.get(world, SHARD_FULL_ROUTE_MANY)
+    eng = TorchEngine.from_config(
+        get_arch("sameas_rew").config, mesh=mesh, n_resources=spec["n_res"],
+        device=device, capacity=FULL_CAP, bind_cap=FULL_CAP, out_cap=FULL_CAP,
+        rewrite_cap=FULL_CAP, route_cap=route_cap)
+    runs = []
+    for i in range(SHARD_FULL_RUNS):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        mesh.reset_counts()
+        t0 = time.perf_counter()
+        state = eng.materialise_state(facts, program)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        missing = [k for k in REW_KERNELS if launches[k] == 0]
+        if missing:
+            raise AssertionError(f"sharded run: kernels never launched: {missing}")
+        st = state.stats
+        runs.append(dict(
+            wall_s=wall, rounds=st.rounds, launches=launches,
+            collectives=mesh.counts(), capacity_retries=st.capacity_retries,
+            rows_here=int(state.n_used.sum()), route_cap=eng.route_cap,
+            max_memory_allocated=torch.cuda.max_memory_allocated(),
+            split=split_summary(eng.last_split)))
+        # every run, the reruns at the caps the first one grew included
+        tag = f"world {world} run {i}"
+        tri, rep = eng.state_triples(state), eng.state_rep(state)
+        if not np.array_equal(rep, np.load(spec["rho"])):
+            raise AssertionError(f"{tag}: rho differs from unsharded")
+        if not np.array_equal(np.sort(pack(tri)), np.load(spec["keys"])):
+            raise AssertionError(f"{tag}: triples differ from unsharded")
+        counters = {k: getattr(st, k) for k in COUNTERS}
+        if counters != spec["counters"]:
+            raise AssertionError(f"{tag}: counters {counters} != "
+                                 f"{spec['counters']}")
+        del state, tri, rep
+    return dict(runs=runs, route_cap_start=route_cap, route_cap=eng.route_cap,
+                graphs=eng.last_split["graphs"],
+                graphs_reason=eng.last_split.get("graphs_reason"))
+
+
+def _shard_rank(rank: int, world: int, spec_path: str) -> None:
+    """One rank of a phase-9 spawn: its device, its meshes, (a) and/or
+    (b)/(c); its record goes to ``rank<r>.json`` beside ``spec_path``."""
+    with open(spec_path, "rb") as f:
+        spec = pickle.load(f)
+    from repro_torch.launch.mesh import make_engine_mesh
+
+    device = _shard_device(spec["backend"], rank)
+    torch.cuda.set_device(torch.device(device))
+    mesh = make_engine_mesh(timeout_s=SHARD_TIMEOUT_S)
+    cpu_mesh = (mesh if spec["backend"] == "gloo" else
+                make_engine_mesh(backend="gloo", timeout_s=SHARD_TIMEOUT_S))
+    out = dict(rank=rank, world=world, backend=spec["backend"], device=device)
+    if spec["mid"]:
+        out["mid"] = _shard_mid(rank, world, mesh, cpu_mesh, device)
+    if spec["full"]:
+        out["full"] = _shard_full(rank, world, mesh, device, spec)
+    Path(spec_path).with_name(f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def sharded_phase(records: dict, kg: dict) -> None:
+    """Phase 9: the sharded engine on ``torch.distributed``, one process a
+    rank (spawned; the kernels were built by this process).  (a) mid size
+    at world 1 on NCCL and world 2 on the one card through gloo; (b) full
+    size at world 1 on NCCL; (c) full size at world 2 through gloo (which
+    carries CUDA tensors itself); on a machine with more cards, full size
+    at world = their count on NCCL."""
+    from repro_torch.core.triples import pack
+    from repro_torch.launch.mesh import spawn
+
+    work = ROOT / "build" / "sharded"
+    if work.exists():
+        shutil.rmtree(work)
+    work.mkdir(parents=True)
+    np.save(work / "facts.npy", kg["facts"])
+    np.save(work / "rho.npy", kg["rho"])
+    np.save(work / "keys.npy", np.sort(pack(kg["triples"])))
+    with open(work / "program.pkl", "wb") as f:
+        pickle.dump(kg["program"], f)
+    full = records["fullsize"]
+    shared = dict(facts=str(work / "facts.npy"), rho=str(work / "rho.npy"),
+                  keys=str(work / "keys.npy"), program=str(work / "program.pkl"),
+                  n_res=int(kg["dic"].n_resources), counters=kg["counters"])
+    worlds = [("world1_nccl", 1, "nccl", True), ("world2_gloo", 2, "gloo", True)]
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        worlds.append((f"world{n_cards}_nccl", n_cards, "nccl", False))
+    out = {"card": card_line(), "unsharded_fused_rerun_wall_s":
+           full["repeat_wall_s"]}
+    for label, world, backend, mid in worlds:
+        d = work / label
+        d.mkdir()
+        spec = dict(shared, backend=backend, mid=mid, full=True)
+        with open(d / "spec.pkl", "wb") as f:
+            pickle.dump(spec, f)
+        t0 = time.perf_counter()
+        spawn(_shard_rank, world, (str(d / "spec.pkl"),), backend=backend,
+              store_path=str(d / "store"), timeout_s=SHARD_TIMEOUT_S)
+        ranks = [json.loads((d / f"rank{r}.json").read_text())
+                 for r in range(world)]
+        out[label] = dict(wall_s=time.perf_counter() - t0, ranks=ranks)
+        for r in ranks:
+            if "mid" in r:
+                print(f"  {label} rank {r['rank']}: mid size, card == cpu per "
+                      f"rank, gathered == unsharded after each step: "
+                      f"{json.dumps(r['mid'])}", flush=True)
+            runs = r["full"]["runs"]
+            print(f"  {label} rank {r['rank']}: full size == unsharded after "
+                  f"every run; route_cap {r['full']['route_cap_start']} -> "
+                  f"{r['full']['route_cap']}; walls "
+                  f"{[x['wall_s'] for x in runs]} s, restarts "
+                  f"{[x['capacity_retries'] for x in runs]}, rounds {runs[0]['rounds']}, "
+                  f"launches {json.dumps(runs[0]['launches'])}, collectives "
+                  f"{json.dumps(runs[0]['collectives'])}, peak allocated "
+                  f"{runs[0]['max_memory_allocated']} B", flush=True)
+    print(f"  unsharded fused reruns (phase 5): {full['repeat_wall_s']} s",
+          flush=True)
+    records["sharded"] = out
+
+
 def search_census(ops, run) -> dict:
     """``run()`` (one REW materialisation) under torch.profiler with every
     search call classified: its form (both sides, left, right, prefix of
@@ -2822,6 +3058,9 @@ def main() -> None:
 
     phase("GNN inference on the sameAs-deduplicated KG (GatedGCN, PNA):")
     launches["segment_sum"] = gnn_phase(ops, records, kg)
+
+    phase("the sharded engine (torch.distributed), card == CPU == unsharded:")
+    sharded_phase(records, kg)
 
     phase("device times under torch.profiler (kernels, REW, updates, LM and FM serving):")
     for job in later:

@@ -51,6 +51,19 @@ reference's pure functions, :func:`process_candidates` writes the fresh rows
 into ``spo``/``epoch`` in place (the run owns its arena; a capacity restart
 starts from a fresh one), saving an arena copy per round.
 
+**Sharding** (pass ``mesh=``, an :class:`~repro_torch.launch.mesh.EngineMesh`):
+the reference's ``mesh=`` path, one process per rank.  Each rank holds its
+shard of the arena (a fact lives on shard ``subject % D``), its part of the
+index and a full copy of rho, and runs the same host logic; the round
+bodies take the mesh and move rows with :mod:`repro_torch.core.collectives`
+where the reference's ``shard_map`` bodies do: bindings are gathered
+between the atoms of a join, new sameAs pairs are gathered into the
+replicated union-find, candidate and sweep rows reach their owner by the
+gather-and-own filter or one all-to-all of ``(D, route_cap)`` buckets
+(:func:`_route_rows`), and every count and flag the host reads is reduced
+over the ranks first, so every rank takes every branch alike.  Under a mesh
+a fused round runs eagerly (no CUDA graph).
+
 ``TorchEngine.dispatches`` (:class:`~repro_torch.core.stats.DispatchCounter`)
 counts every unit of work the reference dispatches as one compiled call, by
 the reference's family names, under the maintenance phase the generators
@@ -73,6 +86,7 @@ from repro_torch.device import resolve
 from repro_torch.kernels import ops
 from repro_torch.kernels.merge import merge_sorted
 
+from . import collectives as coll
 from .materialise import Contradiction
 from .rules import Program, Rule
 from .stats import DispatchCounter, MatStats
@@ -190,6 +204,76 @@ def _compact(cols: dict, valid: torch.Tensor, cap: int):
     out_valid = j < n_valid
     out_cols = {v: torch.where(out_valid, c[src], 0) for v, c in cols.items()}
     return out_cols, out_valid, n_valid > cap
+
+
+def _gather_rows(rows: torch.Tensor, valid: torch.Tensor, mesh):
+    """Every rank's (N, k) ``rows`` (as int32) and their ``valid``, in rank
+    order, in one all-gather (``valid`` rides as a last column)."""
+    g = coll.all_gather(torch.cat([rows.to(I32), valid.to(I32)[:, None]], 1),
+                        mesh)
+    return g[:, :-1].contiguous(), g[:, -1] > 0
+
+
+def _gather_cols(cols: dict, valid: torch.Tensor, mesh):
+    """The reference's ``_gather`` of a binding table (each column, then
+    ``valid``) in one all-gather: the ranks' rows in rank order."""
+    names = list(cols)
+    rows = (torch.stack([cols[v].to(I32) for v in names], dim=1) if names
+            else torch.zeros((valid.shape[0], 0), dtype=I32, device=valid.device))
+    rows, valid = _gather_rows(rows, valid, mesh)
+    return {v: rows[:, i] for i, v in enumerate(names)}, valid
+
+
+def _route_rows(stream, flags, valid, mesh, route_cap: int | None):
+    """Owner-route an (N, 3) triple stream to shard ``subject % D``: the
+    reference's ``_route_rows`` (``engine_jax.py:382``), shared by the
+    round's insertion and the delete path's waves.  ``flags`` is an
+    optional (N, k) int32 side table that rides along.  Returns
+    ``(stream', flags', valid', overflow)``:
+
+      * no mesh: the identity;
+      * ``route_cap`` None: every rank gathers the whole stream and keeps
+        the rows it owns (``valid`` masked);
+      * else: each rank sorts its rows by owner (stable; invalid rows
+        last), puts the first ``route_cap`` of each owner into that
+        owner's bucket and exchanges the ``(D, route_cap, 3 + k + 1)``
+        buckets in one all-to-all; rows past ``route_cap`` set
+        ``overflow`` (the engine grows ``route_cap``).
+    """
+    dev = stream.device
+    if mesh is None:
+        return stream, flags, valid, torch.zeros((), dtype=torch.bool, device=dev)
+    D = mesh.world
+    if route_cap is None:
+        packed = [stream] + ([flags.to(I32)] if flags is not None else [])
+        g, valid = _gather_rows(torch.cat(packed, dim=1), valid, mesh)
+        stream = g[:, :3]
+        flags = g[:, 3:] if flags is not None else None
+        own = torch.remainder(stream[:, 0], D) == coll.axis_index(mesh)
+        return (stream.contiguous(), flags, valid & own,
+                torch.zeros((), dtype=torch.bool, device=dev))
+    k = 0 if flags is None else flags.shape[1]
+    n = stream.shape[0]
+    owner = torch.remainder(stream[:, 0], D).to(I32)
+    okey = torch.where(valid, owner, D)
+    so, order = torch.sort(okey, stable=True)
+    starts = torch.searchsorted(so, torch.arange(D, dtype=so.dtype, device=dev))
+    pos = torch.arange(n, device=dev) - starts[so.clamp(0, D - 1).to(I64)]
+    real = so < D
+    keep = real & (pos < route_cap)
+    overflow = (real & (pos >= route_cap)).any()
+    cols = [stream[order]]
+    if flags is not None:
+        cols.append(flags[order].to(I32))
+    cols.append(keep[:, None].to(I32))
+    payload = torch.cat(cols, dim=1)
+    trash = D * route_cap
+    buckets = torch.zeros((trash + 1, 3 + k + 1), dtype=I32, device=dev)
+    tgt = torch.where(keep, so.to(I64) * route_cap + pos, trash)
+    buckets.index_put_((tgt,), torch.where(keep[:, None], payload, 0))
+    recv = coll.all_to_all(buckets[:trash], mesh)
+    out_flags = recv[:, 3:3 + k] if flags is not None else None
+    return recv[:, :3].contiguous(), out_flags, recv[:, 3 + k] > 0, overflow
 
 
 def _index_remove(sort_perm, sorted_keys, dead, trash: int):
@@ -410,10 +494,15 @@ def _emit_heads(cols, valid, head_consts, head_var_slots: tuple, out_cap: int):
 
 def eval_plan(spo, epoch, marked, sorted_keys, sort_perm, r, atom_consts,
               head_consts, plan: tuple, head_var_slots: tuple, bind_cap: int,
-              out_cap: int, tomb=None):
+              out_cap: int, tomb=None, mesh=None):
     """Evaluate one plan at round ``r`` (an int or a 0-d tensor; a
     tombstone plan's wave).  ``tomb`` is the tombstone column the
     tombstone predicates read.
+
+    With a ``mesh`` each atom joins against the rank's shard and the
+    binding table is gathered between atoms, so every rank joins the whole
+    table; the final join's rows stay on their rank (their union over the
+    ranks is the plan's output) and the counts are the rank's own.
 
     ``atom_consts`` (n_atoms, 3) holds each body atom's IDs (variables'
     entries are ignored) and ``head_consts`` (3,) the head's: int32 tensors
@@ -447,6 +536,8 @@ def eval_plan(spo, epoch, marked, sorted_keys, sort_perm, r, atom_consts,
                 consts, spec, bind_cap, tomb,
             )
         overflow = overflow | ov
+        if mesh is not None and step < len(plan) - 1:
+            cols, valid = _gather_cols(cols, valid, mesh)
     out, out_valid, n_deriv, ov = _emit_heads(
         cols, valid, head_consts, head_var_slots, out_cap
     )
@@ -488,23 +579,27 @@ def build_rederive_plan(rule: Rule) -> tuple[list[_AtomSpec], tuple[int, ...]]:
 def eval_plan_rederive(spo, epoch, marked, sorted_keys, sort_perm, atom_consts,
                        head_consts, seeds, seed_valid, plan: tuple,
                        head_var_slots: tuple, seed_vars: tuple, bind_cap: int,
-                       out_cap: int, tomb=None):
+                       out_cap: int, tomb=None, mesh=None):
     """Head-bound rederivation join: the binding table starts from the seed
     columns ((m, len(seed_vars)) int32, one per head variable) instead of a
     store scan, so every join scales with the overdelete delta.  Returns
-    ``(heads, valid, n_deriv, bind_overflow, out_overflow)``."""
+    ``(heads, valid, n_deriv, bind_overflow, out_overflow)``.  With a
+    ``mesh`` the seeds are every rank's and the bindings are gathered
+    between atoms, as in :func:`eval_plan`."""
     dev = spo.device
     atom_consts = torch.as_tensor(atom_consts, dtype=I32, device=dev)
     head_consts = torch.as_tensor(head_consts, dtype=I32, device=dev)
     cols = {v: seeds[:, i].to(I32) for i, v in enumerate(seed_vars)}
     valid = seed_valid
     overflow = torch.zeros((), dtype=torch.bool, device=dev)
-    for spec in plan:  # PRED_TSTORE ignores the round
+    for step, spec in enumerate(plan):  # PRED_TSTORE ignores the round
         cols, valid, ov = _join_step(
             cols, valid, spo, epoch, marked, 0, sorted_keys, sort_perm,
             atom_consts[spec.index], spec, bind_cap, tomb,
         )
         overflow = overflow | ov
+        if mesh is not None and step < len(plan) - 1:
+            cols, valid = _gather_cols(cols, valid, mesh)
     out, out_valid, n_deriv, ov_out = _emit_heads(
         cols, valid, head_consts, head_var_slots, out_cap
     )
@@ -557,32 +652,47 @@ def _squeeze_stream(cands, valid, target: int):
     return torch.stack([cols["s"], cols["p"], cols["o"]], dim=1), v, ov
 
 
-def _merge_round(rep, cands, cand_valid):
+def _merge_round(rep, cands, cand_valid, mesh=None, route_cap=None,
+                 pair_cap: int = 4096):
     """Steps 1-3 of a round: normalise the candidates with rho, merge their
     sameAs pairs (one union and one compression) and normalise again under
-    the merged rho.  Returns ``(rep', cands', n_pairs)``."""
+    the merged rho.  Returns ``(rep', cands', n_pairs, pair_overflow)``,
+    ``n_pairs`` the pairs among this rank's own candidates.
+
+    With a mesh every rank merges the same pairs into its copy of rho
+    (min-hooking is order-free, so the copies stay equal): the gathered
+    stream's when candidates are gathered, else each rank's pairs
+    compacted to ``pair_cap`` rows and gathered (a rank with more sets
+    ``pair_overflow``; the engine grows ``pair_cap``)."""
     cands, _ = ops.rewrite_triples(cands, rep, valid=cand_valid)
     is_pair = cand_valid & (cands[:, 1] == SAME_AS) & (cands[:, 0] != cands[:, 2])
-    pairs = torch.stack([cands[:, 0], cands[:, 2]], dim=1)
-    rep = merge_pairs(rep, pairs, is_pair)
+    if mesh is not None and route_cap is not None:
+        pc, pvalid, p_ov = _compact({"a": cands[:, 0], "b": cands[:, 2]},
+                                    is_pair, pair_cap)
+        pairs, pvalid = _gather_rows(torch.stack([pc["a"], pc["b"]], dim=1),
+                                     pvalid, mesh)
+        rep = merge_pairs(rep, pairs, pvalid)
+        n_pairs = is_pair.sum()
+    else:
+        pairs = torch.stack([cands[:, 0], cands[:, 2]], dim=1)
+        rep = merge_pairs(rep, pairs, is_pair)
+        p_ov = torch.zeros((), dtype=torch.bool, device=cands.device)
+        if mesh is None:
+            n_pairs = is_pair.sum()
+        else:  # the gathered stream: count this rank's block
+            n_pairs = is_pair.view(mesh.world, -1)[coll.axis_index(mesh)].sum()
     cands, _ = ops.rewrite_triples(cands, rep, valid=cand_valid)
-    return rep, cands, is_pair.sum()
+    return rep, cands, n_pairs, p_ov
 
 
-def _fresh_rows(all_c, all_v, sorted_keys):
-    """Steps 5-8 of a round on the normalised candidates and swept rows:
-    the contradiction check (~=5), the reflexive expansion (Algorithm 4
-    lines 17-18: <c, sameAs, c> for each resource of each row, plus
-    <sameAs, sameAs, sameAs>), the stable dedup order of the stream and
-    its membership against the live rows through the persistent index.
-
-    Returns ``(stream, order, sk, fresh, is_refl, contradiction)``: the
-    stream's rows, their stable key order and the sorted keys, which sorted
-    positions hold a fresh fact, which of those the reflexive expansion
-    made (the stable order keeps a candidate occurrence of the same fact
-    ahead of them), and the contradiction bit.  No host read."""
+def _round_stream(all_c, all_v):
+    """Step 5-6 of a round: the contradiction check (~=5) on the
+    normalised candidates and swept rows, and the stream to insert: those
+    rows, their reflexive expansion (Algorithm 4 lines 17-18: <c, sameAs,
+    c> for each resource of each row) and <sameAs, sameAs, sameAs>.
+    Returns ``(stream, stream_valid, contradiction)``; the expansion's rows
+    are those from ``all_c.shape[0]`` on."""
     dev = all_c.device
-    C = sorted_keys.shape[0]
     contradiction = (
         all_v & (all_c[:, 1] == DIFFERENT_FROM) & (all_c[:, 0] == all_c[:, 2])
     ).any()
@@ -592,6 +702,20 @@ def _fresh_rows(all_c, all_v, sorted_keys):
     sa_row = torch.full((1, 3), SAME_AS, dtype=I32, device=dev)
     stream = torch.cat([all_c, refl, sa_row], dim=0)
     stream_v = torch.cat([all_v, res_valid, all_v.any().reshape(1)], dim=0)
+    return stream, stream_v, contradiction
+
+
+def _fresh_rows(stream, stream_v, is_refl_row, sorted_keys):
+    """Steps 7-8 of a round: the stable dedup order of the stream and its
+    membership against the live rows through the persistent index.
+
+    ``is_refl_row`` says which stream rows the reflexive expansion made:
+    an int (the rows from it on) or a bool column.  Returns ``(order, sk,
+    fresh, is_refl)``: the stream's stable key order and the sorted keys,
+    which sorted positions hold a fresh fact, and which of those the
+    reflexive expansion made (the stable order keeps a candidate
+    occurrence of the same fact ahead of them).  No host read."""
+    C = sorted_keys.shape[0]
     skeys = torch.where(stream_v, _pack3(stream), KEY_MAX)
     order = ops.dedup_order(skeys).to(I64)
     sk = skeys[order]
@@ -600,13 +724,28 @@ def _fresh_rows(all_c, all_v, sorted_keys):
     uniq &= sk < KEY_MAX
     pos = ops.searchsorted(sorted_keys, sk, side="left").to(I64).clamp_(0, C - 1)
     fresh = uniq & (sorted_keys[pos] != sk)
-    is_refl = fresh & (order >= all_c.shape[0])
-    return stream, order, sk, fresh, is_refl, contradiction
+    if isinstance(is_refl_row, int):
+        is_refl = fresh & (order >= is_refl_row)
+    else:
+        is_refl = fresh & is_refl_row[order]
+    return order, sk, fresh, is_refl
+
+
+def _stream_rows(width: int, rewrite_cap: int, mesh=None,
+                route_cap: int | None = None) -> int:
+    """Rows of a round's dedup stream on one rank: the candidates and the
+    swept rows (every rank's, when gathered), their reflexive expansion
+    and the sameAs row; or the routed buckets."""
+    if mesh is not None and route_cap is not None:
+        return mesh.world * route_cap
+    D = 1 if mesh is None else mesh.world
+    return 4 * D * (width + rewrite_cap) + 1
 
 
 def process_candidates(spo, epoch, marked, n_used, rep, sort_perm, sorted_keys,
                        cands, cand_valid, r, rewrite_cap: int,
-                       delta_window: int = 4096):
+                       delta_window: int = 4096, mesh=None,
+                       route_cap: int | None = None, pair_cap: int = 4096):
     """Normalise, merge equalities, sweep, insert — the state-update half of
     a host-loop round (Algorithms 3-6 in bulk), with no host read, as the
     reference's ``process_candidates``.
@@ -620,14 +759,17 @@ def process_candidates(spo, epoch, marked, n_used, rep, sort_perm, sorted_keys,
     plan-skipping masks from them; a round that inserts more than the
     window falls back to all-True masks.  ``spo`` and ``epoch`` are updated
     in place; on a store overflow the arena holds garbage and the caller
-    restarts the run (or rolls the update back).
+    restarts the run (or rolls the update back).  The flags are the rank's
+    own under a mesh (the host reduces them).
     """
     arena_cap = spo.shape[0] - 1
     used = n_used.reshape(()).to(I64)
     (spo, epoch, new_marked, n_used, new_rep, sort_perm, sorted_keys,
      flags) = process_static(spo, epoch, marked, n_used, rep, sort_perm,
-                             sorted_keys, cands, cand_valid, r, rewrite_cap)
-    window = min(4 * (cands.shape[0] + rewrite_cap) + 1, delta_window)
+                             sorted_keys, cands, cand_valid, r, rewrite_cap,
+                             mesh=mesh, route_cap=route_cap, pair_cap=pair_cap)
+    window = min(_stream_rows(cands.shape[0], rewrite_cap, mesh, route_cap),
+                 delta_window)
     j = torch.arange(window, device=spo.device)
     delta_valid = j < flags["n_new"]
     rows = spo[(used + j).clamp_(max=arena_cap)]
@@ -641,7 +783,8 @@ def process_candidates(spo, epoch, marked, n_used, rep, sort_perm, sorted_keys,
 
 
 def process_static(spo, epoch, marked, n_used, rep, sort_perm, sorted_keys,
-                   cands, cand_valid, r, rewrite_cap: int):
+                   cands, cand_valid, r, rewrite_cap: int, mesh=None,
+                   route_cap: int | None = None, pair_cap: int = 4096):
     """The state update of one round at static shapes, with no host read:
     the body of a fused round (the reference's ``process_candidates``,
     which the fused ``lax.while_loop`` inlines) and of
@@ -662,19 +805,32 @@ def process_static(spo, epoch, marked, n_used, rep, sort_perm, sorted_keys,
         slot: the same rows, and the stream's padding makes no writes,
       * every count and overflow bit is a 0-d tensor of ``flags``.
 
+    With a ``mesh`` (the reference's ``shard_map`` body): without
+    ``route_cap`` the candidates and the swept rows are gathered, so every
+    rank sees the global stream and inserts the rows it owns; with it each
+    rank expands its own rows and routes them to their owners
+    (:func:`_route_rows`), and only the sameAs pairs are gathered.  The
+    counts are the rank's own and the bits its local ones (rho and the
+    gathered stream's contradiction are the same on every rank); the
+    caller reduces them.
+
     ``epoch`` is updated in place and ``spo`` too; the rest comes back
     new.  Returns ``(spo, epoch, marked, n_used, rep, sort_perm,
     sorted_keys, flags)`` with ``flags`` the tensors ``contradiction``,
-    ``ov_rewrite``, ``ov_store``, ``n_new``, ``n_pairs`` and
-    ``n_reflexive``.  On a store overflow the arena holds garbage: the
-    caller restarts the run.
+    ``ov_rewrite``, ``ov_store``, ``ov_route``, ``ov_pair``, ``n_new``,
+    ``n_pairs`` and ``n_reflexive``.  On a store overflow the arena holds
+    garbage: the caller restarts the run.
     """
     dev = spo.device
     arena_cap = spo.shape[0] - 1  # last row is the trash slot
     C = sorted_keys.shape[0]
+    routed = mesh is not None and route_cap is not None
+    if mesh is not None and not routed:
+        cands, cand_valid = _gather_rows(cands, cand_valid, mesh)
 
     # 1)-3) normalise, merge sameAs pairs, re-normalise under the new rho
-    rep, cands, n_pairs = _merge_round(rep, cands, cand_valid)
+    rep, cands, n_pairs, ov_pair = _merge_round(rep, cands, cand_valid, mesh,
+                                                route_cap, pair_cap)
 
     # 4) sweep the store, every round
     rewritten, changed = ops.rewrite_triples(spo, rep, epoch=epoch, marked=marked)
@@ -686,12 +842,28 @@ def process_static(spo, epoch, marked, n_used, rep, sort_perm, sorted_keys,
     rw = torch.stack([rw_cols["s"], rw_cols["p"], rw_cols["o"]], dim=1)
     sort_perm, sorted_keys = _index_remove(sort_perm, sorted_keys, changed,
                                            arena_cap)
+    if mesh is not None and not routed:
+        rw, rw_valid = _gather_rows(rw, rw_valid, mesh)
     all_c = torch.cat([cands, rw], dim=0)
     all_v = torch.cat([cand_valid, rw_valid], dim=0)
 
-    # 5)-8) contradiction check, reflexivity, dedup, membership
-    stream, order, sk, fresh, is_refl, contradiction = _fresh_rows(
-        all_c, all_v, sorted_keys)
+    # 5)-6) contradiction check, reflexivity; the rows each rank inserts
+    stream, stream_v, contradiction = _round_stream(all_c, all_v)
+    is_refl_row = all_c.shape[0]
+    ov_route = torch.zeros((), dtype=torch.bool, device=dev)
+    if routed:
+        refl_col = (torch.arange(stream.shape[0], device=dev)
+                    >= all_c.shape[0]).to(I32)[:, None]
+        stream, refl_col, stream_v, ov_route = _route_rows(
+            stream, refl_col, stream_v, mesh, route_cap)
+        is_refl_row = refl_col[:, 0] > 0
+    elif mesh is not None:
+        own = torch.remainder(stream[:, 0], mesh.world) == coll.axis_index(mesh)
+        stream_v = stream_v & own
+
+    # 7)-8) dedup, membership
+    order, sk, fresh, is_refl = _fresh_rows(stream, stream_v, is_refl_row,
+                                            sorted_keys)
     n_fresh = fresh.sum()
     n_refl = is_refl.sum()
     used = n_used.reshape(()).to(I64)
@@ -718,6 +890,8 @@ def process_static(spo, epoch, marked, n_used, rep, sort_perm, sorted_keys,
         "contradiction": contradiction,
         "ov_rewrite": rw_overflow,
         "ov_store": insert_overflow,
+        "ov_route": ov_route,
+        "ov_pair": ov_pair,
         "n_new": n_fresh,
         "n_pairs": n_pairs,
         "n_reflexive": n_refl,
@@ -725,28 +899,36 @@ def process_static(spo, epoch, marked, n_used, rep, sort_perm, sorted_keys,
     return spo, epoch, marked, n_used, rep, sort_perm, sorted_keys, flags
 
 
-def index_invariant_report(state: "EngineState") -> list[str]:
+def index_invariant_report(state: "EngineState", n_shards: int = 1) -> list[str]:
     """Violations of the persistent-index invariant (empty == healthy).
 
-    ``sorted_keys`` must hold exactly the packed keys of the live rows,
-    ascending, followed by KEY_MAX padding, and ``sort_perm``'s prefix must
-    enumerate exactly those rows.
+    Per shard block: ``sorted_keys`` must hold exactly the packed keys of
+    the live rows, ascending, followed by KEY_MAX padding, and
+    ``sort_perm``'s prefix must enumerate exactly those rows.  ``state``
+    holds the arrays of all ``n_shards`` shards, concatenated in shard
+    order (:meth:`TorchEngine.gathered_state` under a mesh).  A state whose
+    index awaits its rebuild is reported as such.
     """
+    if state.index_dirty:
+        return ["index_dirty: rebuild pending"]
     probs: list[str] = []
-    spo = state.spo.cpu().numpy()
-    live = (state.epoch.cpu().numpy() >= 0) & ~state.marked.cpu().numpy()
-    keys = state.sorted_keys.cpu().numpy()
-    perm = state.sort_perm.cpu().numpy()
-    want = np.sort(pack(spo[live]))
-    n = want.shape[0]
-    if not (keys[n:] == KEY_MAX).all():
-        probs.append("non-sentinel entries beyond live prefix")
-    if not np.array_equal(keys[:n], want):
-        probs.append("sorted_keys != sort(pack3(live rows))")
-    if not np.array_equal(np.sort(perm[:n]), np.flatnonzero(live)):
-        probs.append("sort_perm prefix is not the live row set")
-    if not np.array_equal(pack(spo[perm[:n]]), keys[:n]):
-        probs.append("sort_perm rows disagree with sorted_keys")
+    spo = state.spo.cpu().numpy().reshape(n_shards, -1, 3)
+    live = ((state.epoch.cpu().numpy() >= 0)
+            & ~state.marked.cpu().numpy()).reshape(n_shards, -1)
+    keys = state.sorted_keys.cpu().numpy().reshape(n_shards, -1)
+    perm = state.sort_perm.cpu().numpy().reshape(n_shards, -1)
+    for s in range(n_shards):
+        tag = f"shard {s}: " if n_shards > 1 else ""
+        want = np.sort(pack(spo[s][live[s]]))
+        n = want.shape[0]
+        if not (keys[s][n:] == KEY_MAX).all():
+            probs.append(tag + "non-sentinel entries beyond live prefix")
+        if not np.array_equal(keys[s][:n], want):
+            probs.append(tag + "sorted_keys != sort(pack3(live rows))")
+        if not np.array_equal(np.sort(perm[s][:n]), np.flatnonzero(live[s])):
+            probs.append(tag + "sort_perm prefix is not the live row set")
+        if not np.array_equal(pack(spo[s][perm[s][:n]]), keys[s][:n]):
+            probs.append(tag + "sort_perm rows disagree with sorted_keys")
     return probs
 
 
@@ -1042,8 +1224,9 @@ class RoundLog:
 
 
 # what the host loop reads of process_candidates' flags each round
-_ROUND_READ = ("ov_store", "ov_rewrite", "contradiction", "rep_changed",
-               "n_new", "n_pairs", "n_reflexive")
+_ROUND_READ = ("ov_store", "ov_rewrite", "ov_route", "ov_pair",
+               "contradiction", "rep_changed", "n_new", "n_pairs",
+               "n_reflexive")
 
 
 class TorchEngine:
@@ -1073,7 +1256,16 @@ class TorchEngine:
     delete path to a multiple of it (one call a batch).  ``last_split``
     holds the last call's wall split.  ``dispatches`` counts the units of
     work by the reference's family names (graph captures under
-    ``compiles``).
+    ``compiles``), on this rank.
+
+    ``mesh`` (an :class:`~repro_torch.launch.mesh.EngineMesh`) shards the
+    engine over its ranks, one process each, as the reference's ``mesh=``
+    does over its devices: every capacity is then per rank, ``route_cap``
+    (None: gather every candidate on every rank) sizes the owner-routing
+    buckets and ``pair_cap`` the sameAs pairs each rank sends; every rank
+    makes the same calls in the same order, with the same arguments (the
+    state it returns is its shard).  The rounds run eagerly under a mesh
+    (``last_split["graphs"]`` is False, with the reason).
     """
 
     def __init__(
@@ -1089,6 +1281,8 @@ class TorchEngine:
         seed_chunk: int = 2048,
         delta_out_cap: int | None = None,
         rederive_mode: str = "targeted",
+        mesh=None,
+        route_cap: int | None = None,
     ) -> None:
         self.device = resolve(device, "TorchEngine")
         self.n_resources = n_resources
@@ -1096,6 +1290,12 @@ class TorchEngine:
         self.bind_cap = bind_cap
         self.out_cap = out_cap
         self.rewrite_cap = rewrite_cap
+        self.mesh = mesh
+        self.n_shards = 1 if mesh is None else int(mesh.world)
+        self.route_cap = route_cap
+        # the sameAs pair rows each rank sends in routed mode; grows on its
+        # own, so a burst of pairs is not taken for a route overflow
+        self.pair_cap = min(out_cap, 4096)
         # bounded per-round window of fresh rows the host reads back for the
         # next round's plan-skipping masks; rounds that insert more fall back
         # to all-True masks (sound, unfiltered; stats.delta_mask_fallbacks)
@@ -1113,7 +1313,8 @@ class TorchEngine:
         self._fallback_since: int | None = None
         self._set_update_buffers(False)
         self._graphs: dict = {}  # captured fused rounds and waves by key
-        self._use_graphs = self.device.type == "cuda"
+        # a graph cannot hold the collectives of a mesh: eager rounds there
+        self._use_graphs = self.device.type == "cuda" and mesh is None
         self._graph = None  # the RoundGraph the last fused round ran on
         # the runtime half of the dispatch auditor: every unit of work the
         # reference dispatches as a compiled call, by family and phase
@@ -1139,25 +1340,29 @@ class TorchEngine:
         self._active_rewrite_kind = "delta_rewrite" if narrow else "rewrite"
 
     @classmethod
-    def from_config(cls, cfg, **overrides):
+    def from_config(cls, cfg, mesh=None, **overrides):
         """An engine from a :mod:`repro_torch.configs.sameas_rew`
-        ``EngineConfig``; ``overrides`` replace its fields or add engine
-        arguments (``device``, ``fuse_rounds``, ...).  The config's
-        ``route_cap`` (owner routing between shards) has no counterpart on
-        one device and is ignored, as the reference ignores it without a
-        mesh."""
+        ``EngineConfig``, on ``mesh`` if given; ``overrides`` replace its
+        fields or add engine arguments (``device``, ``fuse_rounds``, ...).
+        The config's ``route_cap`` (owner routing between shards) is
+        honoured; without a mesh it routes nothing, as in the reference."""
         kw = dict(
             n_resources=cfg.n_resources,
             capacity=cfg.capacity,
             bind_cap=cfg.bind_cap,
             out_cap=cfg.out_cap,
             rewrite_cap=cfg.rewrite_cap,
+            route_cap=cfg.route_cap,
             seed_chunk=cfg.seed_chunk,
             delta_out_cap=cfg.delta_out_cap,
         )
         kw.update(overrides)
-        kw.pop("route_cap", None)
-        return cls(**kw)
+        return cls(mesh=mesh, **kw)
+
+    @property
+    def _route(self) -> int | None:
+        """The route buckets' rows, under a mesh only."""
+        return self.route_cap if self.mesh is not None else None
 
     @property
     def captures(self) -> int:
@@ -1193,10 +1398,17 @@ class TorchEngine:
                 setattr(self, kind, getattr(self, kind) * 2)
             self._delta_fallback = True
             self._fallback_since = None
+        elif kind == "pair":
+            self.pair_cap *= 2
+        elif kind == "route" and self.route_cap is not None:
+            self.route_cap *= 2
         else:  # an unknown kind grows everything
             for attr in ("capacity", "bind_cap", "delta_bind", "out_cap",
-                         "delta_out", "rewrite_cap", "delta_rewrite"):
+                         "delta_out", "rewrite_cap", "delta_rewrite",
+                         "pair_cap"):
                 setattr(self, attr, getattr(self, attr) * 2)
+            if self.route_cap is not None:
+                self.route_cap *= 2
         self._set_update_buffers(self._active_delta_kind == "delta_out")
         self._free_graphs()
 
@@ -1215,8 +1427,10 @@ class TorchEngine:
     def _presize_delta(self, n_rows: int) -> None:
         """Grow the delta buffers (and, past them, the wide ones) to hold a
         known cardinality — the admitted batch, the overdeleted rows — at a
-        phase boundary, with no restart; at least the minimum width."""
-        need = _pow2(max(int(n_rows), 1))
+        phase boundary, with no restart; at least the minimum width.
+        ``n_rows`` is global and the caps per rank, so the width is its
+        share of the ranks."""
+        need = _pow2(-(-max(int(n_rows), 1) // self.n_shards))
         grew = False
         for attr, wide in (("delta_out", "out_cap"), ("delta_bind", "bind_cap"),
                            ("delta_rewrite", "rewrite_cap")):
@@ -1247,16 +1461,23 @@ class TorchEngine:
             sorted_keys=torch.full((cap + 1,), KEY_MAX, dtype=I64, device=dev),
             program=program,
             r=0,
-            stats=MatStats(mode="REW-torch"),
+            stats=MatStats(mode="REW-torch" + ("-spmd" if self.mesh is not None
+                                                 else "")),
         )
 
     def _pad_cands(self, rows: np.ndarray):
         """Pad a host candidate batch to the active stream width: the
-        narrow ``delta_out`` during updates, ``out_cap`` in the base run."""
+        narrow ``delta_out`` during updates, ``out_cap`` in the base run.
+        Under a mesh the batch is padded to the width times the ranks and
+        each rank takes its block of rows, as the reference's ``P(axis)``
+        splits the padded stream."""
         rows = np.asarray(rows, np.int32).reshape(-1, 3)
         width = self._active_delta_out
-        if rows.shape[0] > width:
+        if rows.shape[0] > width * self.n_shards:
             raise CapacityError(self._active_delta_kind)
+        if self.mesh is not None:
+            me = coll.axis_index(self.mesh)
+            rows = rows[me * width:(me + 1) * width]
         cands = torch.zeros((width, 3), dtype=I32, device=self.device)
         cands[: rows.shape[0]] = torch.from_numpy(rows).to(self.device)
         cand_valid = torch.arange(width, device=self.device) < rows.shape[0]
@@ -1356,11 +1577,16 @@ class TorchEngine:
     def _bucket_cands(self, bufs):
         """Concatenate plan output buffers, padding each width group with
         empty buffers to a power-of-two count (the reference's bucketing,
-        kept so the candidate stream has the same rows in the same order)."""
+        kept so the candidate stream has the same rows in the same order).
+
+        Under a mesh each buffer is a rank's block of a global buffer, and
+        the reference concatenates the global buffers and splits the result
+        by rows again, so a rank's block of the stream holds other ranks'
+        rows: every rank gathers the blocks and takes its own."""
         groups: dict[int, list] = {}
         for b in bufs:
             groups.setdefault(int(b[0].shape[0]), []).append(b)
-        heads, valids = [], []
+        heads, valids, widths = [], [], []
         for rows, bs in sorted(groups.items()):
             total = 1
             while total < len(bs):
@@ -1368,23 +1594,63 @@ class TorchEngine:
             pad = total - len(bs)
             heads += [b[0] for b in bs]
             valids += [b[1] for b in bs]
+            widths += [rows] * len(bs)
             if pad:
                 heads.append(torch.zeros((rows * pad, 3), dtype=I32,
                                          device=self.device))
                 valids.append(torch.zeros(rows * pad, dtype=torch.bool,
                                           device=self.device))
-        return torch.cat(heads, dim=0), torch.cat(valids, dim=0)
+                widths += [rows] * pad
+        cands, valid = torch.cat(heads, dim=0), torch.cat(valids, dim=0)
+        if self.mesh is None:
+            return cands, valid
+        D, n = self.n_shards, cands.shape[0]
+        rows, ok = _gather_rows(cands, valid, self.mesh)
+        rows, ok = rows.view(D, n, 3), ok.view(D, n)
+        parts, oks, at = [], [], 0
+        for w in widths:  # each global buffer: its rank blocks in order
+            parts.append(rows[:, at:at + w].reshape(D * w, 3))
+            oks.append(ok[:, at:at + w].reshape(D * w))
+            at += w
+        me = coll.axis_index(self.mesh)
+        mine = slice(me * n, (me + 1) * n)
+        return torch.cat(parts, dim=0)[mine], torch.cat(oks, dim=0)[mine]
+
+    def _psum_host(self, values: torch.Tensor) -> np.ndarray:
+        """One host read of a vector of counts and bits (int64), summed
+        over the ranks under a mesh: a bit read ``> 0`` is any rank's."""
+        if self.mesh is not None:
+            values = coll.psum(values, self.mesh)
+        return self._log.read(values.cpu().numpy)
 
     def _refresh_stats(self, state: EngineState) -> None:
-        """The store's counters, in one host read."""
+        """The store's counters, in one host read (the rows of every rank's
+        shard; rho is the same on each)."""
         ids = torch.arange(state.n_res, dtype=I32, device=self.device)
         stats = state.stats
+        used = state.n_used.sum().to(I64)
+        if self.mesh is not None:
+            used = coll.psum(used, self.mesh)
         stats.triples_total, stats.merged_resources = torch.stack([
-            state.n_used.sum().to(I64), (state.rep != ids).sum()]).tolist()
+            used, (state.rep != ids).sum()]).tolist()
         stats.triples_explicit = int(state.explicit.shape[0])
 
+    def gathered_state(self, state: EngineState) -> EngineState:
+        """Under a mesh, the state with every rank's shard of the arena,
+        ``n_used`` and the index concatenated in shard order: the global
+        arrays of the reference's state (rho and the rest are shared).
+        Without one, ``state``."""
+        if self.mesh is None:
+            return state
+        arrays = {f: coll.all_gather(getattr(state, f), self.mesh)
+                  for f in ("spo", "epoch", "marked", "tomb", "n_used",
+                            "sort_perm", "sorted_keys")}
+        return dataclasses.replace(state, **arrays)
+
     def state_triples(self, state: EngineState) -> np.ndarray:
-        """The current normal-form store as a host (n, 3) array."""
+        """The current normal-form store as a host (n, 3) array (every
+        shard's rows, in shard order, under a mesh)."""
+        state = self.gathered_state(state)
         live = (state.epoch >= 0) & ~state.marked
         state.stats.triples_unmarked = int(live.sum())
         return state.spo[live].cpu().numpy()
@@ -1407,8 +1673,11 @@ class TorchEngine:
         flight).  With a clean sorted index the live rows come out through
         it, in packed-key order; otherwise by a scan of the arena."""
         if sorted_keys is not None and not index_dirty:
-            live = sort_perm[sorted_keys < KEY_MAX]
-            triples = spo[live.to(I64)].cpu().numpy()
+            D = self.n_shards
+            perm = sort_perm.view(D, -1).to(I64)
+            base = torch.arange(D, device=perm.device)[:, None] * perm.shape[1]
+            live = (perm + base)[sorted_keys.view(D, -1) < KEY_MAX]
+            triples = spo[live].cpu().numpy()
         else:
             triples = spo[(epoch >= 0) & ~marked].cpu().numpy()
         triples.setflags(write=False)  # shared by every reader at this epoch
@@ -1416,7 +1685,10 @@ class TorchEngine:
 
     def read_snapshot(self, state: EngineState) -> StoreSnapshot:
         """Epoch-versioned host snapshot (host triples and a frozen rho);
-        valid at an epoch barrier only (no update in flight on ``state``)."""
+        valid at an epoch barrier only (no update in flight on ``state``).
+        Under a mesh the triples are every shard's, in shard order, each
+        shard's in key order."""
+        state = self.gathered_state(state)
         snap = self.snapshot_arrays(
             state.spo, state.epoch, state.marked, state.rep, state.update_epoch,
             sort_perm=state.sort_perm, sorted_keys=state.sorted_keys,
@@ -1439,7 +1711,16 @@ class TorchEngine:
         write.  ``last_publish`` gets the stage times in ms: ``gather``
         and ``sort`` (device time on the card), ``read`` and ``rho``
         (host clock).  Dispatches count under the ``"publish"`` phase.
+
+        Under a mesh it takes the host path, :meth:`read_snapshot`, as the
+        reference does: the shards' sorted blocks are no globally sorted
+        view, and the serving tier is single-device.
         """
+        if self.mesh is not None:
+            snap = self.read_snapshot(state)
+            if prev is not None:
+                snap.rho = prev.rho.refreshed(self.state_rep(state))
+            return snap
         clock = _StageClock(self.device)
         prev_phase = self.dispatches.phase
         self.dispatches.phase = "publish"
@@ -1516,8 +1797,9 @@ class TorchEngine:
         return True
 
     def _read_ints(self, tensors) -> list[int]:
-        """One host read of a plan's 0-d counts and overflow bits."""
-        return self._log.read(torch.stack([t.to(I64) for t in tensors]).tolist)
+        """One host read of a plan's 0-d counts and overflow bits (summed
+        over the ranks under a mesh)."""
+        return self._psum_host(torch.stack([t.to(I64) for t in tensors])).tolist()
 
     def _eval_rule(self, state: EngineState, r: int, k: int, mode: str,
                    stats: MatStats | None, delta_masks: np.ndarray | None = None):
@@ -1546,6 +1828,7 @@ class TorchEngine:
                 state.spo, state.epoch, state.marked, state.sorted_keys,
                 state.sort_perm, r, atom_consts[k], head_consts[k],
                 tuple(plan), head_slots, bind_cap, out_cap, tomb=state.tomb,
+                mesh=self.mesh,
             )
             n_d, n_a, ov_bind, ov_out = self._read_ints(counts)
             if ov_bind:
@@ -1581,6 +1864,7 @@ class TorchEngine:
             state.sort_perm, r, atom_consts, head_consts,
             tuple(build_merge_plan(rule, anchor)), head_slots,
             self._active_bind, self._active_delta_out, tomb=state.tomb,
+            mesh=self.mesh,
         )
         n_d, n_a, ov_bind, ov_out = self._read_ints(counts)
         if ov_bind:
@@ -1616,7 +1900,7 @@ class TorchEngine:
             state.spo, state.epoch, state.marked, state.sorted_keys,
             state.sort_perm, atom_consts, head_consts, seeds_t, valid_t,
             tuple(plan), head_slots, seed_vars, self._active_bind,
-            self._active_delta_out, tomb=state.tomb,
+            self._active_delta_out, tomb=state.tomb, mesh=self.mesh,
         )
         n_d, ov_bind, ov_out = self._read_ints(counts)
         if ov_bind:
@@ -1624,6 +1908,8 @@ class TorchEngine:
         if ov_out:
             raise CapacityError(self._active_delta_kind)
         stats.derivations += n_d
+        if self.mesh is not None:  # every rank's rows, in rank order
+            out, valid = _gather_rows(out, valid, self.mesh)
         return self._log.read(lambda: out[valid].cpu().numpy())
 
     def _stream_of(self, bufs, had_full: bool):
@@ -1634,12 +1920,15 @@ class TorchEngine:
         cands, cand_valid = self._bucket_cands(bufs)
         target = self.out_cap if had_full else self._active_delta_out
         kind = "out" if had_full else self._active_delta_kind
+        sq_ov = torch.zeros((), dtype=torch.bool, device=self.device)
         if cands.shape[0] > target:
             self.dispatches.record("squeeze")
             cands, cand_valid, sq_ov = _squeeze_stream(cands, cand_valid, target)
-            if self._log.read(lambda: bool(sq_ov)):
-                raise CapacityError(kind)
-        return cands, cand_valid, self._log.read(lambda: bool(cand_valid.any()))
+        ov, have = self._psum_host(
+            torch.stack([sq_ov, cand_valid.any()]).to(I64)).tolist()
+        if ov:
+            raise CapacityError(kind)
+        return cands, cand_valid, bool(have)
 
     def _round_plans(self, state: EngineState, r: int, merge_q, full_q,
                      stats: MatStats, delta_masks=None, with_delta=True):
@@ -1675,6 +1964,7 @@ class TorchEngine:
         """
         stats = state.stats
         log = self._log
+        mesh = self.mesh
         requeued = list(requeued)
         rounds_here = 0
         have_cands = True
@@ -1700,17 +1990,23 @@ class TorchEngine:
              state.sort_perm, state.sorted_keys, fl) = process_candidates(
                 state.spo, state.epoch, state.marked, state.n_used, state.rep,
                 state.sort_perm, state.sorted_keys, cands, cand_valid, r,
-                self._active_rewrite, self.delta_window,
+                self._active_rewrite, self.delta_window, mesh=mesh,
+                route_cap=self._route, pair_cap=self.pair_cap,
             )
-            # the round's one host read: its counts and bits, then the delta
-            host = log.read(lambda: torch.cat([
+            # the round's one host read: its counts and bits, then the
+            # delta (every rank's, gathered in rank order, under a mesh)
+            vec = torch.cat([
                 torch.stack([fl[k].to(I64).reshape(()) for k in _ROUND_READ]),
-                fl["delta_rows"].reshape(-1).to(I64)]).cpu().numpy())
-            flags = dict(zip(_ROUND_READ, host[:len(_ROUND_READ)].tolist()))
-            if flags["ov_store"]:
-                raise CapacityError("store")
-            if flags["ov_rewrite"]:
-                raise CapacityError(self._active_rewrite_kind)
+                fl["delta_rows"].reshape(-1).to(I64)])
+            if mesh is not None:
+                vec = coll.all_gather(vec, mesh)
+            host = log.read(lambda: vec.view(self.n_shards, -1).cpu().numpy())
+            per_rank = host[:, :len(_ROUND_READ)]
+            flags = dict(zip(_ROUND_READ, per_rank.sum(axis=0).tolist()))
+            for kind in ("store", "rewrite", "route", "pair"):
+                if flags["ov_" + kind]:
+                    raise CapacityError(
+                        self._active_rewrite_kind if kind == "rewrite" else kind)
             if flags["contradiction"]:
                 raise Contradiction("owl:differentFrom violation")
             stats.sameas_pairs += flags["n_pairs"]
@@ -1727,14 +2023,16 @@ class TorchEngine:
             delta_masks = None
             n_new = flags["n_new"]
             if n_new > 0:
-                d_rows = host[len(_ROUND_READ):].reshape(-1, 3)
-                if d_rows.shape[0] < n_new:
+                d_rows = host[:, len(_ROUND_READ):].reshape(self.n_shards, -1, 3)
+                n_rank = per_rank[:, _ROUND_READ.index("n_new")]
+                if (n_rank > d_rows.shape[1]).any():
                     stats.delta_mask_fallbacks += 1
                     delta_masks = np.ones((3, state.n_res), dtype=bool)
                 else:
                     delta_masks = np.zeros((3, state.n_res), dtype=bool)
-                    for pos in range(3):
-                        delta_masks[pos][d_rows[:n_new, pos]] = True
+                    for rows, n in zip(d_rows, n_rank):
+                        for pos in range(3):
+                            delta_masks[pos][rows[:n, pos]] = True
             cands, cand_valid, have_cands = self._round_plans(
                 state, r + 1, merge_q, requeued, stats, delta_masks,
                 with_delta=n_new > 0)
@@ -1788,7 +2086,8 @@ class TorchEngine:
             state, cands, cand_valid, rounds_left, plans=plans,
             rewrite_cap=self._active_rewrite, bind_cap=self._active_bind,
             plan_out_cap=self._active_delta_out, log=self._log, graph=graph,
-            dispatches=self.dispatches,
+            dispatches=self.dispatches, mesh=self.mesh,
+            route_cap=self._route, pair_cap=self.pair_cap,
         )
         iters = fl["iters"]
         state.r += iters
@@ -1797,10 +2096,10 @@ class TorchEngine:
         stats.reflexive_added += fl["n_reflexive"]
         stats.derivations += fl["n_reflexive"] + fl["n_deriv"]
         stats.rule_applications += fl["n_appl"]
-        if fl["ov_store"]:
-            raise CapacityError("store")
-        if fl["ov_rewrite"]:
-            raise CapacityError(self._active_rewrite_kind)
+        for kind in ("store", "rewrite", "route", "pair"):
+            if fl["ov_" + kind]:
+                raise CapacityError(
+                    self._active_rewrite_kind if kind == "rewrite" else kind)
         if fl["contradiction"]:
             raise Contradiction("owl:differentFrom violation")
         if fl["ov_bind"]:
@@ -1837,7 +2136,13 @@ class TorchEngine:
                 self._set_update_buffers(False)
                 state = self._fresh_state(program)
                 cands, cand_valid = self._pad_cands(facts)
-                sk, first = self._distinct_keys(cands, cand_valid)
+                if self.mesh is None:
+                    sk, first = self._distinct_keys(cands, cand_valid)
+                else:  # every rank keeps the whole explicit set
+                    all_f = torch.from_numpy(facts).to(self.device)
+                    sk, first = self._distinct_keys(
+                        all_f, torch.ones(all_f.shape[0], dtype=torch.bool,
+                                          device=self.device))
                 self._forward(state, cands, cand_valid, [], max_rounds)
                 break
             except CapacityError as e:
@@ -1848,9 +2153,18 @@ class TorchEngine:
         self._refresh_stats(state)
         state.stats.wall_seconds += time.perf_counter() - t0
         self.last_split = self._log.finish()
+        self.last_split.update(self._graphs_note())
         if self._graph is not None:
             self.last_split["capture_s"] = self._graph.capture_s
         return state
+
+    def _graphs_note(self) -> dict:
+        """Whether the rounds ran as CUDA graphs, and why not if not."""
+        if self._use_graphs:
+            return dict(graphs=True)
+        why = ("a graph cannot hold the mesh's collectives"
+               if self.mesh is not None else "the CPU has no graphs")
+        return dict(graphs=False, graphs_reason=why)
 
     def materialise(self, facts, program: Program, max_rounds: int = 10_000):
         """REW materialisation: ``(live triples, compressed rho, stats)``."""
@@ -1902,7 +2216,8 @@ class TorchEngine:
         state.stats.wall_seconds += time.perf_counter() - t0
         self.last_split = dict(self._log.finish(), op=op, phases=marks,
                                retries_s=ta - t0, attempt_s=end - ta,
-                               attempts=attempts, captures=self.captures - captures0)
+                               attempts=attempts, captures=self.captures - captures0,
+                               **self._graphs_note())
         return state
 
     def materialise_incremental(self, facts, program: Program, updates,

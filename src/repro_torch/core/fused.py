@@ -38,6 +38,17 @@ rewrites the program and evaluates the round again), or after ``max_inner``
 rounds.  Every delta plan runs every round: there is no delta-mask skipping
 (a skipped plan matches no row, so the counters are the same).
 
+Under a mesh (the reference's ``shard_map``'d loops) the bodies take the
+mesh and run eagerly on every rank: a CUDA graph cannot hold the
+collectives.  Each rank folds the round's local counts and bits into one
+vector, and one all-reduce of it (:func:`_reduce_round`, the reference's
+``psum`` of ``n_new`` and ``_pany`` of the overflow bits, packed) makes the
+flags the same on every rank before the host reads them, so every rank
+leaves the loop at the same round.  The round's own early exit (its
+nullified plan evaluation) decides on the rank's bits: every bit but
+``consts_changed``, which rho makes the same on every rank, raises on the
+host after the loop, so no state of such a round is kept.
+
 Each round counts one ``fforward`` dispatch and each wave one ``fwave``
 (the reference counts one of each for a whole stretch of rounds or waves,
 its ``lax.while_loop``); a capture counts under ``compiles``.  Both bodies
@@ -54,6 +65,7 @@ import torch
 
 from repro_torch.kernels import ops
 
+from . import collectives as coll
 from .engine import (
     I32,
     I64,
@@ -88,11 +100,13 @@ _NULL_ROUND = -(1 << 20)
 # overflow and exit bits are sticky, ``have_cands`` and ``n_new`` are the
 # last round's
 FLAGS = ("iters", "have_cands", "n_new", "n_pairs", "n_reflexive",
-         "n_deriv", "n_appl", "ov_store", "ov_rewrite", "ov_bind", "ov_out",
-         "ov_squeeze", "contradiction", "consts_changed")
+         "n_deriv", "n_appl", "ov_store", "ov_rewrite", "ov_route", "ov_pair",
+         "ov_bind", "ov_out", "ov_squeeze", "contradiction", "consts_changed")
 _SUMS = ("iters", "n_pairs", "n_reflexive", "n_deriv", "n_appl")
-_STOPS = ("ov_store", "ov_rewrite", "ov_bind", "ov_out", "ov_squeeze",
-          "contradiction", "consts_changed")
+_STOPS = ("ov_store", "ov_rewrite", "ov_route", "ov_pair", "ov_bind", "ov_out",
+          "ov_squeeze", "contradiction", "consts_changed")
+# the entries that are bits (any rank's), not counts
+_BITS = ("have_cands",) + _STOPS
 # the tensors one round reads and writes in place
 CARRY = ("spo", "epoch", "marked", "n_used", "rep", "sort_perm",
          "sorted_keys", "cands", "cand_valid", "r", "flags")
@@ -162,11 +176,11 @@ def program_tables(program, width: int | None = None):
 
 def eval_plans(spo, epoch, marked, sorted_keys, sort_perm, r_eval,
                atom_consts, head_consts, plans: tuple, width: int, *,
-               bind_cap: int, plan_out_cap: int, tomb=None):
+               bind_cap: int, plan_out_cap: int, tomb=None, mesh=None):
     """Evaluate the static ``plans`` at round ``r_eval`` and squeeze (or
     pad) their concatenated heads to ``width`` rows.  Returns ``(heads,
     valid, n_deriv, n_appl, ov_bind, ov_out, ov_squeeze)``, the last five
-    as 0-d tensors."""
+    as 0-d tensors (the rank's own under a ``mesh``)."""
     dev = spo.device
     zero = torch.zeros((), dtype=I64, device=dev)
     false = torch.zeros((), dtype=torch.bool, device=dev)
@@ -176,7 +190,7 @@ def eval_plans(spo, epoch, marked, sorted_keys, sort_perm, r_eval,
         o, v, nd, na, ovb, ovo = eval_plan(
             spo, epoch, marked, sorted_keys, sort_perm, r_eval,
             atom_consts[k], head_consts[k], plan, head_slots,
-            bind_cap, plan_out_cap, tomb=tomb,
+            bind_cap, plan_out_cap, tomb=tomb, mesh=mesh,
         )
         outs.append(o)
         vals.append(v)
@@ -224,33 +238,49 @@ def round_tables(program, device, width: int | None = None) -> dict:
         const_valid=torch.from_numpy(cvd).to(device),
         sums=torch.tensor([f in _SUMS for f in FLAGS], device=device),
         stops=torch.tensor([f in _STOPS for f in FLAGS], device=device),
+        bits=torch.tensor([f in _BITS for f in FLAGS], device=device),
     )
 
 
+def _reduce_round(upd: torch.Tensor, bits: torch.Tensor, mesh) -> torch.Tensor:
+    """A round's (or wave's) flag update summed over the ranks, its bits
+    read as any rank's and its ``iters`` (entry 0) as one round: one
+    all-reduce, the reference's psums and ``_pany`` packed."""
+    if mesh is None:
+        return upd
+    upd = coll.psum(upd, mesh)
+    upd = torch.where(bits, (upd > 0).to(I64), upd)
+    upd[0] = 1
+    return upd
+
+
 def forward_round(c: dict, t: dict, plans: tuple, *, rewrite_cap: int,
-                  bind_cap: int, plan_out_cap: int) -> None:
+                  bind_cap: int, plan_out_cap: int, mesh=None,
+                  route_cap: int | None = None, pair_cap: int = 4096) -> None:
     """One fused round on the carry ``c`` (updated in place; every tensor
     keeps its storage) with the constant tables ``t``: process the stream
     at round ``r + 1``, evaluate every delta plan at ``r + 2`` (at
     :data:`_NULL_ROUND` when the round stops the loop), and fold the
-    round's counts and bits into ``c["flags"]``.  Makes no host read."""
+    round's counts and bits into ``c["flags"]`` (reduced over the ranks
+    under a ``mesh``).  Makes no host read."""
     width = c["cands"].shape[0]
     r = c["r"] + 1
     spo, epoch, marked, n_used, rep, perm, keys, fl = process_static(
         c["spo"], c["epoch"], c["marked"], c["n_used"], c["rep"],
         c["sort_perm"], c["sorted_keys"], c["cands"], c["cand_valid"], r,
-        rewrite_cap,
+        rewrite_cap, mesh=mesh, route_cap=route_cap, pair_cap=pair_cap,
     )
     cv = t["const_vals"]
     consts_changed = (
         t["const_valid"] & (rep[cv.clamp(0, rep.shape[0] - 1).to(I64)] != cv)
     ).any()
-    stop = fl["ov_store"] | fl["ov_rewrite"] | fl["contradiction"] | consts_changed
+    stop = (fl["ov_store"] | fl["ov_rewrite"] | fl["ov_route"] | fl["ov_pair"]
+            | fl["contradiction"] | consts_changed)
     r_eval = torch.where(stop, _NULL_ROUND, r + 1)
     heads, valid, n_deriv, n_appl, ov_bind, ov_out, ov_squeeze = eval_plans(
         spo, epoch, marked, keys, perm, r_eval, t["atom_consts"],
         t["head_consts"], plans, width, bind_cap=bind_cap,
-        plan_out_cap=plan_out_cap,
+        plan_out_cap=plan_out_cap, mesh=mesh,
     )
     now = {
         "iters": torch.ones((), dtype=I64, device=spo.device),
@@ -259,6 +289,7 @@ def forward_round(c: dict, t: dict, plans: tuple, *, rewrite_cap: int,
         "consts_changed": consts_changed, **fl,
     }
     upd = torch.stack([now[f].to(I64) for f in FLAGS])
+    upd = _reduce_round(upd, t["bits"], mesh)
     f = c["flags"]
     f.copy_(torch.where(t["sums"], f + upd, torch.where(t["stops"], f | upd, upd)))
     c["marked"].copy_(marked)
@@ -404,7 +435,8 @@ def _go_on(fl: dict, max_inner: int) -> bool:
 def fused_forward_rounds(state, cands, cand_valid, max_inner: int, *,
                          plans: tuple, rewrite_cap: int, bind_cap: int,
                          plan_out_cap: int, log, dispatches,
-                         graph: RoundGraph | None = None):
+                         graph: RoundGraph | None = None, mesh=None,
+                         route_cap: int | None = None, pair_cap: int = 4096):
     """Run forward rounds from ``state`` until the loop exits (see the
     module docstring); at least one round runs.
 
@@ -415,13 +447,19 @@ def fused_forward_rounds(state, cands, cand_valid, max_inner: int, *,
     :class:`~repro_torch.core.stats.DispatchCounter`) counts each round
     and the capture.  Returns ``(cands,
     cand_valid, flags)`` with ``flags`` the exit report by :data:`FLAGS`
-    name (counts summed over the rounds run here).
+    name (counts summed over the rounds run here).  With a ``mesh`` the
+    rounds run eagerly on every rank (no ``graph``) and the flags are the
+    ranks' reduced ones.
     """
     width = cands.shape[0]
     if width != plan_out_cap:
         raise ValueError(f"stream width {width} != plan_out_cap {plan_out_cap}")
+    if mesh is not None and graph is not None:
+        raise ValueError("a CUDA graph cannot hold the mesh's collectives")
     caps = dict(rewrite_cap=rewrite_cap, bind_cap=bind_cap,
                 plan_out_cap=plan_out_cap)
+    if mesh is not None:
+        caps.update(mesh=mesh, route_cap=route_cap, pair_cap=pair_cap)
     if graph is None:
         c = new_carry(state, cands, cand_valid)
         t = round_tables(state.program, state.spo.device)
@@ -471,15 +509,18 @@ def wave_tables(program, device) -> dict:
         head_consts=torch.from_numpy(hc).to(device),
         sums=torch.tensor([f in _WAVE_SUMS for f in WAVE_FLAGS], device=device),
         stops=torch.tensor([f in _WAVE_STOPS for f in WAVE_FLAGS], device=device),
+        bits=torch.tensor([f in _WAVE_STOPS for f in WAVE_FLAGS], device=device),
     )
 
 
 def delete_wave(c: dict, k: dict, t: dict, plans: tuple, *, bind_cap: int,
-                plan_out_cap: int, refl_cap: int) -> None:
+                plan_out_cap: int, refl_cap: int, mesh=None,
+                route_cap: int | None = None) -> None:
     """One fused overdelete wave on the carry ``c`` (updated in place) over
     the loop constants ``k``: every tombstone plan at wave ``w + 1``,
-    squeezed to ``plan_out_cap`` rows, then the od step without its masks.
-    Makes no host read."""
+    squeezed to ``plan_out_cap`` rows, then the od step without its masks;
+    the flags are reduced over the ranks under a ``mesh``.  Makes no host
+    read."""
     from .incremental_spmd import _od_step  # the module imports this one
 
     w = c["w"] + 1
@@ -487,17 +528,19 @@ def delete_wave(c: dict, k: dict, t: dict, plans: tuple, *, bind_cap: int,
         k["spo"], k["epoch"], k["marked"], k["sorted_keys"], k["sort_perm"], w,
         t["atom_consts"], t["head_consts"], plans, plan_out_cap,
         bind_cap=bind_cap, plan_out_cap=plan_out_cap, tomb=c["tomb"],
+        mesh=mesh,
     )
     tomb, suspect, n_new, ov_route, ov_refl, _masks = _od_step(
         k["spo"], k["epoch"], k["marked"], c["tomb"], k["sorted_keys"],
         k["sort_perm"], k["rep"], k["sizes"], c["suspect"], heads, hv, w,
-        refl_cap=refl_cap, with_masks=False,
+        refl_cap=refl_cap, with_masks=False, mesh=mesh, route_cap=route_cap,
     )
     one = torch.ones((), dtype=I64, device=w.device)
     now = dict(iters=one, n_od=n_new, n_new=n_new, ov_route=ov_route,
                ov_refl=ov_refl, ov_bind=ov_bind, ov_out=ov_out,
                ov_squeeze=ov_squeeze)
     upd = torch.stack([now[f].to(I64) for f in WAVE_FLAGS])
+    upd = _reduce_round(upd, t["bits"], mesh)
     f = c["flags"]
     f.copy_(torch.where(t["sums"], f + upd, torch.where(t["stops"], f | upd, upd)))
     c["tomb"].copy_(tomb)
@@ -565,13 +608,17 @@ def _waves_go_on(fl: dict, max_inner: int) -> bool:
 
 def fused_delete_waves(state, sizes, suspect, max_inner: int, *, plans: tuple,
                        bind_cap: int, plan_out_cap: int, refl_cap: int, log,
-                       dispatches, graph: WaveGraph | None = None):
+                       dispatches, graph: WaveGraph | None = None, mesh=None,
+                       route_cap: int | None = None):
     """The overdelete wave loop with its flags on the device: waves run
     until one tags nothing new, an overflow bit is set, or ``max_inner``
     waves ran; at least one runs.  With ``graph`` (on the card) through its
     replays, else eagerly on ``state.tomb`` in place; ``dispatches`` counts
     each wave and the capture.  Returns ``(tomb, suspect, flags)`` with
-    ``flags`` by :data:`WAVE_FLAGS` name."""
+    ``flags`` by :data:`WAVE_FLAGS` name.  With a ``mesh`` the waves run
+    eagerly on every rank and the flags are the ranks' reduced ones."""
+    if mesh is not None and graph is not None:
+        raise ValueError("a CUDA graph cannot hold the mesh's collectives")
     if graph is None:
         dev = state.spo.device
         k = {f: getattr(state, f) for f in WAVE_CONSTS[:6]}
@@ -582,6 +629,8 @@ def fused_delete_waves(state, sizes, suspect, max_inner: int, *, plans: tuple,
         t = wave_tables(state.program, dev)
         caps = dict(bind_cap=bind_cap, plan_out_cap=plan_out_cap,
                     refl_cap=refl_cap)
+        if mesh is not None:
+            caps.update(mesh=mesh, route_cap=route_cap)
 
         def start_wave() -> torch.Tensor:
             delete_wave(c, k, t, plans, **caps)

@@ -1,11 +1,14 @@
-"""Incremental maintenance on the device: add and delete, on one device.
+"""Incremental maintenance on the device: add and delete, sharded or not.
 
-The single-device counterpart of ``repro.core.incremental_spmd`` (the name
-is kept so a reader finds it; there is no sharding here: the reference's
-owner routing ``_route_rows`` is the identity on one device, and its psums
-are nothing).  :class:`repro_torch.core.engine.TorchEngine` drives it
-through :meth:`~repro_torch.core.engine.TorchEngine.add_facts` and
-:meth:`~repro_torch.core.engine.TorchEngine.delete_facts`.
+The port of ``repro.core.incremental_spmd``.
+:class:`repro_torch.core.engine.TorchEngine` drives it through
+:meth:`~repro_torch.core.engine.TorchEngine.add_facts` and
+:meth:`~repro_torch.core.engine.TorchEngine.delete_facts`.  On an engine
+with a mesh every rank runs the same phases on its shard: the seed queries
+are every rank's, the overdelete waves route their rows to the owner shard
+(:func:`~repro_torch.core.engine._route_rows`), and every count, mask and
+flag the host reads is reduced over the ranks first (the reference's
+psums, :func:`_psum_bool`).
 
 **Additions** reuse the engine's forward round loop: the delta batch is the
 candidate stream of the next round, at the next epoch.
@@ -54,6 +57,7 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.kernels.merge import merge_sorted
 
+from . import collectives as coll
 from .engine import (
     I32,
     I64,
@@ -61,9 +65,11 @@ from .engine import (
     CapacityError,
     EngineState,
     _compact,
+    _gather_rows,
     _index_remove,
     _pack3,
     _pow2,
+    _route_rows,
     _squeeze_stream,
     _unpack3,
     register_auditable,
@@ -108,9 +114,15 @@ def _probe_index(sorted_keys, sort_perm, select, queries, qvalid):
     return rows, hit
 
 
+def _psum_bool(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Any rank's ``x`` (the reference's ``_psum_bool``); ``x`` without a
+    mesh."""
+    return x if mesh is None else coll.pany(x, mesh)
+
+
 def _seed_tombs(sorted_keys, sort_perm, epoch, marked, tomb, q, qv):
     """Tag wave-0 tombstones: the untagged live rows matching the queries.
-    Returns ``(tomb', n_tagged)``."""
+    Returns ``(tomb', n_tagged)``, ``n_tagged`` the rank's own."""
     untagged = (epoch >= 0) & ~marked & (tomb < 0)
     rows, hit = _probe_index(sorted_keys, sort_perm, untagged, q, qv)
     tomb = torch.where(_mark(tomb.shape[0], rows, hit), 0, tomb)
@@ -126,7 +138,8 @@ def _normalise(rows, rep, valid):
 
 
 def _od_step(spo, epoch, marked, tomb, sorted_keys, sort_perm, rep, sizes,
-             suspect, heads, hv, w, *, refl_cap: int, with_masks: bool = True):
+             suspect, heads, hv, w, *, refl_cap: int, with_masks: bool = True,
+             mesh=None, route_cap: int | None = None):
     """One overdelete wave after its tombstone plans: tag the normalised
     heads and the reflexivity children of the frontier, find the suspect
     cliques (a tagged reflexive witness of a clique of more than one
@@ -134,7 +147,13 @@ def _od_step(spo, epoch, marked, tomb, sorted_keys, sort_perm, rep, sizes,
     ``(tomb', suspect', n_new, route_overflow, refl_overflow, masks)``;
     ``masks`` (3, n_res) are the per-position resource masks of the wave's
     new rows (all False with ``with_masks=False``, as the fused loop needs
-    none).  ``w`` is an int or a 0-d tensor; no host read."""
+    none).  ``w`` is an int or a 0-d tensor; no host read.
+
+    With a ``mesh`` the deduplicated stream reaches its owner shard
+    through :func:`~repro_torch.core.engine._route_rows` (keyed on the
+    subject representative) and the suspect mask is reduced over the
+    ranks, so every rank grabs alike; ``n_new``, the overflow bits and the
+    masks are the rank's own (the caller reduces them)."""
     C = spo.shape[0]
     n_res = rep.shape[0]
     dev = spo.device
@@ -163,6 +182,9 @@ def _od_step(spo, epoch, marked, tomb, sorted_keys, sort_perm, rep, sizes,
     uniq[1:] = sk[1:] != sk[:-1]
     stream, sv = stream[order], uniq & (sk < KEY_MAX)
 
+    # owner-routed delta exchange, keyed on the subject representative
+    stream, _, sv, ov_route = _route_rows(stream, None, sv, mesh, route_cap)
+
     # tag the matching untagged live rows (tagging changes no liveness,
     # so the index stays exact across the whole backward pass)
     rows, hit = _probe_index(sorted_keys, sort_perm, store & (tomb < 0),
@@ -174,7 +196,7 @@ def _od_step(spo, epoch, marked, tomb, sorted_keys, sort_perm, rep, sizes,
     s0 = spo[:, 0].to(I64)
     is_wit = (wit & (spo[:, 1] == SAME_AS) & (spo[:, 0] == spo[:, 2])
               & (sizes[s0] > 1))
-    cand = _mark(n_res, s0, is_wit)
+    cand = _psum_bool(_mark(n_res, s0, is_wit), mesh)
     fresh = cand & ~suspect
     suspect = suspect | cand
 
@@ -187,15 +209,15 @@ def _od_step(spo, epoch, marked, tomb, sorted_keys, sort_perm, rep, sizes,
         masks = torch.stack([_mark(n_res, spo[:, pos], new) for pos in range(3)])
     else:
         masks = torch.zeros((3, n_res), dtype=torch.bool, device=dev)
-    no_route = torch.zeros((), dtype=torch.bool, device=dev)
-    return tomb, suspect, new.sum(), no_route, f_ov, masks
+    return tomb, suspect, new.sum(), ov_route, f_ov, masks
 
 
 def _finalize_tombs(spo, epoch, marked, tomb, sorted_keys, sort_perm, rep):
     """Tombstones become the outdated bit and leave the index (a stable
     partition); ``tomb`` returns to -1.  Returns ``(marked, tomb,
     sorted_keys, sort_perm, od_mask (3, n_res), n_od)``, ``od_mask`` the
-    per-position masks of the overdeleted rows (the rederive filter)."""
+    per-position masks of the overdeleted rows (the rederive filter);
+    both are the rank's own."""
     tombed = tomb >= 0
     od_mask = torch.stack([_mark(rep.shape[0], spo[:, pos], tombed)
                            for pos in range(3)])
@@ -262,10 +284,12 @@ def _padded(engine, rows: torch.Tensor):
 
 
 def _member_query(engine, state: EngineState, rows: torch.Tensor) -> torch.Tensor:
-    """Membership of device ``rows`` among the live rows: one call."""
+    """Membership of device ``rows`` among the live rows (of any rank's
+    shard): one call."""
     q, qv = _padded(engine, rows)
     engine.dispatches.record("member")
-    return _member(state.sorted_keys, q, qv)[: rows.shape[0]]
+    hit = _psum_bool(_member(state.sorted_keys, q, qv), engine.mesh)
+    return hit[: rows.shape[0]]
 
 
 def _tomb_heads(engine, state: EngineState, w: int, masks: np.ndarray):
@@ -283,7 +307,7 @@ def _tomb_heads(engine, state: EngineState, w: int, masks: np.ndarray):
     if heads.shape[0] > engine._active_delta_out:
         engine.dispatches.record("squeeze")
         heads, hv, sq_ov = _squeeze_stream(heads, hv, engine._active_delta_out)
-        if engine._log.read(lambda: bool(sq_ov)):
+        if engine._psum_host(sq_ov.to(I64).reshape(1))[0]:
             raise CapacityError(engine._active_delta_kind)
     return heads, hv
 
@@ -379,6 +403,7 @@ def spmd_delete_phases(engine, state: EngineState, delta, max_rounds: int):
 def _delete_phases(engine, state: EngineState, delta, max_rounds: int, tag):
     dev = engine.device
     log = engine._log
+    mesh = engine.mesh
     tag.phase = "delete:prepare"
     engine._ensure_index(state)
     delta = dedup_rows(delta)
@@ -398,14 +423,20 @@ def _delete_phases(engine, state: EngineState, delta, max_rounds: int, tag):
         0, rep_old.to(I64), torch.ones_like(rep_old))  # clique sizes
 
     # -- backward: seed + overdelete waves (epoch-tagged tombstones) ---------
-    nf_t, _owner = ops.rewrite_owner(torch.from_numpy(delta).to(dev), rep_old, 1)
-    nf = dedup_rows(log.read(lambda: nf_t.cpu().numpy()))
+    # the normal forms and their owners; owner-sorted queries, every rank's
+    nf_t, owner_t = ops.rewrite_owner(torch.from_numpy(delta).to(dev), rep_old,
+                                      engine.n_shards)
+    nf = log.read(lambda: nf_t.cpu().numpy())
+    if mesh is not None:
+        owner = log.read(lambda: owner_t.cpu().numpy())
+        nf = nf[np.argsort(owner, kind="stable")]
+    nf = dedup_rows(nf)
     q, qv = _padded(engine, torch.from_numpy(nf).to(dev))
     tag.phase = "delete:seed"
     tag.record("seed_tombs")
     state.tomb, n_seed = _seed_tombs(state.sorted_keys, state.sort_perm,
                                      state.epoch, state.marked, state.tomb, q, qv)
-    n_od_host = log.read(lambda: int(n_seed))
+    n_od_host = int(engine._psum_host(n_seed.to(I64).reshape(1))[0])
     yield "seeded"
     tag.phase = "delete:wave"
 
@@ -425,19 +456,22 @@ def _delete_phases(engine, state: EngineState, delta, max_rounds: int, tag):
             state.stats.od_waves += 1
             heads, hv = _tomb_heads(engine, state, w, masks)
             tag.record("od")
-            state.tomb, suspect, n_new, _ov_route, ov_refl, od_masks = _od_step(
+            state.tomb, suspect, n_new, ov_route, ov_refl, od_masks = _od_step(
                 state.spo, state.epoch, state.marked, state.tomb,
                 state.sorted_keys, state.sort_perm, state.rep, sizes, suspect,
-                heads, hv, w, refl_cap=engine._active_delta_out,
+                heads, hv, w, refl_cap=engine._active_delta_out, mesh=mesh,
+                route_cap=engine._route,
             )
-            n_new, ov_refl = log.read(
-                torch.stack([n_new.to(I64), ov_refl.to(I64)]).tolist)
+            n_new, ov_route, ov_refl = engine._psum_host(
+                torch.stack([n_new, ov_route, ov_refl]).to(I64)).tolist()
+            if ov_route:
+                raise CapacityError("route")
             if ov_refl:
                 raise CapacityError(engine._active_delta_kind)
             if n_new == 0:
                 break
             n_od_host += n_new
-            masks = log.read(od_masks.cpu().numpy)
+            masks = log.read(_psum_bool(od_masks, mesh).cpu().numpy)
             yield "wave"
 
     # the rederive seeds and the restored stream scale with the overdelete
@@ -449,6 +483,9 @@ def _delete_phases(engine, state: EngineState, delta, max_rounds: int, tag):
     if n_od_host and engine.rederive_mode == "targeted":
         tag.record("extract_od")
         rows, rv, ov = _extract_tombed(state.spo, state.tomb, _pow2(n_od_host))
+        if mesh is not None:  # every rank's block, in rank order
+            rows, rv = _gather_rows(rows, rv, mesh)
+            ov = coll.pany(ov, mesh)
         if log.read(lambda: bool(ov)):
             raise RuntimeError(
                 "overdelete extraction overflowed its host-counted bound "
@@ -460,7 +497,7 @@ def _delete_phases(engine, state: EngineState, delta, max_rounds: int, tag):
      od_mask, n_od) = _finalize_tombs(state.spo, state.epoch, state.marked,
                                       state.tomb, state.sorted_keys,
                                       state.sort_perm, state.rep)
-    n_od = log.read(lambda: int(n_od))
+    n_od = int(engine._psum_host(n_od.to(I64).reshape(1))[0])
     state.stats.overdeleted += n_od
     yield "overdeleted"
 
@@ -475,7 +512,8 @@ def _delete_phases(engine, state: EngineState, delta, max_rounds: int, tag):
     tag.phase = "delete:rederive"
 
     # -- rederive: restore overdeleted facts still derivable from survivors --
-    od_mask_h = log.read(lambda: od_mask.cpu().numpy()) if n_od else None
+    od_mask_h = (log.read(_psum_bool(od_mask, mesh).cpu().numpy) if n_od
+                 else None)
     requeued = []
     seeds: list[np.ndarray] = []
     if n_od:
@@ -510,7 +548,8 @@ def _delete_phases(engine, state: EngineState, delta, max_rounds: int, tag):
     occ = None
     if n_od:
         tag.record("occupancy")
-        occ = _occupancy(state.spo, state.epoch, state.marked, state.rep)
+        occ = _psum_bool(_occupancy(state.spo, state.epoch, state.marked,
+                                    state.rep), mesh)
     if n_od and log.read(lambda: bool(occ.any())):
         occ[SAME_AS] = True
         res = torch.nonzero(occ).reshape(-1).to(I32)
@@ -549,7 +588,8 @@ def _fused_waves(engine, state: EngineState, sizes, suspect, max_rounds: int):
             graph = engine._graphs[key] = WaveGraph(key, state, plans, caps, n_pad)
     tomb, suspect, fl = fused_delete_waves(
         state, sizes, suspect, max_rounds, plans=plans, log=engine._log,
-        dispatches=engine.dispatches, graph=graph, **caps)
+        dispatches=engine.dispatches, graph=graph, mesh=engine.mesh,
+        route_cap=engine._route, **caps)
     state.stats.od_waves += fl["iters"]
     if fl["ov_route"]:
         raise CapacityError("route")

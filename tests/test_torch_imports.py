@@ -34,6 +34,8 @@ MODULES = [
     "repro_torch.serve.triple_store", "repro_torch.configs.sameas_rew",
     "repro_torch.analysis", "repro_torch.analysis.passes",
     "repro_torch.analysis.fixtures", "repro_torch.analysis.__main__",
+    "repro_torch.launch", "repro_torch.launch.mesh",
+    "repro_torch.core.collectives",
     "chip_smoke",
 ]
 
