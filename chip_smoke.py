@@ -110,6 +110,22 @@ on failure (the script then exits non-zero and prints no result):
    second, peak memory; the card's teacher-forced logits of two requests
    equal the CPU's within a stated tolerance; at the end a profiled rerun
    for the device's and the flash kernel's share;
+6b. MoE serving at full width: (a) DeepSeek-MoE-16B whole (28 layers, 64
+   routed experts top-6, 2 shared; random weights from seed 0, a seeded
+   non-zero router) behind phase 6's ``ServeEngine`` answers phase 6's 64
+   requests: wall, tokens per second, prefill and decode split, the decode
+   step beside its bound (every weight read once a step), peak memory, the
+   arena, ``flash_attention`` launched 64 x 28 times; the traffic again
+   under a routing log (the expert load, the share of (token, k) pairs
+   that capacity dropped) with the same tokens, and its first wave alone
+   with bit-equal logits; (b) Qwen3-MoE-235B at full width, its depth cut
+   to 4 of 94 layers: one prefill of 512 tokens and 16 decode steps.  For
+   each, the model cut to 2 (DeepSeek) or 1 (Qwen3) layers on the card
+   against the CPU: the teacher-forced logits of the shortest request and
+   the one nearest 128 prompt tokens, each MoE call's top k compared (a
+   flip only at a near tie, within 1e-3), logits within a stated tolerance
+   before the first flip and everywhere against the CPU replaying the
+   card's routing; at the end a profiled rerun of (a)'s first wave;
 7. FM serving at full scale: the Criteo-scale FM (33,763,328 table rows,
    seeded non-zero first-order weights) with the FM kernel and the
    embedding bag serves a batch of 512 and one of 262,144 through a rho
@@ -151,7 +167,7 @@ after.  Every wall and every CUDA-event time is taken before the process's
 first torch.profiler session: a finished profiler session leaves host cost
 on every later launch, which the host-bound REW and LM walls would carry.
 So phase 8 profiles its forward after its own walls, the profiled reruns
-of phases 5, 5b and 6, the search census and the kernels' device times run
+of phases 5, 5b, 6 and 6b (6b's last of all), the search census and the kernels' device times run
 after phase 8 with phase 7's, and phase 6 then times its traffic once more
 to show that cost.  A profiler session whose kept run holds no device
 event is made again, up to three in all; a kernel's device time a call
@@ -162,7 +178,9 @@ full record goes to ``chiprun_out/chip_smoke.json``.
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import gc
 import hashlib
 import json
 import pickle
@@ -682,7 +700,9 @@ def serving_kernel_phase(ops, ref, records: dict, dev, later: list) -> None:
     bf16): the server's prefill of 512 tokens (the main path's shape: the
     server prefills each request alone), a prefill of 32,768 tokens
     (``prefill_32k``'s length) and a decode step of 16 rows against a
-    1,024-row cache at q_offset 700; the FM interaction at the FM's
+    1,024-row cache at q_offset 700; at the MoE models' heads (D 128):
+    DeepSeek's prefill of 512 tokens (16 over 16 heads), Qwen3's (64 over
+    4) and a decode step of 16 rows at G 16; the FM interaction at the FM's
     ``serve_p99`` and ``serve_bulk`` batches (39 fields, K 10, f32).
     SDPA is flash's yardstick: causal at offset 0, and for the decode
     step on the keys up to q_offset, unmasked.  The device times under
@@ -694,11 +714,16 @@ def serving_kernel_phase(ops, ref, records: dict, dev, later: list) -> None:
 
     record = recorder(records)
     gen = torch.Generator(device=dev).manual_seed(1)
-    h, kv, d = 9, 3, 64
-    for b, s, t, off, label, main in (
-        (1, 512, 512, 0, "prefill (1, 512, 9/3, 64)", True),
-        (1, 32768, 32768, 0, "prefill (1, 32768, 9/3, 64)", False),
-        (16, 1, 1024, 700, "decode (16, 1, T 1024, 9/3, 64) at q_offset 700", False),
+    for b, s, t, h, kv, d, off, label, main in (
+        (1, 512, 512, 9, 3, 64, 0, "prefill (1, 512, 9/3, 64)", True),
+        (1, 32768, 32768, 9, 3, 64, 0, "prefill (1, 32768, 9/3, 64)", False),
+        (16, 1, 1024, 9, 3, 64, 700,
+         "decode (16, 1, T 1024, 9/3, 64) at q_offset 700", False),
+        # the MoE models' heads (phase 6b): DeepSeek's MHA, Qwen3's G 16
+        (1, 512, 512, 16, 16, 128, 0, "prefill (1, 512, 16/16, 128)", False),
+        (1, 512, 512, 64, 4, 128, 0, "prefill (1, 512, 64/4, 128)", False),
+        (16, 1, 1024, 64, 4, 128, 700,
+         "decode (16, 1, T 1024, 64/4, 128) at q_offset 700", False),
     ):
         q = torch.randn(b, s, h, d, generator=gen, device=dev).to(torch.bfloat16)
         k = torch.randn(b, t, kv, d, generator=gen, device=dev).to(torch.bfloat16)
@@ -974,9 +999,7 @@ def lm_server():
 
     cfg = dataclasses.replace(get_arch("smollm-135m").config, attn_impl="flash")
     params = lm.init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(2, cfg.vocab, int(n)).tolist()
-               for n in rng.integers(32, 513, LM_REQUESTS)]
+    prompts = seeded_prompts(cfg.vocab)
 
     def serve(n_requests: int):
         eng = ServeEngine(params, cfg, n_slots=LM_SLOTS, max_len=LM_MAX_LEN, eos_id=-1)
@@ -985,6 +1008,13 @@ def lm_server():
         return eng
 
     return cfg, params, serve
+
+
+def seeded_prompts(vocab: int) -> list:
+    """The LM phases' 64 requests: 32-512 prompt tokens drawn from seed 0."""
+    rng = np.random.default_rng(0)
+    return [rng.integers(2, vocab, int(n)).tolist()
+            for n in rng.integers(32, 513, LM_REQUESTS)]
 
 
 def lm_serving_phase(ops, records: dict, later: list) -> int:
@@ -1098,6 +1128,368 @@ def lm_serving_phase(ops, records: dict, later: list) -> int:
     print(f"  {json.dumps(out)}", flush=True)
     records["lm_serving"] = out
     return launches["flash_attention"]
+
+
+# -- phase 6b: MoE serving at full width ----------------------------------------
+
+MOE_DEEPSEEK, MOE_QWEN = "deepseek-moe-16b", "qwen3-moe-235b-a22b"
+MOE_QWEN_LAYERS = 4  # of Qwen3-MoE-235B's 94 (5.0 GB a layer in bf16): ~21 GB
+MOE_QWEN_PROMPT, MOE_QWEN_STEPS = 512, 16
+# card against CPU: each model cut to these layers, teacher-forced over the
+# prompt and this many of the request's generated tokens
+MOE_CPU_CUT = {MOE_DEEPSEEK: (2, LM_NEW - 1), MOE_QWEN: (1, 16)}
+MOE_FLIP_MARGIN = 1e-3  # a routing flip at a wider gap between card and CPU fails
+MOE_LOGIT_TOL = LM_LOGIT_TOL  # bf16 logits below 8, after one or two layers here
+
+
+def moe_model(name: str, n_layers: int | None = None):
+    """An MoE config at full width with the flash kernel (its depth cut to
+    ``n_layers`` where given), random weights from seed 0 and a seeded
+    router (normal / sqrt(d), f32): the reference's router of zeros ties
+    every expert, so every token would take experts 0..K-1 and a 512-token
+    prefill would drop most of its pairs."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as lm
+
+    cfg = dataclasses.replace(get_arch(name).config, attn_impl="flash")
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    params = lm.init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    router = params["layers"]["router"]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    params["layers"]["router"] = torch.randn(
+        router.shape, generator=gen, device=router.device) / cfg.d_model**0.5
+    return cfg, params
+
+
+def _tensors(params) -> list:
+    return [params["embed"], params["final_norm"], *params["layers"].values()]
+
+
+def moe_server(params, cfg, prompts: list, max_new: int, logits: list | None = None,
+               keep: int = 0):
+    """A ServeEngine (phase 6's slots and rows) with ``prompts`` submitted;
+    with ``logits`` the first ``keep`` batches of logits it samples from
+    are cloned into that list."""
+    from repro_torch.serve import Request, ServeEngine
+
+    eng = ServeEngine(params, cfg, n_slots=LM_SLOTS, max_len=LM_MAX_LEN, eos_id=-1)
+    if logits is not None:
+        sample = eng.sample
+
+        def kept(x):
+            if len(logits) < keep:
+                logits.append(x.clone())
+            return sample(x)
+
+        eng.sample = kept
+    for i, p in enumerate(prompts):
+        eng.submit(Request(uid=i, prompt=p, max_new=max_new))
+    return eng
+
+
+def expert_load(log) -> dict:
+    """A routing log's (token, k) pairs by expert, summed over its calls
+    (every slot of a decode step routes, inactive ones too), and the share
+    that capacity dropped: in all, and by the chunk's token count (16 a
+    batched decode step, a prompt's length a prefill)."""
+    load = log.load.cpu()
+    kept = int(log.kept.sum())
+    split = {}
+    for n, (pairs, kept_n) in log.by_tokens.items():
+        key = "decode" if n == LM_SLOTS else "prefill"
+        tally = split.setdefault(key, [0, 0])
+        tally[0] += pairs
+        tally[1] += int(kept_n)
+    return dict(calls=log.calls, pairs=log.pairs, kept=kept,
+                dropped_share=1.0 - kept / log.pairs,
+                **{f"dropped_share_{key}": 1.0 - k / p for key, (p, k) in split.items()},
+                load_min=int(load.min()), load_max=int(load.max()),
+                load_max_over_mean=float(load.max() / load.float().mean()),
+                load=load.tolist())
+
+
+def _top_sets(routes: list) -> list:
+    return [r["gate_idx"].sort(-1).values for r in routes]
+
+
+def routing_flips(card: list, host: list, n_layers: int) -> list:
+    """Card against CPU, call by call, the CPU replaying the card's routing
+    (``host`` holds its router's own top k): the tokens whose top-k sets
+    differ, each with the CPU's gap between its K-th and (K+1)-th
+    probabilities and the largest difference of the two sides'
+    probabilities of that token.  With the routing held equal the two
+    sides differ by rounding alone, so a flip fails at a gap above
+    ``MOE_FLIP_MARGIN`` or above twice that difference."""
+    if len(card) != len(host):
+        raise AssertionError(f"{len(card)} MoE calls on the card, {len(host)} on the CPU")
+    out = []
+    for n, (c, h, cs, hs) in enumerate(zip(card, host, _top_sets(card), _top_sets(host))):
+        k = c["gate_idx"].shape[-1]
+        noise = (c["probs"] - h["probs"]).abs().amax(-1)
+        top = h["probs"].sort(-1, descending=True).values
+        for idx in (cs != hs).any(-1).nonzero().tolist():
+            tok = tuple(idx)
+            flip = dict(step=n // n_layers, layer=n % n_layers, token=idx[-1],
+                        margin=float(top[tok][k - 1] - top[tok][k]),
+                        noise=float(noise[tok]))
+            if not (flip["margin"] <= MOE_FLIP_MARGIN
+                    and flip["margin"] <= 2 * flip["noise"]):
+                raise AssertionError(f"routing flip at a wide gap: {flip}")
+            out.append(flip)
+    return out
+
+
+def moe_card_vs_cpu(cfg, params, reqs: list) -> dict:
+    """The model cut to ``MOE_CPU_CUT``'s layers, its weights the card's
+    first layers, on the card and on the CPU: the teacher-forced logits of
+    ``reqs`` ((prompt, generated tokens) pairs) and each MoE call's
+    routing.  The CPU runs twice.  Free: its logits within
+    ``MOE_LOGIT_TOL`` at the steps before its routing first parts from the
+    card's (a flip moves that token's output, and through attention the
+    later tokens', so the free run's later flips follow from its first).
+    Replaying the card's routing: its router's own choices held to
+    :func:`routing_flips` call by call, its logits to ``MOE_LOGIT_TOL`` at
+    every step."""
+    from repro_torch.models import moe, transformer as lm
+    from repro_torch.serve import Request
+
+    n_layers, steps = MOE_CPU_CUT[cfg.name]
+    cut = dataclasses.replace(cfg, n_layers=n_layers)
+    card = dict(params, layers={k: v[:n_layers] for k, v in params["layers"].items()})
+    host = _tree_to(card, "cpu")
+    t0 = time.perf_counter()
+    out = []
+    for prompt, generated in reqs:
+        req = Request(uid=0, prompt=prompt, out=generated[:steps + 1])
+        logs, logits = {}, {}
+        for side, p in (("card", card), ("free", host)):
+            with moe.routing_log(moe.RoutingLog(keep_calls=True)) as logs[side]:
+                logits[side] = _teacher_forced_logits(lm, p, cut, req)
+        if not torch.isfinite(logits["card"]).all():
+            raise AssertionError("non-finite logits")
+        replay = [r["gate_idx"] for r in logs["card"].routes]
+        with moe.routing_log(moe.RoutingLog(keep_calls=True, replay=replay)) as log:
+            replayed = _teacher_forced_logits(lm, host, cut, req)
+        flips = routing_flips(logs["card"].routes, log.routes, n_layers)
+        parted = [n for n, (a, b) in enumerate(zip(_top_sets(logs["card"].routes),
+                                                   _top_sets(logs["free"].routes)))
+                  if not torch.equal(a, b)]
+        clean = parted[0] // n_layers if parted else len(logits["card"])
+        err = (logits["card"] - logits["free"]).abs().amax(-1)  # a step's largest
+        entry = dict(prompt_len=len(prompt), steps=len(err), flips=len(flips),
+                     flip_margin_max=max((f["margin"] for f in flips), default=None),
+                     first_flips=flips[:8], free_run_parted_calls=len(parted),
+                     steps_before_parting=clean,
+                     max_abs_err_before_parting=float(err[:clean].max()) if clean else None,
+                     max_abs_err_replayed=float((logits["card"] - replayed).abs().max()))
+        for key in ("max_abs_err_before_parting", "max_abs_err_replayed"):
+            if entry[key] is not None and not entry[key] <= MOE_LOGIT_TOL:
+                raise AssertionError(f"{cfg.name} card against CPU: {key} "
+                                     f"{entry[key]} > {MOE_LOGIT_TOL}")
+        out.append(entry)
+    del card, host
+    return dict(n_layers=n_layers, tol=MOE_LOGIT_TOL, flip_margin=MOE_FLIP_MARGIN,
+                requests=out, cpu_s=time.perf_counter() - t0)
+
+
+def _free_card() -> None:
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def moe_deepseek(ops, records: dict, later: list) -> tuple[int, list]:
+    """Phase 6b (a): DeepSeek-MoE-16B whole.  Returns its run's flash
+    launches and the shortest request and the one nearest 128 prompt
+    tokens, as (prompt, generated tokens), for the card-against-CPU checks."""
+    from repro_torch.models import moe
+
+    cfg, params = moe_model(MOE_DEEPSEEK)
+    n_params = sum(t.numel() for t in _tensors(params))
+    if n_params != cfg.param_count():
+        raise AssertionError(f"{n_params} parameters, want {cfg.param_count()}")
+    w_bytes = sum(t.numel() * t.element_size() for t in _tensors(params))
+    prompts = seeded_prompts(cfg.vocab)
+    warm = moe_server(params, cfg, prompts[:2], LM_NEW)  # cuBLAS, the kernel's module
+    warm.run()
+    del warm
+    _free_card()
+
+    # (1) the traffic, timed; (2) again under a routing log, whose first
+    # wave's logits (every request admitted in the first tick, evicted
+    # together after LM_NEW - 1 decode steps) are kept; (3) the first wave
+    # alone, its logits kept: (2) and (3) must agree bit for bit
+    wave = LM_SLOTS + LM_NEW - 1  # sampling calls of the first wave
+    eng = moe_server(params, cfg, prompts, LM_NEW)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.max_memory_reserved()
+    st = eng.stats
+    arena = sum(t.numel() * t.element_size() for t in eng.cache.values())
+    del eng
+    if sorted(r.uid for r in done) != list(range(LM_REQUESTS)):
+        raise AssertionError("not every request finished")
+    if any(len(r.out) != LM_NEW or not all(0 <= t < cfg.vocab for t in r.out)
+           for r in done):
+        raise AssertionError("a request stopped short or left the vocabulary")
+    if launches["flash_attention"] != LM_REQUESTS * cfg.n_layers:
+        raise AssertionError(f"flash launches {launches['flash_attention']}, want "
+                             f"{LM_REQUESTS * cfg.n_layers}")
+    outs = {r.uid: r.out for r in done}
+
+    logged, alone = [], []
+    eng = moe_server(params, cfg, prompts, LM_NEW, logged, keep=wave)
+    with moe.routing_log() as log:
+        again = eng.run()
+    load = expert_load(log)
+    del eng, log
+    eng = moe_server(params, cfg, prompts[:LM_SLOTS], LM_NEW, alone, keep=wave)
+    first = eng.run()
+    del eng
+    if any(outs[r.uid] != r.out for r in [*again, *first]):
+        raise AssertionError("two card runs gave other tokens")
+    if len(alone) != wave or not all(torch.equal(a, b) for a, b in zip(logged, alone)):
+        raise AssertionError("two card runs of the first wave gave other logits")
+    del logged, alone
+
+    def profile_rerun():
+        """The first wave again under torch.profiler, the model made anew."""
+        cfg, params = moe_model(MOE_DEEPSEEK)
+        prompts = seeded_prompts(cfg.vocab)[:LM_SLOTS]
+        for session in range(1, PROFILE_SESSIONS + 1):
+            again = moe_server(params, cfg, prompts, LM_NEW)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                again.run()
+                torch.cuda.synchronize()
+                profiled_wall = time.perf_counter() - t0
+            busy = device_time(prof, profiled_wall)
+            if busy["busy_ms"] > 0:
+                break
+            lost_session(session)
+        else:
+            raise AssertionError("torch.profiler saw no device time")
+        flash_ms = busy["port_kernels_ms"].get("flash_attention", 0.0)
+        busy["flash_share_of_busy"] = flash_ms / busy["busy_ms"]
+        rerun = dict(profiled_requests=LM_SLOTS, profiled_wall_s=profiled_wall,
+                     device_time=busy)
+        print(f"  MoE serving (DeepSeek), profiled rerun: {json.dumps(rerun)}",
+              flush=True)
+        records["moe_serving"]["deepseek"].update(rerun)
+        del again, params
+        _free_card()
+
+    later.append(profile_rerun)
+    gen_tokens = LM_REQUESTS * LM_NEW
+    out = dict(
+        config=cfg.name, params=n_params, active_params=cfg.active_param_count(),
+        weight_bytes=w_bytes, layers=cfg.n_layers, experts=cfg.n_experts,
+        top_k=cfg.top_k, shared=cfg.n_shared, requests=LM_REQUESTS, slots=LM_SLOTS,
+        max_len=LM_MAX_LEN, max_new=LM_NEW, prompt_tokens=st.prefill_tokens,
+        wall_s=wall, generated_tokens_per_s=gen_tokens / wall,
+        prefill_s=st.prefill_seconds,
+        prefill_tokens_per_s=st.prefill_tokens / st.prefill_seconds,
+        decode_steps=st.decode_steps, decode_tokens=st.decode_tokens,
+        decode_s=st.decode_seconds,
+        decode_tokens_per_s=st.decode_tokens / st.decode_seconds,
+        decode_step_ms=st.decode_seconds / st.decode_steps * 1e3,
+        # every decode step runs every expert over at least one row and the
+        # logits read the embedding: all weights once
+        decode_step_bound_ms=w_bytes / HBM_BYTES_PER_S * 1e3,
+        arena_bytes=arena, max_memory_allocated=peak, max_memory_reserved=reserved,
+        launches=launches, expert_load=load, same_tokens_twice=True,
+        first_wave_logits_bit_equal=True,
+    )
+    print(f"  {json.dumps({k: v for k, v in out.items() if k != 'expert_load'})}",
+          flush=True)
+    print(f"  expert load: {json.dumps({k: v for k, v in load.items() if k != 'load'})}",
+          flush=True)
+    by_len = sorted(done, key=lambda r: len(r.prompt))
+    mid = min(done, key=lambda r: (abs(len(r.prompt) - 128), r.uid))
+    reqs = [(r.prompt, r.out) for r in (by_len[0], mid)]
+    out["card_vs_cpu"] = moe_card_vs_cpu(cfg, params, reqs)
+    print(f"  card against CPU: {json.dumps(out['card_vs_cpu'])}", flush=True)
+    records["moe_serving"] = {"deepseek": out}
+    del params
+    _free_card()
+    return launches["flash_attention"], reqs
+
+
+def moe_qwen3(ops, records: dict, reqs: list) -> None:
+    """Phase 6b (b): Qwen3-MoE-235B at full width, its depth cut to
+    ``MOE_QWEN_LAYERS``: one prefill of 512 tokens and 16 decode steps."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe, transformer as lm
+
+    published = get_arch(MOE_QWEN).config.n_layers
+    cfg, params = moe_model(MOE_QWEN, MOE_QWEN_LAYERS)
+    n_params = sum(t.numel() for t in _tensors(params))
+    if n_params != cfg.param_count():
+        raise AssertionError(f"{n_params} parameters, want {cfg.param_count()}")
+    w_bytes = sum(t.numel() * t.element_size() for t in _tensors(params))
+    prompt = np.random.default_rng(2).integers(2, cfg.vocab, MOE_QWEN_PROMPT).tolist()
+    warm = moe_server(params, cfg, [prompt], 2)
+    warm.run()
+    del warm
+    _free_card()
+    eng = moe_server(params, cfg, [prompt], MOE_QWEN_STEPS + 1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    st = eng.stats
+    del eng
+    if len(done) != 1 or len(done[0].out) != MOE_QWEN_STEPS + 1:
+        raise AssertionError("the request did not finish")
+    if st.decode_steps != MOE_QWEN_STEPS:
+        raise AssertionError(f"{st.decode_steps} decode steps")
+    if launches["flash_attention"] != cfg.n_layers:
+        raise AssertionError(f"flash launches {launches['flash_attention']}, want "
+                             f"{cfg.n_layers}")
+    with moe.routing_log() as log:  # the prefill's routing, untimed
+        lm.prefill(params, cfg, torch.tensor([prompt], device="cuda"))
+    out = dict(
+        config=cfg.name, layers=cfg.n_layers, layers_published=published,
+        reduced=[f"n_layers {published} -> {cfg.n_layers}: the weights of "
+                 f"{published} layers do not fit one card"],
+        params=n_params, weight_bytes=w_bytes, experts=cfg.n_experts,
+        top_k=cfg.top_k, prompt_tokens=st.prefill_tokens, wall_s=wall,
+        prefill_s=st.prefill_seconds, decode_steps=st.decode_steps,
+        decode_s=st.decode_seconds,
+        decode_step_ms=st.decode_seconds / st.decode_steps * 1e3,
+        decode_step_bound_ms=w_bytes / HBM_BYTES_PER_S * 1e3,
+        max_memory_allocated=peak, launches=launches,
+        prefill_expert_load=expert_load(log),
+    )
+    del log
+    print(f"  {json.dumps({k: v for k, v in out.items() if k != 'prefill_expert_load'})}",
+          flush=True)
+    out["card_vs_cpu"] = moe_card_vs_cpu(cfg, params, reqs)
+    print(f"  card against CPU: {json.dumps(out['card_vs_cpu'])}", flush=True)
+    records["moe_serving"]["qwen3"] = out
+    del params
+    _free_card()
+
+
+def moe_serving_phase(ops, records: dict, later: list) -> int:
+    """Phase 6b; returns DeepSeek's flash launches."""
+    flash, reqs = moe_deepseek(ops, records, later)
+    moe_qwen3(ops, records, reqs)
+    return flash
 
 
 FM_MERGE_PAIRS = 1 << 20
@@ -3051,6 +3443,13 @@ def main() -> None:
     phase("LM serving at full width (SmolLM-135M, flash):")
     launches["flash_attention"] = lm_serving_phase(ops, records, later)
 
+    phase("MoE serving at full width (DeepSeek-MoE-16B whole, Qwen3-MoE-235B cut):")
+    # its profiled rerun runs after every other profiler job: the FM's
+    # session, begun after this trace of ~10^5 kernels, has lost the FM
+    # kernels' events
+    last: list = []
+    launches["flash_attention"] += moe_serving_phase(ops, records, last)
+
     phase("FM serving at full scale (Criteo-scale FM, rho):")
     fm_launches = fm_serving_phase(ops, records, later)
     for name in ("fm_interact", "embedding_bag"):
@@ -3062,8 +3461,9 @@ def main() -> None:
     phase("the sharded engine (torch.distributed), card == CPU == unsharded:")
     sharded_phase(records, kg)
 
-    phase("device times under torch.profiler (kernels, REW, updates, LM and FM serving):")
-    for job in later:
+    phase("device times under torch.profiler (kernels, REW, updates, LM, FM and MoE "
+          "serving):")
+    for job in later + last:
         job()
 
     phase("done:")

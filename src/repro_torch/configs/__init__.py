@@ -3,7 +3,7 @@ ArchSpec of a ported architecture; ``all_archs()`` lists the reference's
 architectures in its order (plus ``sameas_rew``, the paper's own engine
 workload).
 
-The port carries the five whose code it has.  Any other name raises
+The port carries the nine whose code it has.  Any other name raises
 ``KeyError`` naming the ROADMAP item that ports it.
 """
 
@@ -33,15 +33,10 @@ _ALIASES = {
     "smollm-135m": "smollm_135m",
     "starcoder2-15b": "starcoder2_15b",
 }
-_PORTED = ("smollm_135m", "fm", "gatedgcn", "pna", "sameas_rew")
-_MOE = "ROADMAP Queue 1 item 8b (MoE: models/moe.py)"
+_PORTED = ("qwen3_moe_235b", "deepseek_moe_16b", "qwen2_1p5b", "smollm_135m",
+           "starcoder2_15b", "fm", "gatedgcn", "pna", "sameas_rew")
 _GNN = "ROADMAP Queue 1 item 8c (GNNs: egnn, dimenet)"
-_DENSE = "ROADMAP Queue 1 item 8e (the other dense LM configs)"
-_LATER = {
-    "qwen3_moe_235b": _MOE, "deepseek_moe_16b": _MOE,
-    "qwen2_1p5b": _DENSE, "starcoder2_15b": _DENSE,
-    "dimenet": _GNN, "egnn": _GNN,
-}
+_LATER = {"dimenet": _GNN, "egnn": _GNN}
 
 
 def get_arch(name: str) -> ArchSpec:

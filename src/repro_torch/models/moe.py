@@ -1,0 +1,234 @@
+"""Mixture-of-Experts FFN with sort-based, chunk-local dispatch.
+
+The port of ``repro.models.moe``.  Top-k routing with renormalised gates;
+each token chunk (``n_token_shards`` of them) sorts its (token, k) pairs by
+expert, stably, so that the tokens of an expert keep their order; a
+binary search of the segment starts gives each pair its position in its
+expert, and pairs past the capacity go to a trash slot.  The experts run
+as one batched product over their (E, C * cap, D) rows, and the combine
+adds each token's kept contributions in a fixed order.
+
+Three choices keep the port equal to the reference on the same inputs:
+
+  * the top k put the lower expert index first on ties, as
+    ``jax.lax.top_k`` does (``torch.topk`` does not: a router of zeros,
+    the reference's initial one, ties every expert);
+  * every slot of the batch routes, inactive serving slots included, and
+    takes capacity in token order;
+  * the combine sums each token's contributions in ascending slot order,
+    the reference's scatter order, one add at a time in the activation
+    dtype: no atomic adds, so two runs on the card give the same bits.
+
+``dp_axes`` and ``ep_axis`` are accepted and change nothing on one device,
+as in the reference without a mesh.  :class:`RoutingLog` (entered with
+:func:`routing_log`) sees every call in its thread: the expert load and
+the pairs kept, and on request each call's router probabilities and top
+k on the host, or top k to replay in place of the router's own.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import threading
+
+import torch
+
+from .layers import swiglu
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def n_chunks(n_tok: int, n_token_shards: int) -> int:
+    """The token chunks: ``n_token_shards``, stepped down until it divides
+    the token count."""
+    c = max(1, min(n_token_shards, n_tok))
+    while n_tok % c:
+        c -= 1
+    return c
+
+
+def capacity(tl: int, top_k: int, capacity_factor: float, n_experts: int) -> int:
+    """Slots an expert has in a chunk of ``tl`` tokens (Python's round, as
+    the reference)."""
+    cap = _round_up(max(8, int(round(tl * top_k * capacity_factor / n_experts))), 8)
+    return min(cap, tl)
+
+
+@dataclasses.dataclass
+class Routing:
+    """One call's routing over C chunks of Tl tokens, E experts, K a token."""
+    cap: int
+    probs: torch.Tensor      # (C, Tl, E) f32: the router's softmax
+    gate_vals: torch.Tensor  # (C, Tl, K) f32: the top k renormalised
+    gate_idx: torch.Tensor   # (C, Tl, K) int64: the experts the pairs go to
+    top_idx: torch.Tensor    # (C, Tl, K) int64: the router's top k, larger first,
+                             # lower index on ties (gate_idx unless replayed)
+    counts: torch.Tensor     # (C, E) f32: pairs routed to each expert
+    order: torch.Tensor      # (C, Tl*K) int64: pairs t*K + k stably by expert
+    slot: torch.Tensor       # (C, Tl*K) int64: e*cap + pos of each sorted pair; E*cap dropped
+    slot_tok: torch.Tensor   # (C, E*cap) int64: each slot's token; Tl when empty
+    slot_gate: torch.Tensor  # (C, E*cap) f32: each slot's gate; 0 when empty
+    aux: torch.Tensor        # () f32: the Switch load-balancing loss over all chunks
+
+
+class RoutingLog:
+    """What the MoE calls made while the log was active.
+
+    ``load`` and ``kept`` (E,) count the (token, k) pairs routed to each
+    expert and kept within capacity, summed over calls on the device;
+    ``pairs`` counts the pairs on the host; ``by_tokens`` maps a chunk's
+    token count to its calls' [pairs, kept].  With ``keep_calls`` each
+    call's probabilities and the router's own top k go to ``routes`` on the
+    host (a read that waits for the device).  With ``replay``, a list of
+    (C, Tl, K) top k, the calls route to those experts in turn, with the
+    gates their own probabilities renormalised."""
+
+    def __init__(self, keep_calls: bool = False, replay: list | None = None):
+        self.calls = 0
+        self.pairs = 0
+        self.load = None
+        self.kept = None
+        self.by_tokens: dict[int, list] = {}
+        self.keep_calls = keep_calls
+        self.routes: list[dict] = []
+        self.replay = None if replay is None else list(replay)
+
+    def forced(self, device: torch.device) -> torch.Tensor | None:
+        if self.replay is None:
+            return None
+        if self.calls >= len(self.replay):
+            raise RuntimeError(f"routing replay holds {len(self.replay)} calls")
+        return self.replay[self.calls].to(device=device, dtype=torch.int64)
+
+    def add(self, r: Routing) -> None:
+        load = r.counts.sum(0).to(torch.int64)
+        kept = r.counts.clamp(max=r.cap).sum(0).to(torch.int64)
+        self.load = load if self.load is None else self.load + load
+        self.kept = kept if self.kept is None else self.kept + kept
+        self.pairs += r.gate_idx.numel()
+        tally = self.by_tokens.setdefault(r.probs.shape[1], [0, 0])
+        tally[0] += r.gate_idx.numel()
+        tally[1] = tally[1] + kept.sum()
+        if self.keep_calls:
+            self.routes.append(dict(probs=r.probs.cpu(), gate_idx=r.top_idx.cpu()))
+        self.calls += 1
+
+
+_active = threading.local()
+
+
+@contextlib.contextmanager
+def routing_log(log: RoutingLog | None = None):
+    """Make ``log`` (a new one by default) see the MoE calls of this
+    thread until the block ends; yields it."""
+    log = RoutingLog() if log is None else log
+    stack = _active.__dict__.setdefault("logs", [])
+    stack.append(log)
+    try:
+        yield log
+    finally:
+        stack.remove(log)
+
+
+def route(xt: torch.Tensor, router_w: torch.Tensor, top_k: int,
+          capacity_factor: float = 1.25,
+          forced: torch.Tensor | None = None) -> Routing:
+    """Route the chunks ``xt`` (C, Tl, D) through ``router_w`` (D, E):
+    logits, softmax and gates in f32, the top k, the capacity and the
+    slot maps.  ``forced`` (C, Tl, K) replaces the router's top k."""
+    c, tl, _ = xt.shape
+    e = router_w.shape[1]
+    tk = tl * top_k
+    cap = capacity(tl, top_k, capacity_factor, e)
+    dev = xt.device
+
+    probs = torch.softmax(xt.float() @ router_w.float(), dim=-1)  # (C, Tl, E)
+    # a stable sort, descending: ties keep the lower index first
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_idx = idx[..., :top_k]
+    if forced is None:
+        gate_vals, gate_idx = vals[..., :top_k], top_idx
+    else:
+        gate_idx = forced.reshape(c, tl, top_k)
+        gate_vals = probs.gather(-1, gate_idx)
+    gate_vals = gate_vals / torch.clamp_min(gate_vals.sum(-1, keepdim=True), 1e-9)
+
+    # aux loss (Switch): E * sum_e f_e * p_e, over all chunks
+    flat_e = gate_idx.reshape(c, tk)
+    me = probs.mean(dim=(0, 1))
+    counts = torch.zeros((c, e), dtype=torch.float32, device=dev)
+    counts.scatter_add_(1, flat_e, torch.ones(flat_e.shape, dtype=torch.float32,
+                                              device=dev))
+    aux = e * torch.sum(me * counts.sum(0) / (c * tl * top_k))
+
+    # sort-based dispatch, per chunk
+    sorted_e, order = torch.sort(flat_e, dim=1, stable=True)
+    experts = torch.arange(e, dtype=flat_e.dtype, device=dev).expand(c, e).contiguous()
+    starts = torch.searchsorted(sorted_e, experts, side="left")  # (C, E)
+    pos = torch.arange(tk, device=dev)[None, :] - starts.gather(1, sorted_e)
+    slot = torch.where(pos < cap, sorted_e * cap + pos, e * cap)  # (C, TK)
+    tok = order // top_k
+    # slot -> (token, gate); dropped pairs all land in column E*cap, cut off
+    slot_tok = torch.full((c, e * cap + 1), tl, dtype=torch.int64, device=dev)
+    slot_tok = slot_tok.scatter_(1, slot, tok)[:, :e * cap]
+    sorted_gate = gate_vals.reshape(c, tk).gather(1, order)
+    slot_gate = torch.zeros((c, e * cap + 1), dtype=torch.float32, device=dev)
+    slot_gate = slot_gate.scatter_(1, slot, sorted_gate)[:, :e * cap]
+    return Routing(cap=cap, probs=probs, gate_vals=gate_vals, gate_idx=gate_idx,
+                   top_idx=top_idx, counts=counts, order=order, slot=slot, slot_tok=slot_tok,
+                   slot_gate=slot_gate, aux=aux)
+
+
+def moe_ffn(
+    x: torch.Tensor,         # (B, S, D)
+    router_w: torch.Tensor,  # (D, E)
+    w_gate: torch.Tensor,    # (E, D, F)
+    w_in: torch.Tensor,      # (E, D, F)
+    w_out: torch.Tensor,     # (E, F, D)
+    top_k: int,
+    capacity_factor: float = 1.25,
+    n_token_shards: int = 1,
+    dp_axes: tuple = (),
+    ep_axis: str | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Returns (output (B,S,D), aux load-balancing loss)."""
+    b, s, d = x.shape
+    e = router_w.shape[1]
+    n_tok = b * s
+    c = n_chunks(n_tok, n_token_shards)
+    tl = n_tok // c
+    logs = getattr(_active, "logs", ())
+    forced = None
+    for log in logs:  # the first log that replays routes the call
+        if forced is None:
+            forced = log.forced(x.device)
+
+    xt = x.reshape(c, tl, d)
+    r = route(xt, router_w, top_k, capacity_factor, forced)
+    for log in logs:
+        log.add(r)
+    cap = r.cap
+
+    # dispatch: a chunk-local gather of each slot's token (row Tl is zero),
+    # then the experts as one batched product over (E, C*cap, D)
+    xt_pad = torch.cat([xt, xt.new_zeros(c, 1, d)], dim=1)
+    chunk = torch.arange(c, device=x.device)
+    buf = xt_pad[chunk[:, None], r.slot_tok]  # (C, E*cap, D)
+    buf = buf.reshape(c, e, cap, d).transpose(0, 1).reshape(e, c * cap, d)
+    h = swiglu(buf, w_gate, w_in, w_out)  # (E, C*cap, D)
+    h = h.reshape(e, c, cap, d).transpose(0, 1).reshape(c, e * cap, d)
+
+    # combine: each token's kept contributions in ascending slot order,
+    # added one at a time in x's dtype; dropped pairs read the zero row
+    contrib = (h * r.slot_gate[..., None].to(h.dtype)).to(x.dtype)
+    contrib = torch.cat([contrib, contrib.new_zeros(c, 1, d)], dim=1)
+    pair_slot = torch.empty_like(r.slot).scatter_(1, r.order, r.slot)
+    pair_slot = torch.sort(pair_slot.reshape(c, tl, top_k), dim=-1).values
+    parts = contrib[chunk[:, None, None], pair_slot]  # (C, Tl, K, D)
+    out = parts[:, :, 0]
+    for j in range(1, top_k):
+        out = out + parts[:, :, j]
+    return out.reshape(b, s, d), r.aux

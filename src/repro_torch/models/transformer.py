@@ -1,4 +1,5 @@
-"""Decoder-only LM, dense: GQA (+ optional QKV bias), RoPE, SwiGLU, tied
+"""Decoder-only LM (dense or MoE): GQA (+ optional QKV bias), RoPE, SwiGLU
+dense FFN or DeepSeek/Qwen-style MoE (optional shared experts), tied
 embeddings.  The port of ``repro.models.transformer`` for serving:
 
   * ``forward``     — full-sequence hidden states,
@@ -8,8 +9,8 @@ embeddings.  The port of ``repro.models.transformer`` for serving:
 Parameters keep the reference's pytree: ``{"embed", "final_norm",
 "layers": {name: (L, ...) stacked tensor}}``, so a reference checkpoint
 carries over through :func:`params_from_numpy`.  The layers run as a loop
-over the stacked tensors.  MoE configs, ``loss_fn`` and ``param_shardings``
-wait for later slices (ROADMAP Queue 1 item 8).
+over the stacked tensors.  ``loss_fn`` and ``param_shardings`` wait for a
+later slice (ROADMAP Queue 1 item 8d).
 
 Where the reference returns a fresh cache (JAX arrays are immutable),
 ``decode_step`` and ``_layer`` write the new K/V into the given cache in
@@ -26,6 +27,7 @@ import torch
 from repro_torch.device import resolve
 
 from .layers import DTYPE, apply_rope, gqa_attention, rms_norm, rope_angles, swiglu
+from .moe import moe_ffn
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,13 +73,14 @@ class LMConfig:
             ffn = 3 * d * self.d_ff
         return l * (attn + ffn + 2 * d) + self.vocab * d + d
 
-
-def _dense_only(cfg: LMConfig) -> None:
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name} is a mixture of experts; the MoE layer (models/moe.py) "
-            "is not ported yet: ROADMAP Queue 1 item 8b"
-        )
+    def active_param_count(self) -> int:
+        if not self.is_moe:
+            return self.param_count()
+        d, l = self.d_model, self.n_layers
+        attn = d * self.n_heads * self.d_head + 2 * d * self.n_kv * self.d_head
+        attn += self.n_heads * self.d_head * d
+        ffn = 3 * d * self.d_expert * (self.top_k + self.n_shared) + d * self.n_experts
+        return l * (attn + ffn + 2 * d) + self.vocab * d + d
 
 
 # ---------------------------------------------------------------------------
@@ -88,14 +91,22 @@ def init_params(gen: torch.Generator, cfg: LMConfig,
                 device: str | torch.device = "cuda") -> dict:
     """Random weights drawn from ``gen`` (on its own device), placed on
     ``device``: normal / sqrt(fan_in) in f32, stored in bf16; norms are
-    ones in f32.  The draws differ from ``jax.random``'s; tests carry the
-    reference's weights with :func:`params_from_numpy` instead."""
-    _dense_only(cfg)
+    ones in f32; an MoE router is zeros in f32, as the reference's.  The
+    expert stacks are drawn a layer at a time, so that the f32 draw of a
+    whole stack never lies in memory.  The draws differ from
+    ``jax.random``'s; tests carry the reference's weights with
+    :func:`params_from_numpy` instead."""
     device = resolve(device, "init_params")
 
     def norm(shape, fan_in):
         x = torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
         return (x * fan_in**-0.5).to(DTYPE).to(device)
+
+    def norm_by_layer(shape, fan_in):
+        out = torch.empty(shape, dtype=DTYPE, device=device)
+        for i in range(shape[0]):
+            out[i] = norm(shape[1:], fan_in)
+        return out
 
     d, l = cfg.d_model, cfg.n_layers
     hq, hkv = cfg.n_heads * cfg.d_head, cfg.n_kv * cfg.d_head
@@ -112,9 +123,21 @@ def init_params(gen: torch.Generator, cfg: LMConfig,
         layer["bq"] = torch.zeros((l, hq), dtype=DTYPE, device=device)
         layer["bk"] = torch.zeros((l, hkv), dtype=DTYPE, device=device)
         layer["bv"] = torch.zeros((l, hkv), dtype=DTYPE, device=device)
-    layer["w_gate"] = norm((l, d, cfg.d_ff), d)
-    layer["w_in"] = norm((l, d, cfg.d_ff), d)
-    layer["w_out"] = norm((l, cfg.d_ff, d), cfg.d_ff)
+    if cfg.is_moe:
+        e, fe = cfg.n_experts, cfg.d_expert
+        layer["router"] = torch.zeros((l, d, e), dtype=torch.float32, device=device)
+        layer["e_gate"] = norm_by_layer((l, e, d, fe), d)
+        layer["e_in"] = norm_by_layer((l, e, d, fe), d)
+        layer["e_out"] = norm_by_layer((l, e, fe, d), fe)
+        if cfg.n_shared:
+            fs = fe * cfg.n_shared
+            layer["s_gate"] = norm((l, d, fs), d)
+            layer["s_in"] = norm((l, d, fs), d)
+            layer["s_out"] = norm((l, fs, d), fs)
+    else:
+        layer["w_gate"] = norm((l, d, cfg.d_ff), d)
+        layer["w_in"] = norm((l, d, cfg.d_ff), d)
+        layer["w_out"] = norm((l, cfg.d_ff, d), cfg.d_ff)
     return {
         "embed": embed,
         "final_norm": torch.ones((d,), dtype=torch.float32, device=device),
@@ -202,8 +225,18 @@ def _layer(cfg: LMConfig, x, lp, cos, sin, q_offset, k_cache=None, v_cache=None)
     x = x + attn.reshape(b, s, -1) @ lp["wo"].to(x.dtype)
 
     h = rms_norm(x, lp["ffn_norm"])
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    out = swiglu(h, lp["w_gate"], lp["w_in"], lp["w_out"])
+    if cfg.is_moe:
+        out, aux = moe_ffn(
+            h, lp["router"], lp["e_gate"], lp["e_in"], lp["e_out"],
+            cfg.top_k, cfg.capacity_factor,
+            n_token_shards=cfg.n_token_shards,
+            dp_axes=cfg.dp_axes, ep_axis=cfg.ep_axis,
+        )
+        if cfg.n_shared:
+            out = out + swiglu(h, lp["s_gate"], lp["s_in"], lp["s_out"])
+    else:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        out = swiglu(h, lp["w_gate"], lp["w_in"], lp["w_out"])
     return x + out, aux, (k_new, v_new)
 
 
@@ -213,7 +246,6 @@ def _embed(params, tokens: torch.Tensor) -> torch.Tensor:
 
 def forward(params, cfg: LMConfig, tokens: torch.Tensor):
     """tokens (B, S) -> hidden (B, S, D), aux loss sum."""
-    _dense_only(cfg)
     s = tokens.shape[1]
     x = _embed(params, tokens)
     cos, sin = rope_angles(torch.arange(s, device=x.device), cfg.d_head, cfg.rope_theta)
@@ -243,7 +275,6 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int,
 def prefill(params, cfg: LMConfig, tokens: torch.Tensor):
     """Full forward that also returns the per-layer KV cache (L,B,S,..);
     runs where ``params`` and ``tokens`` lie."""
-    _dense_only(cfg)
     b, s = tokens.shape
     x = _embed(params, tokens)
     cos, sin = rope_angles(torch.arange(s, device=x.device), cfg.d_head, cfg.rope_theta)
@@ -265,7 +296,6 @@ def decode_step(params, cfg: LMConfig, cache: dict, token: torch.Tensor, pos):
     causality (q_offset = pos).  Writes the new K/V into ``cache`` in place;
     returns (logits (B,V), cache).
     """
-    _dense_only(cfg)
     x = _embed(params, token)[:, None, :]  # (B,1,D)
     pos = int(pos)
     cos, sin = rope_angles(torch.tensor([pos], device=x.device), cfg.d_head,

@@ -13,7 +13,10 @@ queued requests between decode steps:
 
 Like the reference, the batched decode runs every slot, inactive ones too
 (position 0, their last token): it writes their cache rows, and admission
-overwrites them.  Sampling is argmax; the first maximum wins ties.
+overwrites them.  Dense and MoE configs take the same path (``_layer``);
+in an MoE layer the inactive slots route too and take expert capacity from
+the active ones, as in the reference.  Sampling is argmax; the first
+maximum wins ties.
 
 ``ServeEngine.stats`` counts the tokens of the prefills and of the decode
 steps and the host-clock seconds each took; each ends in a read of the

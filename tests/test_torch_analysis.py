@@ -354,11 +354,11 @@ def test_archs_and_sameas_rew_spec_are_the_reference():
     assert (ours.name, ours.family, ours.source) == \
         (theirs.name, theirs.family, theirs.source)
     for name in all_archs():
-        if name in ("smollm_135m", "fm", "gatedgcn", "pna", "sameas_rew"):
-            assert get_arch(name).name.replace("-", "_") == name
-        else:
+        if name in ("dimenet", "egnn"):
             with pytest.raises(KeyError, match="ROADMAP"):
                 get_arch(name)
+        else:
+            assert get_arch(name).name == jget_arch(name).name
 
 
 def test_from_config_reduced_on_pex_is_the_reference():

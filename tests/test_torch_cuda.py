@@ -5,7 +5,8 @@ within rtol 2^-7 plus 1e-4 in bf16, with P.V kept at more than bf16
 precision, and within 1e-5 in f32; for the FM interaction within rtol
 1e-5; for the segment sum and the embedding bag within 1e-5 of the sum of
 the absolute values summed, f32 sums in another order), and a run on the
-card equals the run on the CPU.  Needs an NVIDIA card with nvcc; skipped elsewhere.
+card equals the run on the CPU (the MoE layer and model with routing flips
+only at near ties, each test stating its tolerance).  Needs an NVIDIA card with nvcc; skipped elsewhere.
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -27,7 +28,7 @@ from repro_torch.data.generator import PROFILES, generate, sample_update_stream
 from repro_torch.configs import get_arch
 from repro_torch.kernels import ops, ref
 from repro_torch.data.graphs import build_graph_from_kg, dedup_graph, graph_to, random_graph
-from repro_torch.models import recsys, transformer as lm
+from repro_torch.models import moe, recsys, transformer as lm
 from repro_torch.models.gnn import gatedgcn, pna
 from repro_torch.serve import Request, ServeEngine
 from repro_torch.sparql import Query, evaluate_at
@@ -427,6 +428,11 @@ def test_a_state_is_unchanged_by_another_states_updates(dev):
     (4, 2048, 2048, 9, 3, 128, True, 0),
     (2, 2000, 1900, 12, 4, 64, False, 0),  # not causal, ragged S and T
     (3, 1500, 2100, 9, 3, 128, True, 600),  # q_offset > 0
+    # the MoE models' heads: DeepSeek's MHA and Qwen3's G 16 prefills, and
+    # a 16-row decode step at G 16
+    (1, 512, 512, 16, 16, 128, True, 0),
+    (1, 512, 512, 64, 4, 128, True, 0),
+    (16, 1, 1024, 64, 4, 128, True, 700),
 ])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_attention(dev, b, s, t, h, kv, d, causal, q_offset, dtype):
@@ -587,6 +593,131 @@ def test_lm_serving_on_card_equals_cpu(dev):
             seq.append(out[0].float().cpu())
         logits[name] = torch.stack(seq)
     torch.testing.assert_close(logits["cuda"], logits["cpu"], atol=0.1, rtol=0)
+    before = ops.LAUNCHES["flash_attention"]
+    eng = ServeEngine(card, cfg, n_slots=2, max_len=64, eos_id=-1)
+    for i in range(3):
+        eng.submit(Request(uid=i, prompt=list(range(2, 10 + i)), max_new=4))
+    assert len(eng.run()) == 3
+    assert ops.LAUNCHES["flash_attention"] == before + 3 * cfg.n_layers
+
+
+MOE_FLIP_MARGIN = 1e-3  # a routing flip between card and CPU at a wider gap fails
+
+
+def _routed(run, replay=None):
+    """``run()`` under a routing log that keeps every call's probabilities
+    and its router's own top k (``replay``: the top k the calls take)."""
+    with moe.routing_log(moe.RoutingLog(keep_calls=True, replay=replay)) as log:
+        out = run()
+    return out, log.routes
+
+
+def _on_card_routing(card_run, host_run):
+    """``card_run()`` and ``host_run()`` (the same work on the CPU) under
+    routing logs.  Where the CPU's router picks the card's experts in every
+    call, the two results; else the CPU runs again replaying the card's
+    routing (a flip moves the token's output, and through attention the
+    later tokens', so the free run's later flips follow from its first),
+    and each token where its router's own choice differs must lie at a
+    near tie: the CPU's K-th and (K+1)-th probabilities within
+    ``MOE_FLIP_MARGIN`` and within twice the two sides' largest probability
+    difference for the token (rounding alone parts them no further)."""
+    got, card = _routed(card_run)
+    want, host = _routed(host_run)
+    sets = [[r["gate_idx"].sort(-1).values for r in rs] for rs in (card, host)]
+    if all(torch.equal(a, b) for a, b in zip(*sets, strict=True)):
+        return got, want
+    want, host = _routed(host_run, replay=[c["gate_idx"] for c in card])
+    for c, h in zip(card, host, strict=True):
+        k = c["gate_idx"].shape[-1]
+        differ = (c["gate_idx"].sort(-1).values != h["gate_idx"].sort(-1).values).any(-1)
+        noise = (c["probs"] - h["probs"]).abs().amax(-1)
+        top = h["probs"].sort(-1, descending=True).values
+        margin = top[..., k - 1] - top[..., k]
+        assert bool((margin[differ] <= MOE_FLIP_MARGIN).all())
+        assert bool((margin[differ] <= 2 * noise[differ]).all())
+    return got, want
+
+
+def _moe_inputs(dev, n_tok, d, e, f, router):
+    g = torch.Generator(device=dev).manual_seed(n_tok + e)
+    x = torch.randn(1, n_tok, d, generator=g, device=dev).to(torch.bfloat16)
+    r = (torch.zeros(d, e, device=dev) if router == "zeros" else
+         torch.randn(d, e, generator=g, device=dev) / d**0.5)
+    ws = [(torch.randn(shape, generator=g, device=dev) * shape[1] ** -0.5).to(torch.bfloat16)
+          for shape in ((e, d, f), (e, d, f), (e, f, d))]
+    return x, r, ws
+
+
+@pytest.mark.parametrize("n_tok,d,e,f,k", [
+    (512, 2048, 64, 1408, 6),   # DeepSeek-MoE-16B's prefill of 512 tokens
+    (16, 2048, 64, 1408, 6),    # its 16-slot decode step
+    (512, 4096, 128, 1536, 8),  # Qwen3-MoE-235B's prefill
+])
+@pytest.mark.parametrize("router", ["zeros", "seeded"])
+def test_moe_ffn_on_card_equals_cpu(dev, n_tok, d, e, f, k, router):
+    """``moe_ffn`` at the MoE models' widths on the card against its CPU
+    run: routing flips only at near ties (the router's inputs are the same
+    bf16 values on both sides; its f32 products sum in other orders),
+    outputs within 2 % of
+    the largest (bf16 products rounded at other places), aux within 1e-5
+    of itself.  The router of zeros ties every expert: the card's stable
+    sort takes experts 0..K-1, as ``jax.lax.top_k`` does."""
+    x, r, ws = _moe_inputs(dev, n_tok, d, e, f, router)
+    (got, aux), (want, want_aux) = _on_card_routing(
+        lambda: moe.moe_ffn(x, r, *ws, k),
+        lambda: moe.moe_ffn(x.cpu(), r.cpu(), *[w.cpu() for w in ws], k))
+    if router == "zeros":
+        (_, _), routes = _routed(lambda: moe.moe_ffn(x, r, *ws, k))
+        assert bool((routes[0]["gate_idx"] == torch.arange(k)).all())
+    scale = float(want.float().abs().max())
+    torch.testing.assert_close(got.float().cpu(), want.float(), atol=0.02 * scale,
+                               rtol=0)
+    assert abs(float(aux) - float(want_aux)) <= 1e-5 * float(want_aux)
+
+
+@pytest.mark.parametrize("router", ["zeros", "seeded"])
+def test_moe_ffn_card_runs_are_bit_equal(dev, router):
+    """Two card runs of DeepSeek's prefill-sized ``moe_ffn`` give the same
+    bits: the combine adds each token's parts in a fixed order."""
+    x, r, ws = _moe_inputs(dev, 512, 2048, 64, 1408, router)
+    first = moe.moe_ffn(x, r, *ws, 6)
+    second = moe.moe_ffn(x, r, *ws, 6)
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
+def test_moe_lm_serving_on_card_equals_cpu(dev):
+    """DeepSeek-MoE-16B's widths at 2 layers (seeded router) with the flash
+    kernel: the card's prefill and teacher-forced decode logits against
+    the CPU's within 0.1 (bf16 logits below 8), the CPU replaying the
+    card's routing where the two parted (each flip at a near tie); the
+    server runs
+    every request and launches flash once a layer a prefill."""
+    cfg = dataclasses.replace(get_arch("deepseek-moe-16b").config, n_layers=2,
+                              attn_impl="flash")
+    card = lm.init_params(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    card["layers"]["router"] = torch.randn(card["layers"]["router"].shape, generator=g,
+                                           device=dev) / cfg.d_model**0.5
+    host = _to(card, "cpu")
+    prompt = torch.arange(2, 40).reshape(1, -1)
+    tokens = [5, 77, 1234]
+
+    def logits_of(p):
+        d = p["embed"].device
+        out, cache = lm.prefill(p, cfg, prompt.to(d))
+        arena = lm.init_cache(cfg, 1, 64, device=d)
+        for key in arena:
+            arena[key][:, :, :prompt.shape[1]] = cache[key]
+        seq = [out[0, -1].float().cpu()]
+        for i, tok in enumerate(tokens):
+            out, arena = lm.decode_step(p, cfg, arena, torch.tensor([tok], device=d),
+                                        prompt.shape[1] + i)
+            seq.append(out[0].float().cpu())
+        return torch.stack(seq)
+
+    got, want = _on_card_routing(lambda: logits_of(card), lambda: logits_of(host))
+    torch.testing.assert_close(got, want, atol=0.1, rtol=0)
     before = ops.LAUNCHES["flash_attention"]
     eng = ServeEngine(card, cfg, n_slots=2, max_len=64, eos_id=-1)
     for i in range(3):

@@ -35,7 +35,9 @@ MODULES = [
     "repro_torch.analysis", "repro_torch.analysis.passes",
     "repro_torch.analysis.fixtures", "repro_torch.analysis.__main__",
     "repro_torch.launch", "repro_torch.launch.mesh",
-    "repro_torch.core.collectives",
+    "repro_torch.core.collectives", "repro_torch.models.moe",
+    "repro_torch.configs.qwen3_moe_235b", "repro_torch.configs.deepseek_moe_16b",
+    "repro_torch.configs.qwen2_1p5b", "repro_torch.configs.starcoder2_15b",
     "chip_smoke",
 ]
 

@@ -165,10 +165,19 @@ def _full2():
     return dataclasses.replace(ref_arch("smollm-135m").config, n_layers=2)
 
 
-@pytest.fixture(scope="module", params=["reduced", "full_width_2_layers"])
+# SmolLM reduced and at full width; the other dense configs reduced (Qwen2:
+# QKV bias, G 2; StarCoder2: G 2)
+MODELS = {
+    "reduced": lambda: ref_arch("smollm-135m").reduced,
+    "full_width_2_layers": _full2,
+    "qwen2_reduced": lambda: ref_arch("qwen2-1.5b").reduced,
+    "starcoder2_reduced": lambda: ref_arch("starcoder2-15b").reduced,
+}
+
+
+@pytest.fixture(scope="module", params=list(MODELS))
 def model(request):
-    jcfg = (ref_arch("smollm-135m").reduced if request.param == "reduced"
-            else _full2())
+    jcfg = MODELS[request.param]()
     jparams = jlm.init_params(jax.random.PRNGKey(0), jcfg)
     params = lm.params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
     return jcfg, jparams, params
@@ -178,22 +187,36 @@ def _port_cfg(jcfg, **kw) -> lm.LMConfig:
     return lm.LMConfig(**dict(dataclasses.asdict(jcfg), **kw))
 
 
+LM_CONFIGS = ("qwen3-moe-235b-a22b", "deepseek-moe-16b", "qwen2-1.5b",
+              "smollm-135m", "starcoder2-15b")
+
+
 def test_config_copies_match_the_reference():
-    for name in ("smollm-135m", "fm", "gatedgcn", "pna", "sameas_rew"):
+    for name in (*LM_CONFIGS, "fm", "gatedgcn", "pna", "sameas_rew"):
         ours, theirs = get_arch(name), ref_arch(name)
+        assert (ours.name, ours.family, ours.source) == \
+            (theirs.name, theirs.family, theirs.source)
         for attr in ("config", "reduced"):
             assert dataclasses.asdict(getattr(ours, attr)) == \
                 dataclasses.asdict(getattr(theirs, attr))
         assert [dataclasses.asdict(s) for s in ours.shapes] == \
             [dataclasses.asdict(s) for s in theirs.shapes]
+    for name in LM_CONFIGS:
+        for attr in ("config", "reduced"):
+            ours, theirs = getattr(get_arch(name), attr), getattr(ref_arch(name), attr)
+            assert ours.param_count() == theirs.param_count()
+            assert ours.active_param_count() == theirs.active_param_count()
     assert get_arch("smollm-135m").config.param_count() == 134_515_008
-    for name in ("qwen3-moe-235b-a22b", "qwen2-1.5b", "egnn"):
-        with pytest.raises(KeyError, match="ROADMAP"):
-            get_arch(name)
+    assert get_arch("deepseek-moe-16b").config.param_count() == 16_669_853_696
+    assert get_arch("deepseek-moe-16b").config.active_param_count() == 2_621_032_448
+    with pytest.raises(KeyError, match="ROADMAP"):
+        get_arch("egnn")
     assert get_arch("smollm_135m") is get_arch("smollm-135m")
-    moe = _port_cfg(ref_arch("qwen3-moe-235b-a22b").reduced)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lm.init_params(torch.Generator(), moe, device="cpu")
+    assert get_arch("qwen2_1p5b") is get_arch("qwen2-1.5b")
+    moe_cfg = _port_cfg(ref_arch("qwen3-moe-235b-a22b").reduced)
+    params = lm.init_params(torch.Generator(), moe_cfg, device="cpu")
+    assert params["layers"]["e_gate"].shape == (2, 8, 64, 32)
+    assert "w_gate" not in params["layers"]
 
 
 @pytest.mark.parametrize("cached", [False, True])
