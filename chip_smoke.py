@@ -160,15 +160,39 @@ on failure (the script then exits non-zero and prints no result):
    peak memory; after every run the gathered store, rho and counters
    equal phase 5's unsharded fused run's, whose rerun walls are recorded
    beside.  Where the machine has
-   more cards, full size at world = their count on NCCL too.
+   more cards, full size at world = their count on NCCL too;
+10. training on the card, through ``repro_torch.train.Trainer`` and
+   AdamW: (a) the main path: GatedGCN at full width (16 layers, d_hidden
+   70, 40 classes, d_in 16) on minibatches that ``NeighborSampler`` draws
+   at ``minibatch_lg``'s geometry (1,024 seeds, fanout 15 then 10: 169,984
+   nodes and 168,960 edges) from phase 8's deduplicated KG made
+   undirected and cut to its nodes with an edge, seeds drawn by the step;
+   the loss on the seeds; 40 steps (checkpoints every 10, the async
+   writer): each step's wall, steps/s, edges/s, peak memory, the launches
+   a step (forward and backward) held to exact counts; a run killed after
+   step 17 and resumed gives bit-identical losses, parameters and moments;
+   the segment sum against its plain version at the shapes training
+   gives it; the card against the CPU on three batches at 2 layers; (b)
+   EGNN and DimeNet at their configs on the ``molecule`` shape (128 graphs
+   of 30 nodes and 64 edges; DimeNet's 32,768 triplets), GatedGCN and PNA
+   at full config on ``full_graph_sm``: the first step's loss and
+   gradients against the CPU, 5 steps twice (finite losses, moved
+   parameters, the two runs bit-equal; PNA's equality recorded); (c)
+   SmolLM-135M at full width, 5 steps of ``lm_batch`` at 4 x 1,024
+   tokens, remat on, and (d) the Criteo-scale FM, 5 steps of
+   ``recsys_batch`` at 65,536 rows, each twice: step walls, peak memory,
+   whether the two runs are bit-equal.  A profiled training step of (a)
+   and its forward alone (the segment sum's share forward and backward)
+   run with the other profiler jobs.
 
 Each path's launch counters are set to 0 just before its run and read just
 after.  Every wall and every CUDA-event time is taken before the process's
 first torch.profiler session: a finished profiler session leaves host cost
 on every later launch, which the host-bound REW and LM walls would carry.
 So phase 8 profiles its forward after its own walls, the profiled reruns
-of phases 5, 5b, 6 and 6b (6b's last of all), the search census and the kernels' device times run
-after phase 8 with phase 7's, and phase 6 then times its traffic once more
+of phases 5, 5b, 6 and 6b (6b's last of all), phase 10's profiled step,
+the search census and the kernels' device times run after phase 10 with
+phase 7's, and phase 6 then times its traffic once more
 to show that cost.  A profiler session whose kept run holds no device
 event is made again, up to three in all; a kernel's device time a call
 then falls back to CUDA events, and the record counts both.
@@ -1748,12 +1772,14 @@ def gnn_phase(ops, records: dict, kg: dict) -> int:
     logits = gatedgcn.forward(params, cfg, dedup)
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
-    want = dict(segment_sum=2 * cfg.n_layers, rewrite_triples=1, dedup_order=2,
-                search_bounds=1)
+    # the dedup's sort, and the forward's plans of dst and src
+    want = dict(segment_sum=2 * cfg.n_layers, rewrite_triples=1, dedup_order=3,
+                search_bounds=2)
     if any(launches[k] != v for k, v in want.items()):
         raise AssertionError(f"main path launches {launches}, want {want}")
     if not torch.isfinite(logits).all():
         raise AssertionError("full size: non-finite logits")
+    kg["dedup_edge_index"] = dedup["edge_index"].cpu().numpy()  # phase 10's graph
     dd_outs, dedup_walls = _synced_walls(lambda: dedup_graph(raw, rho, "cuda"))
     if not all(torch.equal(d["edge_index"], dedup["edge_index"]) for d in dd_outs):
         raise AssertionError("dedup_graph differs between runs")
@@ -3221,6 +3247,428 @@ def sharded_phase(records: dict, kg: dict) -> None:
     records["sharded"] = out
 
 
+# phase 10: training on the card
+TRAIN_SEEDS, TRAIN_FANOUT = 1024, (15, 10)  # minibatch_lg's geometry
+TRAIN_STEPS, TRAIN_KILL, TRAIN_CKPT_EVERY = 40, 17, 10
+TRAIN_CHECK_LAYERS, TRAIN_CHECK_BATCHES = 2, 3
+TRAIN_SMALL_STEPS = 5
+LM_TRAIN_BATCH, LM_TRAIN_SEQ = 4, 1024
+# card against CPU, one loss and gradient: f32 sums in other orders (the
+# segment sums' plan order against index_add_, cuBLAS against the CPU's
+# products); the loss within TRAIN_LOSS_RTOL, each gradient leaf within
+# TRAIN_GRAD_TOL of its largest CPU value.  On an H100 80GB HBM3 at 700 W:
+# the loss 1.2e-7 relative at most but DimeNet's, 8.75e-5 (its energies
+# reach ~4e3 through six residual blocks, its loss ~1.8e7, and f32 keeps
+# few of their bits); gradients 1.8e-4 of a leaf's largest at most
+TRAIN_LOSS_RTOL = 1e-3
+TRAIN_GRAD_TOL = 1e-3
+# PNA's max and min pick one message a (node, feature); at a near tie the
+# card and the CPU can pick different ones, which moves that gradient to
+# another edge (on an H100: 31 of a leaf's 11,250 entries, up to 3.8e-3 of
+# its largest value, at 2 layers on 2,000 nodes): its leaves are held by
+# their relative L2 error instead
+TRAIN_GRAD_L2_TOL = 1e-3
+
+
+def grad_step(loss_fn, params, batch):
+    """The loss and gradient leaves (zeros where unused) of
+    ``loss_fn(params, batch)``, as a Trainer step takes them."""
+    from torch.utils import _pytree as pytree
+
+    flat, spec = pytree.tree_flatten(params)
+    leaves = [p.detach().requires_grad_(True) for p in flat]
+    loss = loss_fn(pytree.tree_unflatten(leaves, spec), batch)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return loss.detach(), [torch.zeros_like(p) if g is None else g
+                           for p, g in zip(leaves, grads)]
+
+
+def card_vs_cpu_grads(label: str, loss_fn, params, batches: list,
+                      ties: bool = False) -> dict:
+    """One loss and gradient of ``params`` (on the CPU) on each of
+    ``batches`` (dicts of numpy arrays or tensors), on the card and on the
+    CPU: every value finite, the loss and each leaf within the limits
+    (with ``ties``, each leaf's relative L2 error within
+    ``TRAIN_GRAD_L2_TOL``; its largest error is recorded beside)."""
+    from repro_torch.data.graphs import graph_to
+
+    card_params = _tree_to(params, "cuda")
+    loss_err = grad_err = l2_err = 0.0
+    for batch in batches:
+        loss, grads = grad_step(loss_fn, card_params, graph_to(batch, "cuda"))
+        host_loss, host_grads = grad_step(loss_fn, params, graph_to(batch, "cpu"))
+        if not (torch.isfinite(loss) and all(torch.isfinite(g).all() for g in grads)):
+            raise AssertionError(f"{label}: a non-finite loss or gradient on the card")
+        loss_err = max(loss_err, abs(float(loss) - float(host_loss))
+                       / max(abs(float(host_loss)), 1e-30))
+        for g, h in zip(grads, host_grads):
+            scale = float(h.abs().max())
+            if scale > 0:
+                diff = g.cpu() - h
+                grad_err = max(grad_err, float(diff.abs().max()) / scale)
+                l2_err = max(l2_err, float(diff.norm()) / float(h.norm()))
+    print(f"  {label}: card vs cpu, {len(batches)} batch(es): loss rel err "
+          f"{loss_err:.3g} (limit {TRAIN_LOSS_RTOL}), gradient err {grad_err:.3g} of "
+          f"a leaf's largest (limit {'none' if ties else TRAIN_GRAD_TOL}), relative L2 "
+          f"{l2_err:.3g} (limit {TRAIN_GRAD_L2_TOL if ties else 'none'})", flush=True)
+    grads_ok = l2_err <= TRAIN_GRAD_L2_TOL if ties else grad_err <= TRAIN_GRAD_TOL
+    if not (loss_err <= TRAIN_LOSS_RTOL and grads_ok):
+        raise AssertionError(f"{label}: card and CPU differ beyond the limits")
+    return dict(loss_rel_err=loss_err, grad_rel_err=grad_err, grad_l2_rel_err=l2_err,
+                held_by="l2" if ties else "max", batches=len(batches),
+                nonzero_grads=[bool(h.abs().max() > 0) for h in host_grads])
+
+
+def train_run(loss_fn, params, batch_fn, steps: int, ckpt_dir: Path, *,
+              until: int | None = None, resume: bool = False, async_ckpt: bool = True):
+    """A Trainer from ``params`` (or resumed from ``ckpt_dir``) run to
+    ``until`` (default ``steps``), closed."""
+    from repro_torch.train import TrainConfig, Trainer
+
+    cfg = TrainConfig(n_steps=steps, ckpt_dir=str(ckpt_dir), ckpt_every=TRAIN_CKPT_EVERY,
+                      keep=2, async_ckpt=async_ckpt, log_every=0)
+    trainer = Trainer(loss_fn, params, batch_fn, cfg)
+    if resume and not trainer.resume():
+        raise AssertionError(f"no checkpoint to resume from in {ckpt_dir}")
+    try:
+        trainer.run(until)
+    finally:
+        trainer.close()
+    return trainer
+
+
+def same_tree(a, b) -> bool:
+    from torch.utils import _pytree as pytree
+
+    la, lb = pytree.tree_leaves(a), pytree.tree_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def wall_stats(walls: list, edges: int | None = None) -> dict:
+    """Median, min and max of a run's step walls, and steps (and edges)
+    a second at the median."""
+    med = statistics.median(walls)
+    out = dict(step_wall_s=med, step_wall_min_s=min(walls), step_wall_max_s=max(walls),
+               steps_per_s=1.0 / med)
+    if edges is not None:
+        out["edges_per_s"] = edges / med
+    return out
+
+
+def kg_minibatches(kg: dict):
+    """Phase 8's sameAs-deduplicated KG made undirected (each edge both
+    ways, duplicates dropped) and cut to the nodes that have an edge,
+    renumbered, so that every node has an in-edge (the sampler's clamp of
+    isolated nodes never acts); a 16-wide feature a node and a label in
+    [0, 40) that a fixed projection of the feature decides (seeded, on the
+    card); and ``batch_fn(step)``: ``NeighborSampler`` at ``minibatch_lg``'s
+    geometry from seeds drawn by a generator seeded by the step, the loss
+    on the seeds (``train_mask``)."""
+    from repro_torch.data.sampler import NeighborSampler
+
+    ei = kg["dedup_edge_index"].astype(np.int64)
+    keys = np.unique(np.concatenate([(ei[0] << 32) | ei[1], (ei[1] << 32) | ei[0]]))
+    src, dst = keys >> 32, keys & 0xFFFFFFFF
+    live = np.unique(src)  # every edge goes both ways: src covers the nodes
+    remap = np.full(kg["dic"].n_resources, -1, np.int64)
+    remap[live] = np.arange(live.shape[0])
+    edge_index = np.stack([remap[src], remap[dst]]).astype(np.int32)
+    n = int(live.shape[0])
+    sampler = NeighborSampler(n, edge_index)
+    if not (np.diff(sampler.indptr) > 0).all():
+        raise AssertionError("the undirected KG graph has a node without an in-edge")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    feat = torch.randn((n, 16), generator=gen, device="cuda")
+    labels = (feat @ torch.randn((16, 40), generator=gen, device="cuda")).argmax(1)
+    labels = labels.to(torch.int32)
+    sample_s: list = []
+
+    def batch_fn(step: int) -> dict:
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(1_000_000 + step)
+        seeds = rng.choice(n, TRAIN_SEEDS, replace=False)
+        nodes, sub_ei, seed_pos = sampler.sample(rng, seeds, TRAIN_FANOUT)
+        nodes = torch.from_numpy(nodes).to("cuda").long()
+        mask = torch.zeros(nodes.shape[0], device="cuda")
+        mask[torch.from_numpy(seed_pos).to("cuda").long()] = 1.0
+        batch = {"x": feat[nodes], "edge_index": torch.from_numpy(sub_ei).to("cuda"),
+                 "edge_attr": torch.ones((sub_ei.shape[1], 1), device="cuda"),
+                 "labels": labels[nodes], "train_mask": mask}
+        sample_s.append(time.perf_counter() - t0)
+        return batch
+
+    info = dict(nodes=n, undirected_edges=int(edge_index.shape[1]),
+                dedup_edges=int(ei.shape[1]))
+    return batch_fn, sample_s, info
+
+
+def train_kernel_checks(ops, ref, records: dict, batch: dict, later_batches: dict) -> None:
+    """The segment sum against its plain version at the shapes training
+    gives it: the main path's backward of ``x[dst]`` (the minibatch's
+    168,960 rows of 70 into its 169,984 nodes), EGNN's position update (K
+    3) and DimeNet's triplet sum by ``t_out`` (32,768 rows of 128 into the
+    8,192 edges), each with its plan."""
+    record = recorder(records)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    cases = [("main path backward: minibatch x[dst]", batch["edge_index"][1],
+              int(batch["x"].shape[0]), 70)]
+    mol = later_batches["molecule"]
+    dst = torch.from_numpy(mol["edge_index"][1]).to("cuda")
+    t_out = torch.from_numpy(mol["triplets"][1]).to("cuda")
+    cases += [("EGNN position update (molecule)", dst, int(mol["z"].shape[0]), 3),
+              ("DimeNet triplets by t_out (molecule)", t_out,
+               int(mol["edge_index"].shape[1]), 128)]
+    for label, seg, n, k in cases:
+        e = seg.shape[0]
+        x = torch.randn(e, k, generator=gen, device="cuda")
+        plan = ops.segment_plan(seg, n)
+        got = ops.segment_sum(x, seg, n, plan)
+        if not torch.equal(got, ops.segment_sum(x, seg, n, plan)):
+            raise AssertionError(f"segment_sum {label}: two calls differ")
+        err, tol = _sum_err(got, ref.segment_sum(x, seg, n),
+                            ref.segment_sum(x.abs(), seg, n))
+        idx = seg.to(torch.int64)
+        record("segment_sum", f"training, {label}: E={e}, n={n}, K={k} float32", err,
+               time_ms(lambda: ops.segment_sum(x, seg, n, plan)),
+               time_ms(lambda: ref.segment_sum(x, seg, n)),
+               time_ms(lambda: torch.zeros((n, k), device="cuda").index_add_(0, idx, x)),
+               4 * e * k + 4 * e + 4 * n * k, e * k, tol=tol)
+
+
+def training_phase(ops, ref, records: dict, kg: dict, later: list) -> int:
+    """Phase 10; returns the segment sum's launches on its main path (the
+    uninterrupted 40-step run of (a))."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import lm_batch, molecule_batch, random_graph, recsys_batch
+    from repro_torch.models import recsys, transformer as lm
+    from repro_torch.models.gnn import dimenet, egnn, gatedgcn, pna
+    from repro_torch.optim import adamw_init, adamw_update
+
+    work = ROOT / "build" / "train_ckpt"
+    if work.exists():
+        shutil.rmtree(work)
+    out: dict = {"card": card_line()}
+
+    # (a) the main path: GatedGCN at full width on KG minibatches
+    t0 = time.perf_counter()
+    batch_fn, sample_s, info = kg_minibatches(kg)
+    info["prep_s"] = time.perf_counter() - t0
+    cfg = dataclasses.replace(get_arch("gatedgcn").config, d_in=16)
+
+    def loss_fn(p, b):
+        return gatedgcn.loss_fn(p, cfg, b)
+
+    params = gatedgcn.init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    first = batch_fn(0)
+    info.update(sub_nodes=int(first["x"].shape[0]),
+                sub_edges=int(first["edge_index"].shape[1]))
+    mol0 = molecule_batch(np.random.default_rng(0), 128, 30, 64)
+    train_kernel_checks(ops, ref, records["kernels"], first, {"molecule": mol0})
+    grad_step(loss_fn, params, first)  # first-call costs, outside the count
+    del first, mol0
+    sample_s.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    full = train_run(loss_fn, params, batch_fn, TRAIN_STEPS, work / "a")
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    want = dict(segment_sum=64 * TRAIN_STEPS, dedup_order=2 * TRAIN_STEPS,
+                search_bounds=2 * TRAIN_STEPS)
+    if {k: v for k, v in launches.items() if v} != want:
+        raise AssertionError(f"training launches {launches}, want {want}")
+    if not all(np.isfinite(full.losses)):
+        raise AssertionError("training: a non-finite loss")
+    walls, samples = list(full.step_walls), list(sample_s)
+    fb = batch_fn(0)
+    ops.reset_launches()
+    with torch.no_grad():
+        loss_fn(full.params, fb)
+    torch.cuda.synchronize()
+    forward_launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    per_step = {k: v // TRAIN_STEPS for k, v in launches.items() if v}
+    backward_launches = {k: per_step[k] - forward_launches.get(k, 0) for k in per_step
+                         if per_step[k] != forward_launches.get(k, 0)}
+    if forward_launches != dict(segment_sum=2 * cfg.n_layers, dedup_order=2,
+                                search_bounds=2) or \
+            backward_launches != dict(segment_sum=2 * cfg.n_layers):
+        raise AssertionError(f"a step's launches: forward {forward_launches}, "
+                             f"backward {backward_launches}")
+    del fb
+    # killed after step 17 (checkpoints at 10 and 17), then resumed
+    cut = train_run(loss_fn, params, batch_fn, TRAIN_STEPS, work / "b", until=TRAIN_KILL)
+    resumed = train_run(loss_fn, params, batch_fn, TRAIN_STEPS, work / "b", resume=True)
+    if cut.losses + resumed.losses != full.losses:
+        raise AssertionError("the killed and resumed run's losses differ from the "
+                             "uninterrupted run's")
+    if not (same_tree(resumed.params, full.params) and same_tree(resumed.opt, full.opt)):
+        raise AssertionError("the resumed run's parameters differ from the "
+                             "uninterrupted run's")
+    print(f"  killed after step {TRAIN_KILL} and resumed: {TRAIN_STEPS - TRAIN_KILL} "
+          f"losses and every parameter and moment bit-identical", flush=True)
+    cpu_cfg = dataclasses.replace(cfg, n_layers=TRAIN_CHECK_LAYERS)
+    cpu_params = gatedgcn.init_params(torch.Generator().manual_seed(0), cpu_cfg, device="cpu")
+    check = card_vs_cpu_grads(
+        f"GatedGCN {TRAIN_CHECK_LAYERS} layers, KG minibatches",
+        lambda p, b: gatedgcn.loss_fn(p, cpu_cfg, b), cpu_params,
+        [{k: v.cpu() for k, v in batch_fn(s).items()} for s in range(TRAIN_CHECK_BATCHES)])
+    out["main"] = dict(
+        config=cfg.name, n_layers=cfg.n_layers, d_hidden=cfg.d_hidden, d_in=cfg.d_in,
+        n_classes=cfg.n_classes, seeds=TRAIN_SEEDS, fanout=list(TRAIN_FANOUT),
+        steps=TRAIN_STEPS, **info, **wall_stats(walls, info["sub_edges"]),
+        walls_s=walls, sample_s_median=statistics.median(samples),
+        losses=full.losses, max_memory_allocated=peak, launches=launches,
+        launches_per_step=per_step, launches_forward=forward_launches,
+        launches_backward=backward_launches, kill_after=TRAIN_KILL, resumed_bit_identical=True,
+        card_vs_cpu=check)
+    print(f"  GatedGCN {cfg.n_layers} layers on KG minibatches ({info['sub_nodes']} "
+          f"nodes, {info['sub_edges']} edges): {TRAIN_STEPS} steps, median step "
+          f"{out['main']['step_wall_s'] * 1e3:.1f} ms (sampling "
+          f"{out['main']['sample_s_median'] * 1e3:.1f} ms), "
+          f"{out['main']['edges_per_s']:.4g} edges/s, loss {full.losses[0]:.4f} -> "
+          f"{full.losses[-1]:.4f}, peak {peak} B, launches a step "
+          f"{json.dumps(per_step)}", flush=True)
+
+    def profile_step(rec=out["main"]):
+        """One training step (loss, gradients, AdamW) and its forward alone
+        under torch.profiler, on a batch and parameters made anew: the
+        segment sum's device time forward and backward, and its share."""
+        p = gatedgcn.init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+        b = batch_fn(0)
+        opt = adamw_init(p)
+
+        def step():
+            from torch.utils import _pytree as pytree
+
+            _, grads = grad_step(loss_fn, p, b)
+            return adamw_update(p, pytree.tree_unflatten(grads, pytree.tree_structure(p)),
+                                opt)
+
+        def forward():
+            with torch.no_grad():
+                return loss_fn(p, b)
+
+        prof, wall, _ = profiled(step)
+        busy = device_time(prof, wall)
+        prof, fwall, _ = profiled(forward)
+        fwd = device_time(prof, fwall)
+        seg_all = busy["port_kernels_ms"].get("segment_sum", 0.0)
+        seg_fwd = fwd["port_kernels_ms"].get("segment_sum", 0.0)
+        busy.update(segment_sum_forward_ms=seg_fwd, segment_sum_backward_ms=seg_all - seg_fwd,
+                    segment_sum_forward_share=seg_fwd / busy["busy_ms"],
+                    segment_sum_backward_share=(seg_all - seg_fwd) / busy["busy_ms"],
+                    forward_alone=fwd)
+        rec["profiled_step_wall_s"], rec["profiled_step"] = wall, busy
+        print(f"  profiled GatedGCN training step: {wall * 1e3:.1f} ms, busy "
+              f"{busy['busy_ms']:.2f} ms; segment_sum forward {seg_fwd:.3f} ms "
+              f"({busy['segment_sum_forward_share']:.1%}), backward "
+              f"{seg_all - seg_fwd:.3f} ms ({busy['segment_sum_backward_share']:.1%})",
+              flush=True)
+
+    later.append(profile_step)
+    del full, cut, resumed, params
+
+    # (b) EGNN and DimeNet on the molecule shape, GatedGCN and PNA on
+    # full_graph_sm, at their configs
+    out["small"] = {}
+    for name, mod in (("egnn", egnn), ("dimenet", dimenet), ("gatedgcn", gatedgcn),
+                      ("pna", pna)):
+        spec = get_arch(name)
+        mcfg = spec.config
+        if name in ("egnn", "dimenet"):
+            dims = spec.shape("molecule").dims
+
+            def fn(step, dims=dims):
+                return molecule_batch(np.random.default_rng(step), dims["batch"],
+                                      dims["n_nodes"], dims["n_edges"])
+        else:
+            dims = spec.shape("full_graph_sm").dims
+            graph = random_graph(np.random.default_rng(0), dims["n_nodes"],
+                                 dims["n_edges"], dims["d_feat"], mcfg.n_classes)
+
+            def fn(step, graph=graph):
+                return graph
+
+        def mloss(p, b, mod=mod, mcfg=mcfg):
+            return mod.loss_fn(p, mcfg, b)
+
+        host = mod.init_params(torch.Generator().manual_seed(0), mcfg, device="cpu")
+        check = card_vs_cpu_grads(f"{name} first step", mloss, host, [fn(0)],
+                                  ties=name == "pna")
+        init = _tree_to(host, "cuda")
+        torch.cuda.reset_peak_memory_stats()
+        runs = [train_run(mloss, init, fn, TRAIN_SMALL_STEPS, work / f"{name}{i}")
+                for i in range(2)]
+        peak = torch.cuda.max_memory_allocated()
+        from torch.utils import _pytree as pytree
+
+        moved = [not torch.equal(a, b) for a, b in zip(pytree.tree_leaves(runs[0].params),
+                                                       pytree.tree_leaves(init))]
+        if not all(np.isfinite(runs[0].losses)) or not all(
+                m for m, g in zip(moved, check["nonzero_grads"]) if g):
+            raise AssertionError(f"{name}: a non-finite loss or a parameter with a "
+                                 "gradient that did not move")
+        bit_equal = runs[0].losses == runs[1].losses and same_tree(runs[0].params,
+                                                                    runs[1].params)
+        if not bit_equal and name != "pna":
+            raise AssertionError(f"{name}: two card runs differ")
+        e = fn(0)["edge_index"].shape[1]
+        out["small"][name] = dict(
+            config=mcfg.name, shape=dims, steps=TRAIN_SMALL_STEPS, losses=runs[0].losses,
+            **wall_stats(runs[0].step_walls[1:], e), walls_s=runs[0].step_walls,
+            max_memory_allocated=peak, moved_leaves=sum(moved), leaves=len(moved),
+            two_runs_bit_equal=bit_equal, card_vs_cpu=check)
+        print(f"  {name} ({mcfg.name}): {TRAIN_SMALL_STEPS} steps, losses "
+              f"{[round(x, 4) for x in runs[0].losses]}, median step "
+              f"{out['small'][name]['step_wall_s'] * 1e3:.1f} ms, two card runs "
+              f"bit-equal: {bit_equal}", flush=True)
+        del runs, init
+
+    # (c) SmolLM-135M at full width, remat on; (d) the Criteo-scale FM
+    lcfg = get_arch("smollm-135m").config
+    fcfg = dataclasses.replace(get_arch("fm").config, use_pallas=False)
+    for label, make, fn, mloss in (
+        ("smollm_135m", lambda: lm.init_params(torch.Generator(device="cuda").manual_seed(0),
+                                               lcfg),
+         lambda step: lm_batch(step, LM_TRAIN_BATCH, LM_TRAIN_SEQ, lcfg.vocab),
+         lambda p, b: lm.loss_fn(p, lcfg, b["tokens"], b["labels"])),
+        ("fm_criteo", lambda: recsys.init_params(torch.Generator(device="cuda").manual_seed(0),
+                                                 fcfg),
+         lambda step: recsys_batch(step, get_arch("fm").shape("train_batch").dims["batch"],
+                                   fcfg.n_fields, fcfg.rows_per_field),
+         lambda p, b: recsys.loss_fn(p, fcfg, b)),
+    ):
+        init = make()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        runs = []
+        for i in range(2):
+            runs.append(train_run(mloss, init, fn, TRAIN_SMALL_STEPS, work / f"{label}{i}",
+                                  async_ckpt=False))
+            shutil.rmtree(work / f"{label}{i}")
+        peak = torch.cuda.max_memory_allocated()
+        if not all(np.isfinite(runs[0].losses)):
+            raise AssertionError(f"{label}: a non-finite loss")
+        bit_equal = runs[0].losses == runs[1].losses and same_tree(runs[0].params,
+                                                                    runs[1].params)
+        out[label] = dict(steps=TRAIN_SMALL_STEPS, losses=runs[0].losses,
+                          **wall_stats(runs[0].step_walls[1:]), walls_s=runs[0].step_walls,
+                          max_memory_allocated=peak, two_runs_bit_equal=bit_equal)
+        print(f"  {label}: {TRAIN_SMALL_STEPS} steps, losses "
+              f"{[round(x, 4) for x in runs[0].losses]}, median step "
+              f"{out[label]['step_wall_s'] * 1e3:.1f} ms, peak {peak} B, two runs "
+              f"bit-equal: {bit_equal}", flush=True)
+        del runs, init
+        _free_card()
+    out["lm_config"] = dict(name=lcfg.name, n_layers=lcfg.n_layers, batch=LM_TRAIN_BATCH,
+                            seq=LM_TRAIN_SEQ, remat=lcfg.remat, attn_impl=lcfg.attn_impl)
+    out["fm_config"] = dict(name=fcfg.name, n_rows=fcfg.n_rows, use_pallas=fcfg.use_pallas)
+    shutil.rmtree(work)
+    records["training"] = out
+    return launches["segment_sum"]
+
+
 def search_census(ops, run) -> dict:
     """``run()`` (one REW materialisation) under torch.profiler with every
     search call classified: its form (both sides, left, right, prefix of
@@ -3461,8 +3909,12 @@ def main() -> None:
     phase("the sharded engine (torch.distributed), card == CPU == unsharded:")
     sharded_phase(records, kg)
 
+    phase("training on the card (GatedGCN on KG minibatches; EGNN, DimeNet, PNA, "
+          "SmolLM-135M, the FM):")
+    launches["segment_sum"] += training_phase(ops, ref, records, kg, later)
+
     phase("device times under torch.profiler (kernels, REW, updates, LM, FM and MoE "
-          "serving):")
+          "serving, the training step):")
     for job in later + last:
         job()
 

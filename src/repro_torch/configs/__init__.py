@@ -3,8 +3,7 @@ ArchSpec of a ported architecture; ``all_archs()`` lists the reference's
 architectures in its order (plus ``sameas_rew``, the paper's own engine
 workload).
 
-The port carries the nine whose code it has.  Any other name raises
-``KeyError`` naming the ROADMAP item that ports it.
+The port carries all eleven; any other name raises ``KeyError``.
 """
 
 from __future__ import annotations
@@ -33,17 +32,12 @@ _ALIASES = {
     "smollm-135m": "smollm_135m",
     "starcoder2-15b": "starcoder2_15b",
 }
-_PORTED = ("qwen3_moe_235b", "deepseek_moe_16b", "qwen2_1p5b", "smollm_135m",
-           "starcoder2_15b", "fm", "gatedgcn", "pna", "sameas_rew")
-_GNN = "ROADMAP Queue 1 item 8c (GNNs: egnn, dimenet)"
-_LATER = {"dimenet": _GNN, "egnn": _GNN}
 
 
 def get_arch(name: str) -> ArchSpec:
     module = _ALIASES.get(name, name.replace("-", "_").replace(".", "p"))
-    if module not in _PORTED:
-        where = _LATER.get(module, "no ROADMAP item: the reference has no such arch")
-        raise KeyError(f"{name!r} is not ported yet: {where}")
+    if module not in _ARCH_MODULES:
+        raise KeyError(f"{name!r}: the reference has no such arch")
     return importlib.import_module(f"repro_torch.configs.{module}").SPEC
 
 

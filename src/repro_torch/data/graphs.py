@@ -49,9 +49,11 @@ def build_graph_from_kg(triples, n_nodes, d_feat, rng):
 
 
 def graph_to(graph: dict, device: str | torch.device) -> dict:
-    """A graph of numpy arrays (or tensors) as tensors on ``device``."""
+    """A graph of numpy arrays (or tensors) as tensors on ``device``;
+    Python ints (a batch's ``n_graphs``) stay ints."""
     device = resolve(device, "graph_to")
-    return {k: torch.as_tensor(v).to(device) for k, v in graph.items()}
+    return {k: v if isinstance(v, int) else torch.as_tensor(v).to(device)
+            for k, v in graph.items()}
 
 
 def dedup_graph(graph: dict, rho, device: str | torch.device = "cuda") -> dict:

@@ -15,6 +15,11 @@ serve four paths: REW materialisation (dedup, search, rewrite, union-find),
 LM serving (flash attention), FM serving (the FM interaction and the
 embedding bag) and GNN inference (the segment sum, with its plan built by
 dedup and search, and the graph's sameAs dedup by rewrite and dedup).
+GNN training differentiates through two of them: :func:`segment_sum` and
+:func:`gather_rows` are each other's transposes, so each one's backward
+is the other (the row gather plain torch indexing, the sum the kernel).
+The flash, FM and bag kernels have no backward and raise on the card when
+autograd would need one.
 
 Kernel launches use PyTorch's current stream, allocate nothing inside the
 kernel (outputs and scratch come from ``torch.empty`` here) and never
@@ -385,6 +390,15 @@ def uf_union_(rep: torch.Tensor, pairs: torch.Tensor, valid: torch.Tensor) -> No
             operands=(rep, pairs, valid))
 
 
+def _no_grad_wanted(name: str, *tensors: torch.Tensor) -> None:
+    """Raise if autograd would need a gradient through kernel ``name``,
+    which has none (the reference differentiates none of its Pallas
+    kernels; training takes the plain paths, as the reference does)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"the {name} kernel has no backward: call it under "
+                           "torch.no_grad() or on tensors that need no gradient")
+
+
 FLASH_HEAD_DIMS = (64, 128)
 _FLOATS = (torch.float32, torch.bfloat16)
 
@@ -428,6 +442,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"q_offset must be >= 0, got {q_offset}")
     if not _on_card(q, k, v):
         return _plain("flash_attention", q, k, v, causal, q_offset)
+    _no_grad_wanted("flash_attention", q, k, v)
     if d not in FLASH_HEAD_DIMS:
         raise ValueError(f"flash kernel: head dim {d} not in {FLASH_HEAD_DIMS}")
     vec = 16 // q.element_size()
@@ -454,6 +469,7 @@ def fm_interact(x: torch.Tensor) -> torch.Tensor:
     _check_float(x, "x", 3)
     if not _on_card(x):
         return _plain("fm_interact", x)
+    _no_grad_wanted("fm_interact", x)
     b, f, k = x.shape
     out = torch.empty(b, dtype=x.dtype, device=x.device)
     if b == 0:
@@ -491,15 +507,10 @@ def segment_plan(seg: torch.Tensor, n_segments: int) -> SegmentPlan:
     return SegmentPlan(perm, sorted_keys.to(torch.int32), offsets, n_segments)
 
 
-def segment_sum(x: torch.Tensor, seg: torch.Tensor, n_segments: int,
-                plan: SegmentPlan | None = None) -> torch.Tensor:
-    """(E, K) rows summed by (E,) int32 segment id into (n_segments, K):
-    rows whose id lies outside [0, n_segments) are dropped, empty segments
-    are zero; f32 sums, x's dtype (f32 or bf16).
-
-    On the card the kernel visits the rows in ``plan``'s order
-    (:func:`segment_plan` of ``seg``; built here when it is not given), and
-    two calls on the same inputs give the same bits."""
+def _segment_sum(x: torch.Tensor, seg: torch.Tensor, n_segments: int,
+                 plan: SegmentPlan | None) -> torch.Tensor:
+    """The forward of :func:`segment_sum`: the kernel on the card, the
+    plain version on the CPU."""
     _check_float(x, "x", 2)
     _check(seg, "seg", torch.int32, 1)
     e, k = x.shape
@@ -532,6 +543,78 @@ def segment_sum(x: torch.Tensor, seg: torch.Tensor, n_segments: int,
     return out
 
 
+def _gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[idx]`` with zero rows for ids outside [0, len(x))."""
+    keep = (idx >= 0) & (idx < x.shape[0])
+    rows = x[idx.to(torch.int64).clamp(0, max(x.shape[0] - 1, 0))]
+    return torch.where(keep.reshape(-1, *([1] * (x.dim() - 1))), rows, 0)
+
+
+class _SegmentSum(torch.autograd.Function):
+    """The segment sum, differentiable in ``x``: its transpose is the row
+    gather of the output's gradient by ``seg`` (zero for rows whose id
+    lies outside [0, n_segments)), as XLA transposes
+    ``jax.ops.segment_sum``."""
+
+    @staticmethod
+    def forward(ctx, x, seg, n_segments, plan):
+        ctx.save_for_backward(seg)
+        return _segment_sum(x, seg, n_segments, plan)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (seg,) = ctx.saved_tensors
+        return _gather(grad, seg), None, None, None
+
+
+class _GatherRows(torch.autograd.Function):
+    """``x[idx]``, whose transpose is the segment sum of the output's
+    gradient by ``idx`` into ``len(x)`` rows: the kernel on the card, in
+    ``plan``'s fixed order, so the backward is deterministic."""
+
+    @staticmethod
+    def forward(ctx, x, idx, plan):
+        ctx.save_for_backward(idx)
+        ctx.plan, ctx.shape = plan, x.shape
+        return x[idx.to(torch.int64)]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (idx,) = ctx.saved_tensors
+        flat = grad.reshape(grad.shape[0], -1).contiguous()
+        gx = _SegmentSum.apply(flat, idx, ctx.shape[0], ctx.plan)
+        return gx.reshape(ctx.shape), None, None
+
+
+def segment_sum(x: torch.Tensor, seg: torch.Tensor, n_segments: int,
+                plan: SegmentPlan | None = None) -> torch.Tensor:
+    """(E, K) rows summed by (E,) int32 segment id into (n_segments, K):
+    rows whose id lies outside [0, n_segments) are dropped, empty segments
+    are zero; f32 sums, x's dtype (f32 or bf16).
+
+    On the card the kernel visits the rows in ``plan``'s order
+    (:func:`segment_plan` of ``seg``; built here when it is not given), and
+    two calls on the same inputs give the same bits.  Differentiable in
+    ``x``: the gradient is the output's gradient gathered by ``seg``."""
+    return _SegmentSum.apply(x, seg, n_segments, plan)
+
+
+def gather_rows(x: torch.Tensor, idx: torch.Tensor,
+                plan: SegmentPlan | None = None) -> torch.Tensor:
+    """``x[idx]`` for (N, ...) ``x`` and (E,) int32 ``idx`` in [0, N).  Its
+    gradient is :func:`segment_sum` of the output's gradient by ``idx``
+    into N rows, through ``plan`` (:func:`segment_plan` of ``idx`` and N,
+    built there when not given): the hand-written kernel on the card, and
+    two backward passes give the same bits."""
+    _check(idx, "idx", torch.int32, 1)
+    if plan is not None and (plan.n_segments != x.shape[0]
+                             or plan.perm.shape[0] != idx.shape[0]):
+        raise ValueError(f"plan of {plan.perm.shape[0]} rows and "
+                         f"{plan.n_segments} segments for {idx.shape[0]} ids "
+                         f"into {x.shape[0]} rows")
+    return _GatherRows.apply(x, idx, plan)
+
+
 @functools.cache
 def segment_sum_max_blocks() -> int:
     """The most blocks the segment-sum kernel's first pass runs on this
@@ -553,6 +636,7 @@ def embedding_bag(ids: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
         raise ValueError("table is empty")
     if not _on_card(ids, table):
         return _plain("embedding_bag", ids, table)
+    _no_grad_wanted("embedding_bag", table)
     b, f = ids.shape
     out = torch.empty((b, k), dtype=table.dtype, device=table.device)
     if out.numel() == 0:

@@ -10,6 +10,13 @@ Each reduction takes an optional :class:`repro_torch.kernels.ops.SegmentPlan`
 of its segment ids, which a forward builds once per graph (from ``dst``)
 and passes to every layer; without one the kernel builds its own.
 Segment ids of ``seg_max``/``seg_min`` must lie in [0, n).
+
+Training differentiates through the same kernel: the gradient of a sum is
+a row gather, and every row gather of a node or edge table by an index
+array (``gather``, :func:`repro_torch.kernels.ops.gather_rows`) has as its
+gradient the segment sum by that array, through that array's plan.  So the
+backward of the sums and gathers is deterministic on the card; that of
+``seg_max``/``seg_min`` is PyTorch's.
 """
 
 from __future__ import annotations
@@ -22,6 +29,12 @@ from repro_torch.kernels import ops
 
 def seg_sum(x, seg, n, plan=None):
     return ops.segment_sum(x, seg, n, plan=plan)
+
+
+def gather(x, idx, plan=None):
+    """``x[idx]`` for int32 ``idx``; ``plan`` (of ``idx`` and ``len(x)``)
+    serves its backward."""
+    return ops.gather_rows(x, idx, plan)
 
 
 def _counts(seg, n, dtype, plan=None):
@@ -60,15 +73,26 @@ def seg_std(x, seg, n, eps=1e-6, plan=None):
 
 def seg_softmax(logits, seg, n, plan=None):
     """Edge softmax grouped by destination node."""
-    idx = seg.to(torch.int64)
     mx = seg_max(logits, seg, n, plan)
-    ex = torch.exp(logits - mx[idx])
+    ex = torch.exp(logits - gather(mx, seg, plan))
     den = seg_sum(ex, seg, n, plan)
-    return ex / (den[idx] + 1e-9)
+    return ex / (gather(den, seg, plan) + 1e-9)
 
 
 def degrees(dst, n, plan=None):
     return _counts(dst, n, torch.float32, plan)[:, 0]
+
+
+def masked_nll(logits, batch: dict):
+    """Node classification loss: the mean negative log-likelihood of
+    ``batch["labels"]`` over the nodes of ``batch["train_mask"]`` (all
+    nodes without one), in f32."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(1, batch["labels"].to(torch.int64)[:, None])[:, 0]
+    mask = batch.get("train_mask")
+    if mask is not None:
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()
 
 
 def mlp(params: list, x, act=F.silu):

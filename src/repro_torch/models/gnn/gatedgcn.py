@@ -5,11 +5,11 @@ arXiv:2003.00982): edge-gated message passing with residuals.
     eta_ij = sigma(e'_ij) / (sum_j' sigma(e'_ij') + eps)
     h'_i  = U h_i + sum_j eta_ij * (V h_j)
 
-The port of ``repro.models.gnn.gatedgcn`` for inference: both sums over
-the in-edges of a node go through the ``segment_sum`` kernel, two launches
-a layer, with one segment plan of ``dst`` for the whole forward.  LayerNorm
-replaces BatchNorm, as in the reference.  ``loss_fn`` waits for the
-training slice.
+The port of ``repro.models.gnn.gatedgcn``: both sums over the in-edges
+of a node go through the ``segment_sum`` kernel, two launches a layer, and
+so does the backward of the node gathers ``x[dst]`` and ``x[src]``; the
+forward builds one segment plan of ``dst`` and one of ``src``.  LayerNorm
+replaces BatchNorm, as in the reference.  ``loss_fn`` is the masked NLL.
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ import torch.nn.functional as F
 from repro_torch.device import resolve
 from repro_torch.kernels import ops
 
-from .common import init_mlp, layer_norm, mlp, seg_sum
+from .common import gather, init_mlp, layer_norm, masked_nll, mlp, seg_sum
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,21 +58,28 @@ def forward(params, cfg: GatedGCNConfig, batch: dict) -> torch.Tensor:
     """batch: x (N, d_in), edge_attr (E, d_edge_in), edge_index (2, E)
     int32 (row 0 the sources, row 1 the destinations).  Returns logits
     (N, n_classes).  One segment plan of the destinations serves every
-    segment sum of the forward."""
+    segment sum of the forward and the backward of ``x[dst]``; one of the
+    sources serves the backward of ``x[src]``."""
     x = mlp(params["embed_x"], batch["x"])
     e = mlp(params["embed_e"], batch["edge_attr"])
-    dst = batch["edge_index"][1]
-    src_i, dst_i = batch["edge_index"][0].to(torch.int64), dst.to(torch.int64)
+    src, dst = batch["edge_index"][0], batch["edge_index"][1]
     n = x.shape[0]
-    plan = ops.segment_plan(dst, n)
+    plan, src_plan = ops.segment_plan(dst, n), ops.segment_plan(src, n)
     for lp in params["layers"]:
         (aw, ab), (bw, bb), (cw, cb) = lp["A"], lp["B"], lp["C"]
         (uw, ub), (vw, vb) = lp["U"], lp["V"]
-        e_new = x[dst_i] @ aw + x[src_i] @ bw + e @ cw + (ab + bb + cb)
+        x_src = gather(x, src, src_plan)
+        e_new = gather(x, dst, plan) @ aw + x_src @ bw + e @ cw + (ab + bb + cb)
         gate = torch.sigmoid(e_new.float()).to(x.dtype)
-        msg = gate * (x[src_i] @ vw + vb)
+        msg = gate * (x_src @ vw + vb)
         den = seg_sum(gate, dst, n, plan) + 1e-6
         agg = seg_sum(msg, dst, n, plan) / den
         x = x + F.silu(layer_norm(x @ uw + ub + agg))
         e = e + F.silu(layer_norm(e_new))
     return mlp(params["head"], x)
+
+
+def loss_fn(params, cfg: GatedGCNConfig, batch: dict):
+    """Masked NLL of the node labels (``batch["labels"]``, int; optional
+    ``batch["train_mask"]``, f32), as the reference's."""
+    return masked_nll(forward(params, cfg, batch), batch)

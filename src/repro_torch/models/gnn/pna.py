@@ -2,10 +2,12 @@
 
 Multi-aggregator (mean / max / min / std) x multi-scaler (identity /
 amplification / attenuation) message passing with tower MLPs.  The port of
-``repro.models.gnn.pna`` for inference: the degree, the means and the
-standard deviation (and the empty-segment counts of max and min) go
-through the ``segment_sum`` kernel, with one segment plan of ``dst`` for
-the whole forward.  ``loss_fn`` waits for the training slice.
+``repro.models.gnn.pna``: the degree, the means and the standard deviation
+(and the empty-segment counts of max and min) go through the
+``segment_sum`` kernel, with one segment plan of ``dst`` for the whole
+forward, and so does the backward of ``x[dst]`` and ``x[src]`` (a plan of
+``src`` too).  The max and min are PyTorch's ``scatter_reduce``, backward
+included.  ``loss_fn`` is the masked NLL.
 """
 
 from __future__ import annotations
@@ -18,7 +20,8 @@ import torch.nn.functional as F
 from repro_torch.device import resolve
 from repro_torch.kernels import ops
 
-from .common import degrees, init_mlp, layer_norm, mlp, seg_max, seg_mean, seg_min, seg_std
+from .common import (degrees, gather, init_mlp, layer_norm, masked_nll, mlp, seg_max,
+                     seg_mean, seg_min, seg_std)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,18 +56,19 @@ def init_params(gen: torch.Generator, cfg: PNAConfig,
 def forward(params, cfg: PNAConfig, batch: dict) -> torch.Tensor:
     """batch: x (N, d_in), edge_index (2, E) int32.  Returns logits
     (N, n_classes).  One segment plan of the destinations serves every
-    segment sum of the forward."""
+    segment sum of the forward and the backward of ``x[dst]``; one of the
+    sources serves the backward of ``x[src]``."""
     x = mlp(params["embed"], batch["x"])
-    dst = batch["edge_index"][1]
-    src_i, dst_i = batch["edge_index"][0].to(torch.int64), dst.to(torch.int64)
+    src, dst = batch["edge_index"][0], batch["edge_index"][1]
     n = x.shape[0]
-    plan = ops.segment_plan(dst, n)
+    plan, src_plan = ops.segment_plan(dst, n), ops.segment_plan(src, n)
     deg = degrees(dst, n, plan)
     log_deg = torch.log(deg + 1.0)
     amp = (log_deg / cfg.delta)[:, None]
     att = (cfg.delta / torch.clamp(log_deg, min=1e-6))[:, None]
     for lp in params["layers"]:
-        m = mlp(lp["pre"], torch.cat([x[dst_i], x[src_i]], dim=-1))
+        m = mlp(lp["pre"], torch.cat([gather(x, dst, plan), gather(x, src, src_plan)],
+                                     dim=-1))
         aggs = [
             seg_mean(m, dst, n, plan=plan),
             seg_max(m, dst, n, plan),
@@ -75,3 +79,8 @@ def forward(params, cfg: PNAConfig, batch: dict) -> torch.Tensor:
         scaled = torch.cat([agg, agg * amp, agg * att], dim=-1)
         x = x + F.silu(layer_norm(mlp(lp["post"], torch.cat([scaled, x], dim=-1))))
     return mlp(params["head"], x)
+
+
+def loss_fn(params, cfg: PNAConfig, batch: dict):
+    """Masked NLL of the node labels, as the reference's."""
+    return masked_nll(forward(params, cfg, batch), batch)

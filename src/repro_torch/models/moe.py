@@ -133,6 +133,60 @@ def routing_log(log: RoutingLog | None = None):
         stack.remove(log)
 
 
+class _Capture:
+    """Keeps what each MoE call was forced to (None when it routed by its
+    router), forcing nothing."""
+
+    def __init__(self):
+        self.routes: list[torch.Tensor | None] = []
+
+    def forced(self, device: torch.device) -> None:
+        return None
+
+    def add(self, r: Routing) -> None:
+        # gate_idx is the router's own top_idx unless a log forced it
+        self.routes.append(None if r.gate_idx is r.top_idx else r.gate_idx)
+
+
+class _Replay:
+    """Forces the MoE calls as the captured ones were forced, in turn (so
+    each takes the same path through ``route``); records nothing."""
+
+    def __init__(self, capture: _Capture):
+        self.capture, self.calls = capture, 0
+
+    def forced(self, device: torch.device) -> torch.Tensor | None:
+        self.calls += 1
+        return self.capture.routes[self.calls - 1]
+
+    def add(self, r: Routing) -> None:
+        pass
+
+
+@contextlib.contextmanager
+def _only(log):
+    """Hide this thread's logs behind ``log`` until the block ends."""
+    stack = _active.__dict__.setdefault("logs", [])
+    _active.logs = [log]
+    try:
+        yield log
+    finally:
+        _active.logs = stack
+
+
+def remat_contexts():
+    """``(forward, recompute)`` context managers for one call of
+    ``torch.utils.checkpoint`` (its ``context_fn``): the forward records
+    how each MoE call it makes was routed, beside the thread's logs, and
+    the recompute in the backward repeats it with the logs hidden: a call
+    that a log forced is forced to the same experts, and one that routed
+    by its router routes by it again, on the same inputs.  So the
+    recompute routes as the forward did, and no log sees a call twice or
+    spends a replayed route on it."""
+    capture = _Capture()
+    return routing_log(capture), _only(_Replay(capture))
+
+
 def route(xt: torch.Tensor, router_w: torch.Tensor, top_k: int,
           capacity_factor: float = 1.25,
           forced: torch.Tensor | None = None) -> Routing:

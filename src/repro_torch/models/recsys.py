@@ -12,8 +12,10 @@ owl:sameAs integration: an optional ``rho`` row remap unifies equivalent
 IDs (merged user/item registrations) before lookup — one extra gather,
 after which merged IDs share one embedding row.
 
-Everything runs where the parameters lie.  ``loss_fn`` waits for the
-training slice and ``param_shardings`` for the multi-GPU slice.
+Everything runs where the parameters lie.  ``loss_fn`` trains with
+``use_pallas=False``, the reference's autodiff path (the FM and bag
+kernels have no backward and raise on the card under grad);
+``param_shardings`` waits for the multi-GPU slice.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from repro_torch.device import resolve
 from repro_torch.kernels import ops
 from repro_torch.models.transformer import params_from_numpy
 
-__all__ = ["FMConfig", "forward", "init_params", "params_from_numpy",
+__all__ = ["FMConfig", "forward", "init_params", "loss_fn", "params_from_numpy",
            "retrieval_scores", "serve_step"]
 
 
@@ -86,6 +88,15 @@ def forward(params, cfg: FMConfig, batch: dict) -> torch.Tensor:
     else:
         first = params["w1"][rows].sum(dim=1)
     return params["bias"] + first + second
+
+
+def loss_fn(params, cfg: FMConfig, batch: dict) -> torch.Tensor:
+    """Mean binary cross entropy of the logits against ``batch["labels"]``
+    in the reference's stable form, f32."""
+    logits = forward(params, cfg, batch).float()
+    y = batch["labels"].float()
+    return torch.mean(torch.clamp(logits, min=0) - logits * y
+                      + torch.log1p(torch.exp(-torch.abs(logits))))
 
 
 def serve_step(params, cfg: FMConfig, batch: dict) -> torch.Tensor:

@@ -1,16 +1,20 @@
 """Decoder-only LM (dense or MoE): GQA (+ optional QKV bias), RoPE, SwiGLU
 dense FFN or DeepSeek/Qwen-style MoE (optional shared experts), tied
-embeddings.  The port of ``repro.models.transformer`` for serving:
+embeddings.  The port of ``repro.models.transformer``:
 
-  * ``forward``     — full-sequence hidden states,
+  * ``loss_fn``     — training loss over (tokens, labels),
+  * ``forward``     — full-sequence hidden states (layers under
+    ``torch.utils.checkpoint`` with ``cfg.remat``, a checkpoint a group
+    of ``cfg.remat_group`` layers),
   * ``prefill``     — full-sequence forward building a KV cache,
   * ``decode_step`` — one new token against a static-size KV cache.
 
 Parameters keep the reference's pytree: ``{"embed", "final_norm",
 "layers": {name: (L, ...) stacked tensor}}``, so a reference checkpoint
 carries over through :func:`params_from_numpy`.  The layers run as a loop
-over the stacked tensors.  ``loss_fn`` and ``param_shardings`` wait for a
-later slice (ROADMAP Queue 1 item 8d).
+over the stacked tensors.  ``param_shardings`` waits for a later slice
+(ROADMAP Queue 1 item 1).  Training runs with ``attn_impl="xla_chunked"``,
+as the reference's: the flash kernel has no backward.
 
 Where the reference returns a fresh cache (JAX arrays are immutable),
 ``decode_step`` and ``_layer`` write the new K/V into the given cache in
@@ -23,11 +27,12 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.device import resolve
 
 from .layers import DTYPE, apply_rope, gqa_attention, rms_norm, rope_angles, swiglu
-from .moe import moe_ffn
+from .moe import moe_ffn, remat_contexts
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,9 +55,10 @@ class LMConfig:
     capacity_factor: float = 1.25
     attn_chunk: int = 1024
     attn_impl: str = "xla_chunked"  # "flash" = the hand-written CUDA kernel
-    # training-side fields, kept so that the reference's configs carry over
+    # recompute each group of remat_group layers in the backward (forward)
     remat: bool = True
     remat_group: int = 1
+    # sharding fields, kept so that the reference's configs carry over
     n_token_shards: int = 1
     dp_axes: tuple = ()
     ep_axis: str | None = None
@@ -245,19 +251,51 @@ def _embed(params, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def forward(params, cfg: LMConfig, tokens: torch.Tensor):
-    """tokens (B, S) -> hidden (B, S, D), aux loss sum."""
+    """tokens (B, S) -> hidden (B, S, D), aux loss sum.
+
+    With ``cfg.remat`` and grad mode on, each group of ``cfg.remat_group``
+    layers (one layer when the group does not divide the depth, as in the
+    reference) runs under ``torch.utils.checkpoint``: the backward
+    recomputes the group, with the MoE calls routed as in the forward."""
     s = tokens.shape[1]
     x = _embed(params, tokens)
     cos, sin = rope_angles(torch.arange(s, device=x.device), cfg.d_head, cfg.rope_theta)
+    g = cfg.remat_group if cfg.remat_group > 1 and cfg.n_layers % cfg.remat_group == 0 else 1
+
+    def group(x, first):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in range(first, first + g):
+            x, a, _ = _layer(cfg, x, layer_params(params, i), cos, sin, q_offset=0)
+            aux = aux + a
+        return x, aux
+
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.n_layers):
-        x, a, _ = _layer(cfg, x, layer_params(params, i), cos, sin, q_offset=0)
+    for first in range(0, cfg.n_layers, g):
+        if cfg.remat and torch.is_grad_enabled():
+            x, a = torch.utils.checkpoint.checkpoint(
+                group, x, first, use_reentrant=False, context_fn=remat_contexts)
+        else:
+            x, a = group(x, first)
         aux = aux + a
     return rms_norm(x, params["final_norm"]), aux
 
 
 def logits_of(params, hidden):
     return hidden @ params["embed"].to(hidden.dtype).T
+
+
+def loss_fn(params, cfg: LMConfig, tokens: torch.Tensor, labels: torch.Tensor):
+    """Mean next-token cross entropy of ``labels`` (B, S) plus 0.01 times
+    the MoE load-balancing loss: the reference's log-sum-exp, shifted by
+    the row maximum (held constant in the backward), in f32."""
+    hidden, aux = forward(params, cfg, tokens)
+    logits = logits_of(params, hidden).float()
+    m = logits.max(dim=-1, keepdim=True).values.detach()
+    lse = torch.log(torch.exp(logits - m).sum(dim=-1)) + m[..., 0]
+    vocab = torch.arange(cfg.vocab, device=logits.device)
+    onehot = labels.to(logits.device)[..., None] == vocab
+    label_logit = torch.where(onehot, logits, 0.0).sum(dim=-1)
+    return (lse - label_logit).mean() + 0.01 * aux
 
 
 # ---------------------------------------------------------------------------

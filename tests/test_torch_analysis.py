@@ -354,11 +354,14 @@ def test_archs_and_sameas_rew_spec_are_the_reference():
     assert (ours.name, ours.family, ours.source) == \
         (theirs.name, theirs.family, theirs.source)
     for name in all_archs():
-        if name in ("dimenet", "egnn"):
-            with pytest.raises(KeyError, match="ROADMAP"):
-                get_arch(name)
-        else:
-            assert get_arch(name).name == jget_arch(name).name
+        ours, theirs = get_arch(name), jget_arch(name)
+        assert (ours.name, ours.family, ours.source) == \
+            (theirs.name, theirs.family, theirs.source)
+        for attr in ("config", "reduced"):
+            assert dataclasses.asdict(getattr(ours, attr)) == \
+                dataclasses.asdict(getattr(theirs, attr))
+        assert [dataclasses.asdict(s) for s in ours.shapes] == \
+            [dataclasses.asdict(s) for s in theirs.shapes]
 
 
 def test_from_config_reduced_on_pex_is_the_reference():

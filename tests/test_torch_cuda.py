@@ -1126,3 +1126,144 @@ def test_fixture_trips_expected_pass_on_card(dev, name):
     if name == "nested_cond_sort":
         assert (fired["NoArenaSort"].primitive, fired["NoArenaSort"].path) == \
             ("dedup_order", "launch")
+
+
+# ---------------------------------------------------------------------------
+# training: the backward through the segment-sum kernel, the kernels without
+# a backward, a GNN step and a checkpoint of card tensors
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("k", [1, 3, 70])
+def test_segment_sum_and_gather_rows_backward(dev, k):
+    """On a hub-skewed index with ids out of range: the gradient of
+    ``segment_sum`` (a row gather) equals its plain version's exactly; the
+    gradient of ``gather_rows`` (the kernel) equals torch's autograd of
+    ``x[idx]`` on the CPU within f32 sums in another order; both launch the
+    kernel as counted and give the same bits on two runs."""
+    rng = np.random.default_rng(k)
+    n, e = 5_000, 100_000
+    seg = rng.integers(-2, n + 2, e).astype(np.int32)
+    seg[rng.random(e) < 1 / 3] = 17
+    seg_t = torch.from_numpy(seg).to(dev)
+    x = torch.from_numpy(rng.normal(size=(e, k)).astype(np.float32))
+    go = torch.from_numpy(rng.normal(size=(n, k)).astype(np.float32))
+    plan = ops.segment_plan(seg_t, n)
+    runs = []
+    for _ in range(2):
+        xc = x.to(dev).requires_grad_(True)
+        out = ops.segment_sum(xc, seg_t, n, plan)
+        runs.append(torch.autograd.grad(out, xc, go.to(dev))[0])
+    assert torch.equal(runs[0], runs[1])
+    xh = x.clone().requires_grad_(True)
+    want = torch.autograd.grad(ref.segment_sum(xh, torch.from_numpy(seg), n), xh, go)[0]
+    assert torch.equal(runs[0].cpu(), want)
+
+    idx = np.clip(seg, 0, n - 1).astype(np.int32)
+    idx_t = torch.from_numpy(idx).to(dev)
+    iplan = ops.segment_plan(idx_t, n)
+    table = torch.from_numpy(rng.normal(size=(n, k)).astype(np.float32))
+    g = torch.from_numpy(rng.normal(size=(e, k)).astype(np.float32))
+    before = ops.LAUNCHES["segment_sum"]
+    runs = []
+    for _ in range(2):
+        tc = table.to(dev).requires_grad_(True)
+        out = ops.gather_rows(tc, idx_t, iplan)
+        assert torch.equal(out.detach().cpu(), table[torch.from_numpy(idx).long()])
+        runs.append(torch.autograd.grad(out, tc, g.to(dev))[0])
+    assert ops.LAUNCHES["segment_sum"] == before + 2
+    assert torch.equal(runs[0], runs[1])
+    th = table.clone().requires_grad_(True)
+    want = torch.autograd.grad(th[torch.from_numpy(idx).long()], th, g)[0]
+    abs_sum = ref.segment_sum(g.abs(), torch.from_numpy(idx), n)
+    _close_to_sum(runs[0].cpu(), want, abs_sum, 1e-5)
+
+
+def test_kernels_without_a_backward_raise_under_grad(dev):
+    """Flash attention, the FM interaction and the embedding bag raise on
+    the card when autograd would need their gradient, and run under
+    ``torch.no_grad()``."""
+    q = torch.randn(1, 16, 2, 64, device=dev, requires_grad=True)
+    k = torch.randn(1, 16, 2, 64, device=dev)
+    x = torch.randn(8, 4, 10, device=dev, requires_grad=True)
+    ids = torch.randint(0, 50, (8, 4), dtype=torch.int32, device=dev)
+    table = torch.randn(50, 10, device=dev, requires_grad=True)
+    calls = (lambda: ops.flash_attention(q, k, k), lambda: ops.fm_interact(x),
+             lambda: ops.embedding_bag(ids, table))
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no backward"):
+            call()
+        with torch.no_grad():
+            call()
+
+
+@pytest.mark.parametrize("name", ["gatedgcn", "pna", "egnn", "dimenet"])
+def test_gnn_train_step_on_card_equals_cpu(dev, name):
+    """One loss and gradient of each GNN (full width, 2 layers or blocks)
+    on the card against the CPU, the same weights: the loss within 1e-5
+    relative, each gradient leaf within 1e-3 of its largest CPU value (f32
+    sums in other orders, as the CPU tests' tolerance against the
+    reference).  PNA's max and min pick one message a (node, feature), and
+    at a near tie rounding can pick another on the card than on the CPU,
+    which moves that gradient to another edge: 31 of a leaf's 11,250
+    entries, up to 3.8e-3 of its largest value, on an H100; so PNA's
+    leaves are held by their relative L2 error, within 1e-3.  Two card
+    runs bit-equal but PNA's, whose max and min backward is torch's
+    ``scatter_reduce`` (checked for equality to 1e-6 only)."""
+    from repro_torch.data.pipeline import molecule_batch
+    from repro_torch.models.gnn import dimenet, egnn
+
+    mod = {"gatedgcn": gatedgcn, "pna": pna, "egnn": egnn, "dimenet": dimenet}[name]
+    depth = "n_blocks" if name == "dimenet" else "n_layers"
+    cfg = dataclasses.replace(get_arch(name).config, **{depth: 2})
+    if name in ("egnn", "dimenet"):
+        batch = molecule_batch(np.random.default_rng(0), 16, 30, 64)
+    else:
+        batch = random_graph(np.random.default_rng(0), 2000, 8000, cfg.d_in, cfg.n_classes)
+    params = mod.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+
+    def step(p, d):
+        flat, spec = torch.utils._pytree.tree_flatten(_to(p, d))
+        leaves = [t.requires_grad_(True) for t in flat]
+        loss = mod.loss_fn(torch.utils._pytree.tree_unflatten(leaves, spec), cfg,
+                           graph_to(batch, d))
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        return loss.detach(), [torch.zeros_like(t) if g is None else g
+                               for t, g in zip(leaves, grads)]
+
+    host = step(params, "cpu")
+    card = [step(params, dev) for _ in range(2)]
+    torch.testing.assert_close(card[0][0].cpu(), host[0], rtol=1e-5, atol=0)
+    for g, h in zip(card[0][1], host[1]):
+        if name == "pna":
+            assert float((g.cpu() - h).norm()) <= 1e-3 * float(h.norm()) + 1e-12
+        else:
+            torch.testing.assert_close(g.cpu(), h, rtol=0,
+                                       atol=1e-3 * float(h.abs().max()) + 1e-12)
+    for a, b in zip(card[0][1], card[1][1]):
+        if name == "pna":
+            torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+        else:
+            assert torch.equal(a, b)
+
+
+def test_checkpoint_of_card_tensors(dev, tmp_path):
+    """The async writer snapshots card tensors at the call (later writes on
+    the card's stream do not reach the file), and a restore puts each leaf
+    back on the card, bf16 included."""
+    from repro_torch.ckpt import CheckpointManager, restore_checkpoint
+
+    tree = {"w": torch.randn(512, 512, device=dev),
+            "b": torch.randn(300, device=dev).to(torch.bfloat16),
+            "step": torch.tensor(3, dtype=torch.int32, device=dev)}
+    want = {k: v.clone() for k, v in tree.items()}
+    mgr = CheckpointManager(str(tmp_path), keep=2, async_save=True)
+    mgr.save(1, tree, aux={"next_step": 1})
+    for _ in range(20):
+        tree["w"].mul_(2.0).add_(1.0)
+    mgr.wait()
+    mgr.close()
+    out, aux, step = restore_checkpoint(str(tmp_path), tree)
+    assert (aux, step) == ({"next_step": 1}, 1)
+    for k in want:
+        assert out[k].device == tree[k].device and out[k].dtype == want[k].dtype
+        assert torch.equal(out[k], want[k])

@@ -182,3 +182,24 @@ def test_merged_rows_score_the_same():
     a = fm.serve_step(params, cfg, {"ids": ids, "rho": rho})
     b = fm.serve_step(params, cfg, {"ids": rep_ids, "rho": rho})
     assert torch.equal(a, b)
+
+
+def test_loss_and_grads_match_reference(model):
+    """``loss_fn`` on ``recsys_batch`` (``use_pallas=False``, the
+    reference's autodiff path), and the gradient of the table, the
+    first-order weights and the bias: f32, within rtol 1e-5 of the loss
+    and 1e-5 of each leaf's largest gradient (sums in another order)."""
+    from repro.data.pipeline import recsys_batch
+
+    jcfg, jparams, params = model
+    batch = recsys_batch(3, 64, jcfg.n_fields, jcfg.rows_per_field)
+    jloss, jgrads = jax.value_and_grad(jfm.loss_fn)(
+        jparams, jcfg, {k: jnp.asarray(v) for k, v in batch.items()})
+    leaves = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
+    loss = fm.loss_fn(leaves, _port_cfg(jcfg), {k: torch.from_numpy(v) for k, v in batch.items()})
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=RTOL)
+    for key, g in zip(leaves, grads):
+        want = np.asarray(jgrads[key])
+        np.testing.assert_allclose(g.numpy(), want, rtol=0,
+                                   atol=1e-5 * np.abs(want).max() + 1e-12, err_msg=key)

@@ -123,15 +123,16 @@ def test_params_from_numpy_keeps_the_gnn_tree():
 
 @pytest.mark.parametrize("name", ["gatedgcn", "pna"])
 def test_forward_launches_through_the_segment_plan(name, monkeypatch):
-    """A forward builds one plan of ``dst`` and hands it to every
-    segment sum: GatedGCN sums twice a layer, PNA eight times a layer and
-    once for the degrees."""
+    """A forward builds one plan of ``dst`` and one of ``src`` and hands
+    the first to every segment sum (GatedGCN sums twice a layer, PNA eight
+    times a layer and once for the degrees) and each to the gathers by its
+    array (two a layer; their backward is the segment sum through it)."""
     _, mod = MODELS[name]
     cfg = get_arch(name).reduced
     graph = graph_to(random_graph(np.random.default_rng(2), 30, 120, cfg.d_in,
                                   cfg.n_classes), "cpu")
-    plans, calls = [], []
-    real_plan, real_sum = ops.segment_plan, ops.segment_sum
+    plans, calls, gathers = [], [], []
+    real_plan, real_sum, real_gather = ops.segment_plan, ops.segment_sum, ops.gather_rows
 
     def plan_spy(seg, n):
         plans.append(real_plan(seg, n))
@@ -141,14 +142,25 @@ def test_forward_launches_through_the_segment_plan(name, monkeypatch):
         calls.append(plan)
         return real_sum(x, seg, n, plan=plan)
 
+    def gather_spy(x, idx, plan=None):
+        gathers.append((idx, plan))
+        return real_gather(x, idx, plan)
+
     monkeypatch.setattr(ops, "segment_plan", plan_spy)
     monkeypatch.setattr(ops, "segment_sum", sum_spy)
+    monkeypatch.setattr(ops, "gather_rows", gather_spy)
     mod.forward(mod.init_params(torch.Generator().manual_seed(0), cfg, device="cpu"),
                 cfg, graph)
     per_layer, extra = (2, 0) if name == "gatedgcn" else (8, 1)
-    assert len(plans) == 1
+    assert len(plans) == 2
+    assert torch.equal(plans[0].seg, torch.sort(graph["edge_index"][1]).values)
+    assert torch.equal(plans[1].seg, torch.sort(graph["edge_index"][0]).values)
     assert len(calls) == per_layer * cfg.n_layers + extra
     assert all(p is plans[0] for p in calls)
+    assert len(gathers) == 2 * cfg.n_layers
+    for idx, plan in gathers:
+        assert plan is plans[0 if idx is graph["edge_index"][1] or
+                             torch.equal(idx, graph["edge_index"][1]) else 1]
 
 
 def test_segment_reductions_match_reference_on_a_skewed_graph():
