@@ -183,12 +183,37 @@ on failure (the script then exits non-zero and prints no result):
    ``recsys_batch`` at 65,536 rows, each twice: step walls, peak memory,
    whether the two runs are bit-equal.  A profiled training step of (a)
    and its forward alone (the segment sum's share forward and backward)
-   run with the other profiler jobs.
+   run with the other profiler jobs;
+11. sharded training: ``repro_torch.launch.workloads`` train cells on
+   ``torch.distributed``, one spawned process a rank, each cell's
+   unsharded run on the card first (freed before the ranks spawn) as its
+   yardstick: (a) Qwen2-1.5B at its full width (depth cut 28 -> 8
+   layers, remat) at (data 2, model 2), 4 ranks on the one card through
+   gloo, 3 steps of
+   2 x 1,024 tokens, the ZeRO-1 update; the state after step 2 saved by
+   the sharded checkpoint and restored at (data 1, model 2), where step 3
+   is taken again; (b) DeepSeek-MoE-16B at full width cut to 2 layers
+   (seeded non-zero router) at (data 2, model 2): 32 experts a rank, a
+   token chunk a data rank, 2 steps of 2 x 512 tokens, each layer's
+   routing held against the unsharded run's as integers (a token may
+   differ only at a near tie); (c) GatedGCN at phase 10 (a)'s geometry
+   (its sampler on phase 8's KG, each batch padded to a multiple of 512
+   edges by self-loops of an added node outside the loss) at (data 2),
+   10 steps, the segment sum, the sort and the search launched on each
+   rank forward and backward (exact counts); (d) the Criteo-scale FM at
+   (data 2, model 2), 3 steps of 65,536 rows; (e) world 1 on NCCL: (c)
+   and (a) at 2 layers, each sharded run equal to the unsharded one bit
+   for bit (deterministic algorithms on).  Each rank's step walls, peak
+   memory, collective calls and bytes a step by axes and op, launches a
+   step; each step's loss and norm against the yardstick's, beside the
+   tolerance (about 10x the largest gap read on an H100).
 
 Each path's launch counters are set to 0 just before its run and read just
 after.  Every wall and every CUDA-event time is taken before the process's
 first torch.profiler session: a finished profiler session leaves host cost
 on every later launch, which the host-bound REW and LM walls would carry.
+Phase 11 runs last, after the profiler jobs: its ranks are fresh processes
+(only its yardsticks, in this process, carry the sessions' host cost).
 So phase 8 profiles its forward after its own walls, the profiled reruns
 of phases 5, 5b, 6 and 6b (6b's last of all), phase 10's profiled step,
 the search census and the kernels' device times run after phase 10 with
@@ -207,6 +232,7 @@ import copy
 import gc
 import hashlib
 import json
+import os
 import pickle
 import shutil
 import statistics
@@ -3669,6 +3695,495 @@ def training_phase(ops, ref, records: dict, kg: dict, later: list) -> int:
     return launches["segment_sum"]
 
 
+# phase 11: sharded training on torch.distributed (one spawned process a rank)
+SHT_TIMEOUT_S = 600.0
+SHT_LM_STEPS, SHT_LM_BATCH, SHT_LM_SEQ, SHT_LM_SAVE_AFTER = 3, 2, 1024, 2
+# (a)'s depth cut 28 -> 8: at 28 layers its checkpoint (15.4 GB) took
+# 52 s to save and 51 s to restore and phase 11 ran 300 s; at 14, 31 s and
+# 22 s, and the whole script 1,076 s of its 1,200
+SHT_LM_LAYERS = 8
+SHT_MOE_LAYERS, SHT_MOE_STEPS, SHT_MOE_BATCH, SHT_MOE_SEQ = 2, 2, 2, 512
+SHT_GNN_STEPS, SHT_FM_STEPS, SHT_E_LM_LAYERS = 10, 3, 2
+SHT_EDGE_MULTIPLE = 512  # the reference's GNN cells pad their edges so
+# sharded against unsharded on the card, relative: about 10x the largest
+# gap read on an H100 over three runs of this phase (bf16 LMs, their
+# tensor-parallel sums in another order: loss 5.7e-5, norm 7.3e-4; f32
+# GNN and FM sums in another order: loss 1.1e-7, norm 1.5e-7)
+SHT_TOL = {"bf16": dict(loss=5e-4, gn=1e-2), "f32": dict(loss=1e-6, gn=2e-6)}
+SHT_MOE_TIE = 0.05  # a token's K-th and (K+1)-th probabilities this close tie
+# of a layer's tokens: with random weights the K-th and (K+1)-th of 64
+# experts tie within 1 % for about 8 % of the tokens, and the sharded
+# sums' bf16 rounding flips some of them (up to 86 of 1,024 in a layer on
+# an H100)
+SHT_MOE_MAX_FLIPS = 0.10
+
+
+def _sht_lm_spec(name: str, n_layers: int | None, batch: int, seq: int):
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+
+    spec = get_arch(name)
+    if n_layers is not None:
+        spec = dataclasses.replace(spec, config=dataclasses.replace(spec.config,
+                                                                    n_layers=n_layers))
+    return spec, ShapeSpec(f"train_{batch}x{seq}", "train",
+                           dict(global_batch=batch, seq_len=seq))
+
+
+def _sht_spec(job: dict):
+    """(ArchSpec, ShapeSpec) of a phase-11 job."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+
+    if job["family"] == "lm":
+        return _sht_lm_spec(job["arch"], job.get("n_layers"), job["batch"], job["seq"])
+    if job["family"] == "gnn":
+        spec = get_arch("gatedgcn")
+        return spec, ShapeSpec("minibatch_sampled", "train",
+                               dict(n_nodes=job["nodes"], n_edges=job["edges"], d_feat=16))
+    spec = get_arch("fm")
+    return spec, spec.shape("train_batch")
+
+
+def _sht_params(job: dict, cfg, device):
+    """The job's global weights, seeded on the card (every rank and the
+    yardstick draw the same)."""
+    from repro_torch.models import recsys, transformer as lm
+    from repro_torch.models.gnn import gatedgcn
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    if job["family"] == "lm":
+        params = lm.init_params(gen, cfg, device)
+        if cfg.is_moe:  # a seeded non-zero router (the reference's is zeros)
+            r = params["layers"]["router"]
+            params["layers"]["router"] = torch.randn(r.shape, generator=gen, device=gen.device,
+                                                     dtype=r.dtype).to(device) * 0.02
+        return params
+    if job["family"] == "gnn":
+        return gatedgcn.init_params(gen, dataclasses.replace(cfg, d_in=16), device)
+    return recsys.init_params(gen, cfg, device)
+
+
+def _sht_batch(job: dict, step: int, cfg) -> tuple:
+    """The global batch of ``step`` (numpy), after (params, opt)."""
+    from repro_torch.data.pipeline import lm_batch, recsys_batch
+
+    if job["family"] == "lm":
+        b = lm_batch(step, job["batch"], job["seq"], cfg.vocab)
+        return b["tokens"], b["labels"]
+    if job["family"] == "gnn":
+        with np.load(Path(job["batches"]) / f"step{step}.npz") as z:
+            return ({k: z[k] for k in z.files},)
+    return (recsys_batch(step, job["batch"], cfg.n_fields, cfg.rows_per_field),)
+
+
+def _sht_counts(mesh) -> dict:
+    return mesh.counts() if mesh is not None else {}
+
+
+def _digest(tree) -> str:
+    from torch.utils import _pytree as pytree
+
+    h = hashlib.sha256()
+    for t in pytree.tree_leaves(tree):
+        h.update(t.detach().reshape(-1).contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def sht_steps(job: dict, mesh, device) -> dict:
+    """A phase-11 job's steps: on this rank's blocks of the cell on ``mesh``
+    (or the unsharded step where ``mesh`` is None), from the seeded weights
+    or restored from ``job["restore"]`` (with ``job["save_after"]``, the
+    state after that step saved); each step's loss, norm, wall, peak
+    memory, collectives, launches and (MoE) routing; with
+    ``job["replay"]``, each step's MoE calls routed to the given top k."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.ckpt import restore_checkpoint, save_checkpoint
+    from repro_torch.kernels import ops
+    from repro_torch.launch.sharding import place, shard_shape
+    from repro_torch.launch.workloads import build_cell, value_and_grad
+    from repro_torch.models import recsys, transformer as lm
+    from repro_torch.models.gnn import gatedgcn
+    from repro_torch.models.moe import RoutingLog, routing_log
+    from repro_torch.optim import adamw_init, adamw_update
+
+    t_init = time.perf_counter()
+    spec, shape = _sht_spec(job)
+    if mesh is not None:
+        cell = build_cell(spec, shape, mesh)
+        if job.get("restore"):  # blocks to restore into
+            params = pytree.tree_map(
+                lambda sd, sh: torch.empty(shard_shape(sd.shape, sh), dtype=sd.dtype,
+                                           device=device),
+                cell.input_specs[0], cell.in_shardings[0])
+        else:
+            full = _sht_params(job, spec.config, device)
+            params = place(full, cell.in_shardings[0], device)
+            del full
+            torch.cuda.empty_cache()
+        opt = cell.init_opt(device)
+        shardings = {"params": cell.in_shardings[0], "opt": cell.in_shardings[1]}
+        step_fn = cell.step
+    else:
+        cfg = spec.config
+        if job["family"] == "lm" and cfg.is_moe:
+            cfg = dataclasses.replace(cfg, n_token_shards=job["chunks"])
+        if job["family"] == "gnn":
+            cfg = dataclasses.replace(cfg, d_in=16)
+        params = _sht_params(job, spec.config, device)
+        opt = adamw_init(params)
+
+        def loss(p, *batch):
+            if job["family"] == "lm":
+                return lm.loss_fn(p, cfg, *batch)
+            if job["family"] == "gnn":
+                return gatedgcn.loss_fn(p, cfg, batch[0])
+            return recsys.loss_fn(p, cfg, batch[0])
+
+        def step_fn(p, o, *batch):
+            value, grads = value_and_grad(loss, p, *batch)
+            with torch.no_grad():
+                p, o, gn = adamw_update(p, grads, o)
+            return p, o, value, gn
+
+    first = 0
+    if job.get("restore"):
+        t0 = time.perf_counter()
+        state, aux, _ = restore_checkpoint(job["restore"], {"params": params, "opt": opt},
+                                           shardings=shardings)
+        params, opt, first = state["params"], state["opt"], int(aux["next_step"])
+        t_restore = time.perf_counter() - t0
+    out = dict(steps=[], first_step=first, init_s=time.perf_counter() - t_init)
+    if job.get("restore"):
+        out["restore_s"] = t_restore
+    for step in range(first, job["steps"]):
+        batch = _sht_batch(job, step, spec.config)
+        if mesh is not None:
+            batch = [place(b, sh, device) for b, sh in zip(batch, cell.in_shardings[2:])]
+        else:
+            batch = [pytree.tree_map(lambda a: torch.from_numpy(np.asarray(a)).to(device), b)
+                     for b in batch]
+        replay = ([torch.as_tensor(np.asarray(t)) for t in job["replay"][step]]
+                  if job.get("replay") else None)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        if mesh is not None:
+            mesh.reset_counts()
+        t0 = time.perf_counter()
+        with routing_log(RoutingLog(keep_calls=job.get("routes", False),
+                                    replay=replay)) as log:
+            params, opt, loss_v, gn = step_fn(params, opt, *batch)
+            loss_v, gn = float(loss_v), float(gn)
+        torch.cuda.synchronize()
+        rec = dict(step=step, loss=loss_v, gn=gn, wall_s=time.perf_counter() - t0,
+                   max_memory_allocated=torch.cuda.max_memory_allocated(),
+                   launches={k: v for k, v in ops.LAUNCHES.items() if v},
+                   collectives=_sht_counts(mesh))
+        if job.get("routes"):
+            rec["routes"] = [dict(top=r["gate_idx"].tolist(), probs=r["probs"].tolist())
+                             for r in log.routes]
+        out["steps"].append(rec)
+        del batch
+        if job.get("save_after") == step + 1 and mesh is not None:
+            t0 = time.perf_counter()
+            save_checkpoint(job["ckpt"], step + 1, {"params": params, "opt": opt},
+                            aux={"next_step": step + 1}, shardings=shardings)
+            torch.distributed.barrier()  # rank 0's write before anyone reads it
+            out["save_s"] = time.perf_counter() - t0
+    out["digest"] = _digest(params) if mesh is None or mesh.size == 1 else None
+    del params, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def _sht_rank(rank: int, world: int, spec_path: str) -> None:
+    """One rank of a phase-11 spawn: its device, every mesh of the spawn
+    (``make_mesh`` is collective), then each job on its mesh where this
+    rank is in it; its record goes to ``rank<r>.json`` beside
+    ``spec_path``."""
+    from repro_torch.launch.mesh import make_mesh
+
+    with open(spec_path, "rb") as f:
+        spec = pickle.load(f)
+    # cuBLAS reads this at its first call: (e)'s deterministic mode needs it
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    device = _shard_device(spec["backend"], rank)
+    torch.cuda.set_device(torch.device(device))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    meshes = [make_mesh(shape, axes, timeout_s=SHT_TIMEOUT_S)
+              for shape, axes in spec["meshes"]]
+    out = dict(rank=rank, world=world, backend=spec["backend"], device=device, jobs={})
+    if spec.get("world1"):  # (e): the unsharded step and the mesh of one, in turn
+        torch.use_deterministic_algorithms(True)
+        for job in spec["jobs"]:
+            out["jobs"][job["label"]] = dict(unsharded=sht_steps(job, None, device),
+                                             sharded=sht_steps(job, meshes[0], device))
+    else:
+        for job in spec["jobs"]:
+            torch.distributed.barrier()  # each job starts on every rank at once
+            mesh = meshes[job["mesh"]]
+            if mesh is None:
+                continue
+            t0 = time.perf_counter()
+            run = sht_steps(job, mesh, device)
+            run.update(wall_s=time.perf_counter() - t0, coords=mesh.coords)
+            out["jobs"][job["label"]] = run
+            print(f"  rank {rank}: {job['label']} done in {run['wall_s']:.1f} s", flush=True)
+    Path(spec_path).with_name(f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def _sht_spawn(work: Path, label: str, world: int, backend: str, **spec) -> list:
+    from repro_torch.launch.mesh import spawn
+
+    d = work / label
+    d.mkdir(parents=True)
+    with open(d / "spec.pkl", "wb") as f:
+        pickle.dump(dict(spec, backend=backend), f)
+    spawn(_sht_rank, world, (str(d / "spec.pkl"),), backend=backend,
+          store_path=str(d / "store"), timeout_s=SHT_TIMEOUT_S)
+    return [json.loads((d / f"rank{r}.json").read_text()) for r in range(world)]
+
+
+def _sht_gaps(label: str, dtype: str, runs: list, want: list) -> list:
+    """Each step's loss and norm against the yardstick's, beside the
+    tolerance; raises beyond it."""
+    tol = SHT_TOL[dtype]
+    out = []
+    for got, ref in zip(runs, want):
+        g = {q: abs(got[q] - ref[q]) / max(abs(ref[q]), 1e-30) for q in ("loss", "gn")}
+        out.append(dict(step=got["step"], loss_rel_gap=g["loss"], loss_tol=tol["loss"],
+                        gn_rel_gap=g["gn"], gn_tol=tol["gn"]))
+        print(f"  {label} step {got['step'] + 1}: loss {got['loss']:.6f} vs {ref['loss']:.6f} "
+              f"(rel gap {g['loss']:.3g}, tolerance {tol['loss']}), norm {got['gn']:.5g} vs "
+              f"{ref['gn']:.5g} (rel gap {g['gn']:.3g}, tolerance {tol['gn']})", flush=True)
+        if not (g["loss"] <= tol["loss"] and g["gn"] <= tol["gn"]
+                and np.isfinite(got["loss"])):
+            raise AssertionError(f"{label} step {got['step'] + 1}: sharded and unsharded "
+                                 "differ beyond the tolerance")
+    return out
+
+
+def _sht_print_ranks(label: str, runs: list) -> None:
+    for r in runs:
+        steps = r["steps"]
+        extra = "".join(f", {k} {r[k]:.1f} s" for k in ("init_s", "save_s", "restore_s")
+                        if k in r)
+        print(f"  {label} rank {r['rank']} {r['coords']}: step walls "
+              f"{[round(x['wall_s'], 3) for x in steps]} s{extra}, peak "
+              f"{max(x['max_memory_allocated'] for x in steps)} B, collectives a step "
+              f"{json.dumps(steps[-1]['collectives'])}, launches a step "
+              f"{json.dumps(steps[-1]['launches'])}", flush=True)
+
+
+def _sht_routes(runs: list) -> list:
+    """Each step's routing of the sharded run: per layer the (C, Tl, K)
+    top k and probabilities of the data ranks' chunks, in order."""
+    data_ranks = sorted((r for r in runs if r["coords"]["model"] == 0),
+                        key=lambda r: r["rank"])
+    out = []
+    for s in range(len(data_ranks[0]["steps"])):
+        layers = []
+        for layer in range(len(data_ranks[0]["steps"][s]["routes"])):
+            layers.append({q: np.concatenate([np.asarray(r["steps"][s]["routes"][layer][q])
+                                              for r in data_ranks]) for q in ("top", "probs")})
+        out.append(layers)
+    return out
+
+
+def _sht_routing(label: str, sharded: list, replayed: dict) -> dict:
+    """The sharded run's routing against the yardstick's router on the same
+    inputs (the yardstick replaying the sharded run's routes, so that a
+    flip does not cascade through capacity): the set of experts of each
+    token as integers, a token differing only at a near tie of its K-th
+    and (K+1)-th probabilities, at most SHT_MOE_MAX_FLIPS of them a layer."""
+    flips, widest = [], 0.0
+    for s, layers in enumerate(sharded):
+        for layer, got in enumerate(layers):
+            want = np.asarray(replayed["steps"][s]["routes"][layer]["top"])
+            top, probs = got["top"], got["probs"]
+            diff = np.argwhere((np.sort(top, -1) != np.sort(want, -1)).any(-1))
+            k = top.shape[-1]
+            for c, t in diff:
+                p = np.sort(probs[c, t])[::-1]
+                widest = max(widest, float((p[k - 1] - p[k]) / p[k - 1]))
+                if (p[k - 1] - p[k]) / p[k - 1] >= SHT_MOE_TIE:
+                    raise AssertionError(f"{label} step {s + 1} layer {layer}: token "
+                                         f"{(int(c), int(t))} routed otherwise without a "
+                                         f"tie: {p[:k + 1]}")
+            n_tok = top.shape[0] * top.shape[1]
+            flips.append(int(len(diff)))
+    print(f"  {label}: routing equal to the unsharded router's on the same inputs as "
+          f"integers but for {flips} tokens a step and layer (of {n_tok}, limit "
+          f"{SHT_MOE_MAX_FLIPS:.0%}), each at a near tie: the widest relative gap of its K-th "
+          f"and (K+1)-th probabilities {widest:.3g} (limit {SHT_MOE_TIE})", flush=True)
+    if max(flips) > SHT_MOE_MAX_FLIPS * n_tok:
+        raise AssertionError(f"{label}: {max(flips)} of {n_tok} tokens routed otherwise")
+    return dict(flips=flips, tie=SHT_MOE_TIE, widest_gap=widest, tokens=n_tok)
+
+
+def _sht_gnn_batches(kg: dict, work: Path, steps: int) -> dict:
+    """Phase 10 (a)'s minibatches (its sampler over phase 8's KG, its
+    geometry), each padded to a multiple of 512 edges as the reference's
+    cells pad them: the padding edges are self-loops of an added node that
+    no other node reaches and the loss leaves out."""
+    batch_fn, _, info = kg_minibatches(kg)
+    d = work / "gnn_batches"
+    d.mkdir(parents=True)
+    sizes = []
+    for step in range(steps):
+        b = {k: v.cpu().numpy() for k, v in batch_fn(step).items()}
+        n, e = b["x"].shape[0], b["edge_index"].shape[1]
+        pad = -e % SHT_EDGE_MULTIPLE
+        if pad:
+            b["x"] = np.concatenate([b["x"], np.zeros((1, b["x"].shape[1]), np.float32)])
+            b["labels"] = np.concatenate([b["labels"], np.zeros(1, b["labels"].dtype)])
+            b["train_mask"] = np.concatenate([b["train_mask"], np.zeros(1, np.float32)])
+            b["edge_index"] = np.concatenate(
+                [b["edge_index"], np.full((2, pad), n, np.int32)], axis=1)
+            b["edge_attr"] = np.concatenate([b["edge_attr"], np.zeros((pad, 1), np.float32)])
+        np.savez(d / f"step{step}.npz", **b)
+        sizes.append((int(b["x"].shape[0]), int(b["edge_index"].shape[1]), pad))
+    return dict(batches=str(d), sizes=sizes, graph=info)
+
+
+def _sht_yardstick(job: dict) -> dict:
+    """The job's unsharded run on the card, freed after."""
+    t0 = time.perf_counter()
+    out = sht_steps(job, None, "cuda")
+    out["wall_s"] = time.perf_counter() - t0
+    _free_card()
+    return out
+
+
+def sharded_training_phase(records: dict, kg: dict) -> dict:
+    """Phase 11: sharded training (``launch.workloads`` cells on
+    ``torch.distributed``), each cell against its unsharded yardstick run
+    on the card first and freed before the ranks spawn; (a)-(d) in one
+    spawn of 4 ranks through gloo, each on its mesh, (e) in another at
+    world 1 on NCCL.  Returns the kernels' launches on the sharded GatedGCN
+    run, summed over its ranks."""
+    work = ROOT / "build" / "sharded_train"
+    if work.exists():
+        shutil.rmtree(work)
+    work.mkdir(parents=True)
+    t_phase = time.perf_counter()
+
+    def at() -> str:
+        return f"[{time.perf_counter() - t_phase:.0f} s]"
+
+    gb = _sht_gnn_batches(kg, work, SHT_GNN_STEPS)
+    nodes, edges, _ = gb["sizes"][0]
+    meshes = [((2, 2), ("data", "model")), ((1, 2), ("data", "model")), ((2,), ("data",))]
+    jobs = [
+        # (a) Qwen2-1.5B at full width, depth cut; its step-2 state restored at
+        # (data 1, model 2)
+        dict(label="a", mesh=0, family="lm", arch="qwen2-1.5b", n_layers=SHT_LM_LAYERS,
+             batch=SHT_LM_BATCH, seq=SHT_LM_SEQ, steps=SHT_LM_STEPS,
+             save_after=SHT_LM_SAVE_AFTER, ckpt=str(work / "qwen2_ckpt")),
+        # (b) DeepSeek-MoE-16B at full width, 2 layers: 32 experts a rank, 2 chunks
+        dict(label="b", mesh=0, family="lm", arch="deepseek-moe-16b",
+             n_layers=SHT_MOE_LAYERS, batch=SHT_MOE_BATCH, seq=SHT_MOE_SEQ,
+             steps=SHT_MOE_STEPS, chunks=2, routes=True),
+        # (c) GatedGCN at phase 10 (a)'s geometry, (data 2)
+        dict(label="c", mesh=2, family="gnn", steps=SHT_GNN_STEPS, batches=gb["batches"],
+             nodes=nodes, edges=edges),
+        # (d) the Criteo-scale FM
+        dict(label="d", mesh=0, family="fm", steps=SHT_FM_STEPS, batch=65_536),
+    ]
+    restore = dict(jobs[0], label="a_restore", mesh=1, restore=jobs[0]["ckpt"],
+                   save_after=None)
+    yard = {}
+    for job in jobs:
+        yard[job["label"]] = _sht_yardstick(job)
+        print(f"  {at()} yardstick ({job['label']}) unsharded: "
+              f"{[round(x['wall_s'], 3) for x in yard[job['label']]['steps']]} s a step",
+              flush=True)
+    ranks = _sht_spawn(work, "abcd", 4, "gloo", meshes=meshes,
+                       jobs=jobs[:1] + [restore] + jobs[1:])
+    print(f"  {at()} the sharded ranks done", flush=True)
+    out: dict = {"card": card_line(), "yardsticks": yard}
+
+    def runs(label):
+        return [dict(r["jobs"][label], rank=r["rank"]) for r in ranks if label in r["jobs"]]
+
+    a, ar = runs("a"), runs("a_restore")
+    _sht_print_ranks(f"(a) Qwen2-1.5B, {SHT_LM_LAYERS} layers (data 2, model 2)", a)
+    gaps = _sht_gaps("(a) Qwen2-1.5B (data 2, model 2)", "bf16", a[0]["steps"],
+                     yard["a"]["steps"])
+    _sht_print_ranks("(a) restored at (data 1, model 2)", ar)
+    rgaps = _sht_gaps("(a) restored at (data 1, model 2)", "bf16", ar[0]["steps"],
+                      yard["a"]["steps"][SHT_LM_SAVE_AFTER:])
+    out["a"] = dict(config="qwen2-1.5b", layers=SHT_LM_LAYERS, tokens=SHT_LM_BATCH * SHT_LM_SEQ,
+                    remat=True, ranks=a, gaps=gaps, restored=ar, restored_gaps=rgaps)
+
+    b = runs("b")
+    _sht_print_ranks("(b) DeepSeek-MoE-16B, 2 layers (data 2, model 2)", b)
+    routes = _sht_routes(b)
+    replayed = _sht_yardstick(dict(jobs[1], replay=[[layer["top"] for layer in step]
+                                                    for step in routes]))
+    free_gaps = [dict(step=x["step"], loss_rel_gap=abs(x["loss"] - y["loss"]) / abs(y["loss"]),
+                      gn_rel_gap=abs(x["gn"] - y["gn"]) / abs(y["gn"]))
+                 for x, y in zip(b[0]["steps"], yard["b"]["steps"])]
+    print(f"  {at()} (b) against the free unsharded run (routing unforced): "
+          f"{json.dumps(free_gaps)}", flush=True)
+    gaps = _sht_gaps("(b) DeepSeek-MoE-16B against the unsharded run on its routing",
+                     "bf16", b[0]["steps"], replayed["steps"])
+    routing = _sht_routing("(b) DeepSeek-MoE-16B", routes, replayed)
+    for r in [yard["b"], replayed] + b:
+        for x in r["steps"]:
+            x.pop("routes", None)
+    out["b"] = dict(config="deepseek-moe-16b", layers=SHT_MOE_LAYERS,
+                    tokens=SHT_MOE_BATCH * SHT_MOE_SEQ, experts_a_rank=32, chunks=2,
+                    ranks=b, replayed_yardstick=replayed, free_gaps=free_gaps, gaps=gaps,
+                    routing=routing)
+
+    c = runs("c")
+    _sht_print_ranks("(c) GatedGCN (data 2)", c)
+    gaps = _sht_gaps("(c) GatedGCN (data 2)", "f32", c[0]["steps"], yard["c"]["steps"])
+    launches: dict = {}
+    want = dict(segment_sum=64, dedup_order=2, search_bounds=2)  # 16 layers
+    for r in c:
+        for x in r["steps"]:
+            if x["launches"] != want:
+                raise AssertionError(f"(c) rank {r['rank']} step {x['step'] + 1}: launches "
+                                     f"{x['launches']}, want {want}")
+            for k, v in x["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+    print(f"  (c) each rank a step: {json.dumps(want)} (32 forward, 32 backward); "
+          f"{json.dumps(launches)} on the run, both ranks", flush=True)
+    out["c"] = dict(config="gatedgcn", sizes=gb["sizes"], graph=gb["graph"], ranks=c,
+                    gaps=gaps, launches=launches)
+
+    d = runs("d")
+    _sht_print_ranks("(d) FM Criteo-scale (data 2, model 2)", d)
+    out["d"] = dict(config="fm", ranks=d,
+                    gaps=_sht_gaps("(d) FM", "f32", d[0]["steps"], yard["d"]["steps"]))
+
+    # (e) world 1 on NCCL: (c) and (a) at 2 layers, bit for bit
+    e_jobs = [dict(jobs[2], label="gnn"),
+              dict(family="lm", arch="qwen2-1.5b", n_layers=SHT_E_LM_LAYERS,
+                   batch=SHT_LM_BATCH, seq=SHT_LM_SEQ, steps=SHT_LM_STEPS, label="lm")]
+    (rank,) = _sht_spawn(work, "e", 1, "nccl", world1=True, jobs=e_jobs,
+                         meshes=[((1, 1), ("data", "model"))])
+    for label in ("gnn", "lm"):
+        u, sh = rank["jobs"][label]["unsharded"], rank["jobs"][label]["sharded"]
+        same = ([x["loss"] for x in u["steps"]] == [x["loss"] for x in sh["steps"]]
+                and [x["gn"] for x in u["steps"]] == [x["gn"] for x in sh["steps"]]
+                and u["digest"] == sh["digest"])
+        print(f"  {at()} (e) world 1 on NCCL, {label}: sharded == unsharded bit for bit: "
+              f"{same} (losses {[x['loss'] for x in sh['steps']]}, parameter digest "
+              f"{sh['digest']})", flush=True)
+        if not same:
+            raise AssertionError(f"(e) {label}: the world-1 sharded run differs")
+    out["e"] = rank
+    out["wall_s"] = time.perf_counter() - t_phase
+    shutil.rmtree(work, ignore_errors=True)
+    records["sharded_training"] = out
+    return launches
+
+
 def search_census(ops, run) -> dict:
     """``run()`` (one REW materialisation) under torch.profiler with every
     search call classified: its form (both sides, left, right, prefix of
@@ -3917,6 +4432,14 @@ def main() -> None:
           "serving, the training step):")
     for job in later + last:
         job()
+
+    # after the profiler sessions: its ranks are fresh processes (CUPTI
+    # dropped every event of the FM's profiled rerun when this phase ran
+    # before them)
+    phase("sharded training (launch.workloads cells on torch.distributed), sharded == "
+          "unsharded:")
+    for name, n in sharded_training_phase(records, kg).items():
+        launches[name] += n
 
     phase("done:")
     line = []

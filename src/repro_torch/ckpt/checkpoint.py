@@ -1,7 +1,6 @@
 """Atomic, async checkpointing in the reference's layout.
 
-The port of ``repro.ckpt.checkpoint`` (one device; the elastic re-mesh
-restore waits for ``param_shardings``).  One directory per step:
+The port of ``repro.ckpt.checkpoint``.  One directory per step:
 
     <dir>/step_000000042.tmp-<pid>/   — being written
         manifest.json                 — keys, shapes, dtypes, aux state
@@ -14,7 +13,14 @@ restore waits for ``param_shardings``).  One directory per step:
   * **async** — ``CheckpointManager(async_save=True)`` copies the tree to
     host memory synchronously and writes on a daemon thread,
   * **retention** — keeps the newest ``keep`` checkpoints, deleting older
-    ones only after a successful save.
+    ones only after a successful save,
+  * **sharded trees** — with ``shardings`` (a tree of
+    :class:`~repro_torch.launch.sharding.NamedSharding`), a save gathers
+    every leaf's global array on every rank (a collective: every rank of
+    the mesh calls it), and only rank 0 keeps it on the host and writes;
+    ``restore_checkpoint(..., shardings=)`` reads the global arrays and
+    takes this rank's blocks, on whatever mesh the shardings name: the
+    elastic re-mesh restore.
 
 The leaves are stored in JAX's flatten order (dict keys sorted, lists and
 tuples in order) under ``jax.tree_util.keystr`` keys, such as
@@ -34,6 +40,9 @@ import threading
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from repro_torch.launch.sharding import gather, local_block
 
 _BF16 = "bfloat16"
 
@@ -79,11 +88,33 @@ def _to_tensor(a: np.ndarray, dtype: str) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
-def save_checkpoint(directory: str, step: int, tree, aux: dict | None = None) -> str:
-    """Synchronous atomic save of a tree of tensors.  Returns the final
-    checkpoint path."""
-    os.makedirs(directory, exist_ok=True)
+def _gathered(tree, shardings):
+    """The global arrays of a sharded tree on the host of rank 0 (None
+    elsewhere), gathered leaf by leaf (every rank calls it)."""
+    flat_s = [s for _, s in _flatten(shardings)]
+    flat = _flatten(tree)
+    if len(flat_s) != len(flat):
+        raise ValueError("tree and shardings differ in structure")
+    writer = flat_s[0].mesh.rank == 0 if flat_s else True
+    host = []
+    for (_, v), sh in zip(flat, flat_s):
+        g = gather(v, sh)
+        host.append(g.to("cpu", copy=True) if writer else None)
+        del g
+    return _unflatten(tree, iter(host)) if writer else None
+
+
+def save_checkpoint(directory: str, step: int, tree, aux: dict | None = None,
+                    shardings=None) -> str:
+    """Synchronous atomic save of a tree of tensors (with ``shardings``,
+    of this rank's blocks: every rank calls it, rank 0 writes).  Returns
+    the final checkpoint path."""
     final = os.path.join(directory, f"step_{step:09d}")
+    if shardings is not None:
+        tree = _gathered(tree, shardings)
+        if tree is None:
+            return final
+    os.makedirs(directory, exist_ok=True)
     tmp = f"{final}.tmp-{os.getpid()}"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
@@ -121,10 +152,12 @@ def latest_step(directory: str) -> int | None:
 
 
 def restore_checkpoint(directory: str, target, step: int | None = None,
-                       device: str | torch.device | None = None):
+                       device: str | torch.device | None = None, shardings=None):
     """Restore into the structure of ``target`` (a tree of tensors).  Each
     leaf takes its target's dtype and goes to ``device``, or where its
-    target lies when ``device`` is None.  Returns (tree, aux, step)."""
+    target lies when ``device`` is None.  With ``shardings`` (a tree like
+    ``target``), each leaf is this rank's block of the stored global
+    array.  Returns (tree, aux, step)."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -138,9 +171,12 @@ def restore_checkpoint(directory: str, target, step: int | None = None,
         raise ValueError(
             f"checkpoint structure mismatch: {set(manifest['keys']) ^ set(keys_t)}"
         )
+    flat_s = [None] * len(flat_t) if shardings is None else [
+        sh for _, sh in _flatten(shardings)]
     with np.load(os.path.join(path, "arrays.npz")) as data:
-        vals = [_to_tensor(data[f"a{i}"], dtype)
-                for i, dtype in enumerate(manifest["dtypes"])]
+        vals = [_to_tensor(data[f"a{i}"] if sh is None else local_block(data[f"a{i}"], sh),
+                           dtype)
+                for i, (dtype, sh) in enumerate(zip(manifest["dtypes"], flat_s))]
     vals = [v.to(device=t.device if device is None else device, dtype=t.dtype)
             for v, (_, t) in zip(vals, flat_t)]
     return _unflatten(target, iter(vals)), manifest["aux"], step
@@ -158,12 +194,17 @@ def _host_copy(tree):
 
 
 class CheckpointManager:
-    """Retention + optional async writer around ``save_checkpoint``."""
+    """Retention + optional async writer around ``save_checkpoint``.  With
+    a ``mesh`` the trees saved are sharded (``save(..., shardings=)``): the
+    gather runs on every rank, the write and retention on rank 0, and
+    ``wait`` returns on every rank once rank 0's writes are done."""
 
-    def __init__(self, directory: str, keep: int = 3, async_save: bool = False):
+    def __init__(self, directory: str, keep: int = 3, async_save: bool = False,
+                 mesh=None):
         self.directory = directory
         self.keep = keep
         self.async_save = async_save
+        self.mesh = mesh
         self._q: queue.Queue = queue.Queue()
         self._err: list[Exception] = []
         self._thread = None
@@ -195,10 +236,19 @@ class CheckpointManager:
         for s in steps[: -self.keep]:
             shutil.rmtree(os.path.join(self.directory, f"step_{s:09d}"))
 
-    def save(self, step: int, tree, aux: dict | None = None):
+    def save(self, step: int, tree, aux: dict | None = None, shardings=None):
         if self._err:
             raise self._err.pop()
-        if self.async_save:
+        if shardings is not None:
+            tree = _gathered(tree, shardings)  # every rank; the host copy on rank 0
+            if tree is None:
+                return
+            if not self.async_save:
+                save_checkpoint(self.directory, step, tree, aux)
+                self._gc()
+                return
+            self._q.put((step, tree, aux))
+        elif self.async_save:
             # the host snapshot now; the disk write on the worker thread
             self._q.put((step, _host_copy(tree), aux))
         else:
@@ -208,6 +258,8 @@ class CheckpointManager:
     def wait(self):
         if self.async_save:
             self._q.join()
+        if self.mesh is not None and self.mesh.size > 1:
+            dist.barrier(group=self.mesh.axis(self.mesh.axis_names).group)
         if self._err:
             raise self._err.pop()
 

@@ -27,6 +27,30 @@ carries CPU tensors and CUDA tensors (all three collectives, on int32,
 int64 and uint8 CUDA tensors; two ranks on one card cannot share NCCL, so
 they run on gloo).  Any other pairing raises: a mesh over CUDA tensors
 never carries on on the CPU.
+
+Sharded training runs over a named :class:`~repro_torch.launch.mesh.Mesh`,
+each collective over the ranks that differ along some of its axes (a name
+or a tuple of names in mesh order, such as ``"model"`` or ``("pod",
+"data")``); a group of one rank moves nothing and counts nothing.  The
+raw forms (:func:`all_reduce_raw` with sum, max or min,
+:func:`all_gather_raw` and :func:`reduce_scatter_raw` along any dimension)
+are not differentiable; the autograd pairs are the conjugates that keep a
+gradient whole:
+
+=========================  ==============  =============================
+function                    forward         backward
+=========================  ==============  =============================
+:func:`all_reduce`          all-reduce      identity
+:func:`grad_all_reduce`     identity        all-reduce
+:func:`all_gather_dim`      all-gather      reduce-scatter
+:func:`reduce_scatter_dim`  reduce-scatter  all-gather
+=========================  ==============  =============================
+
+A mesh counts them by ``"<axes>:<op>"`` (``calls``, ``bytes`` each rank
+sends), backward calls included.  A gloo group carries CUDA tensors
+itself for all four (sum and max all-reduce, reduce-scatter, all-gather;
+f32, bf16 and int32 checked on an H100 with torch 2.11): nothing is
+staged through host memory by this module.
 """
 
 from __future__ import annotations
@@ -36,7 +60,9 @@ import warnings
 import torch
 import torch.distributed as dist
 
-__all__ = ["all_gather", "all_to_all", "axis_index", "pany", "psum"]
+__all__ = ["all_gather", "all_gather_dim", "all_gather_raw", "all_reduce",
+           "all_reduce_raw", "all_to_all", "axis_index", "grad_all_reduce", "is_trivial",
+           "pany", "psum", "reduce_scatter_dim", "reduce_scatter_raw"]
 
 I32 = torch.int32
 
@@ -98,3 +124,147 @@ def psum(x: torch.Tensor, mesh) -> torch.Tensor:
 def pany(x: torch.Tensor, mesh) -> torch.Tensor:
     """True where any rank's ``x`` is: the reference's ``psum(x) > 0``."""
     return psum(x.to(I32), mesh) > 0
+
+
+# -- named-mesh collectives (sharded training) -----------------------------------
+
+_REDUCE = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
+           "min": dist.ReduceOp.MIN}
+
+
+def _run(op: str, x: torch.Tensor, mesh, ag, fn) -> torch.Tensor:
+    """Count ``op`` over the group ``ag`` and run ``fn(wire) -> out`` on
+    ``x`` (contiguous)."""
+    _check(op, x, mesh)
+    x = x.contiguous()
+    mesh.calls[f"{ag.label}:{op}"] += 1
+    mesh.bytes[f"{ag.label}:{op}"] += x.numel() * x.element_size()
+    return fn(x)
+
+
+def all_reduce_raw(x: torch.Tensor, mesh, axes, op: str = "sum") -> torch.Tensor:
+    """The elementwise ``op`` (sum, max or min) of the ranks' ``x`` over
+    ``axes``; a new tensor (``x`` itself over a group of one)."""
+    ag = mesh.axis(axes)
+    if ag.size == 1:
+        return x
+
+    def fn(wire):
+        buf = wire.clone()
+        dist.all_reduce(buf, op=_REDUCE[op], group=ag.group)
+        return buf
+
+    return _run(f"all_reduce_{op}" if op != "sum" else "all_reduce", x, mesh, ag, fn)
+
+
+def all_gather_raw(x: torch.Tensor, mesh, axes, dim: int = 0) -> torch.Tensor:
+    """The ranks' blocks ``x`` concatenated along ``dim`` in the group's
+    order (row-major over ``axes``: JAX's tile order)."""
+    ag = mesh.axis(axes)
+    if ag.size == 1:
+        return x
+    front = x.movedim(dim, 0)
+
+    def fn(wire):
+        out = torch.empty((ag.size * wire.shape[0], *wire.shape[1:]),
+                          dtype=wire.dtype, device=wire.device)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", FutureWarning)
+            dist.all_gather_into_tensor(out, wire, group=ag.group)
+        return out
+
+    return _run("all_gather", front, mesh, ag, fn).movedim(0, dim).contiguous()
+
+
+def reduce_scatter_raw(x: torch.Tensor, mesh, axes, dim: int = 0) -> torch.Tensor:
+    """The sum of the ranks' ``x`` over ``axes``, cut along ``dim`` into
+    the group's blocks: this rank's block."""
+    ag = mesh.axis(axes)
+    if ag.size == 1:
+        return x
+    if x.shape[dim] % ag.size:
+        raise ValueError(f"reduce_scatter: {x.shape[dim]} rows do not split "
+                         f"over {ag.size} ranks")
+    front = x.movedim(dim, 0)
+
+    def fn(wire):
+        out = torch.empty((wire.shape[0] // ag.size, *wire.shape[1:]),
+                          dtype=wire.dtype, device=wire.device)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", FutureWarning)
+            dist.reduce_scatter_tensor(out, wire, group=ag.group)
+        return out
+
+    return _run("reduce_scatter", front, mesh, ag, fn).movedim(0, dim).contiguous()
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return all_reduce_raw(x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+class _GradAllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce_raw(grad, ctx.mesh, ctx.axes), None, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return all_gather_raw(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return reduce_scatter_raw(grad, ctx.mesh, ctx.axes, ctx.dim), None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return reduce_scatter_raw(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_gather_raw(grad, ctx.mesh, ctx.axes, ctx.dim), None, None, None
+
+
+def is_trivial(mesh, axes) -> bool:
+    """True where ``axes`` name a group of one rank (or no axes at all)."""
+    return mesh is None or not axes or mesh.axis(axes).size == 1
+
+
+def all_reduce(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """Sum over ``axes``; the backward passes the gradient through (each
+    summand's gradient is the sum's): partial values made whole."""
+    return x if is_trivial(mesh, axes) else _AllReduce.apply(x, mesh, axes)
+
+
+def grad_all_reduce(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """``x`` itself; the backward sums the gradient over ``axes``: a
+    replicated value entering work that each rank does on its own part."""
+    return x if is_trivial(mesh, axes) else _GradAllReduce.apply(x, mesh, axes)
+
+
+def all_gather_dim(x: torch.Tensor, mesh, axes, dim: int = 0) -> torch.Tensor:
+    """The blocks concatenated along ``dim``; the backward reduce-scatters
+    the (partial) gradient back to this rank's block."""
+    return x if is_trivial(mesh, axes) else _AllGather.apply(x, mesh, axes, dim)
+
+
+def reduce_scatter_dim(x: torch.Tensor, mesh, axes, dim: int = 0) -> torch.Tensor:
+    """The sum over ``axes``, this rank's block along ``dim``; the backward
+    all-gathers the blocks' gradients."""
+    return x if is_trivial(mesh, axes) else _ReduceScatter.apply(x, mesh, axes, dim)

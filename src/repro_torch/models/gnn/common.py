@@ -17,70 +17,153 @@ array (``gather``, :func:`repro_torch.kernels.ops.gather_rows`) has as its
 gradient the segment sum by that array, through that array's plan.  So the
 backward of the sums and gathers is deterministic on the card; that of
 ``seg_max``/``seg_min`` is PyTorch's.
+
+Edge parallelism (the reference's GNN cells, ``workloads.py:188-199``):
+with an :class:`EdgeShard` (``ax``), this rank holds its block of the
+edges along the data axes and the nodes and parameters whole.  A segment
+reduction of edge rows into nodes runs the kernel on the rank's edges and
+then reduces the node rows over the data axes (sum, max or min); its
+backward passes the (whole) node gradient through.  A gather of node
+rows onto the rank's edges (``gather``) has as its backward the kernel's
+segment sum of the rank's edges followed by a sum over the data axes, so
+node gradients stay whole.  Parameters that act on edge rows
+(:func:`edge_side`) get the same sum in their backward; those that act on
+node rows are whole already.  Without ``ax`` nothing changes.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 import torch.nn.functional as F
+from torch.utils import _pytree as pytree
 
+from repro_torch.core import collectives as coll
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import data_axes
 
 
-def seg_sum(x, seg, n, plan=None):
-    return ops.segment_sum(x, seg, n, plan=plan)
+@dataclasses.dataclass(frozen=True)
+class EdgeShard:
+    """This rank's block of the edges along the data ``axes`` of ``mesh``."""
+
+    mesh: object
+    axes: tuple
+
+    @property
+    def size(self) -> int:
+        return self.mesh.axis(self.axes).size
 
 
-def gather(x, idx, plan=None):
+def edge_shard(mesh) -> EdgeShard | None:
+    """The edge split of ``mesh`` over its data axes; None without a mesh
+    or with one data rank (nothing is split)."""
+    if mesh is None:
+        return None
+    axes = data_axes(mesh)
+    return None if coll.is_trivial(mesh, axes) else EdgeShard(mesh, axes)
+
+
+def edge_side(tree, ax: EdgeShard | None):
+    """Parameters that act on this rank's edge rows: unchanged, their
+    gradient summed over the data axes in the backward."""
+    if ax is None:
+        return tree
+    return pytree.tree_map(lambda p: coll.grad_all_reduce(p, ax.mesh, ax.axes), tree)
+
+
+def seg_sum(x, seg, n, plan=None, ax=None):
+    out = ops.segment_sum(x, seg, n, plan=plan)
+    return out if ax is None else coll.all_reduce(out, ax.mesh, ax.axes)
+
+
+def gather(x, idx, plan=None, ax=None):
     """``x[idx]`` for int32 ``idx``; ``plan`` (of ``idx`` and ``len(x)``)
-    serves its backward."""
+    serves its backward (with ``ax``, then summed over the data axes)."""
+    if ax is not None:
+        x = coll.grad_all_reduce(x, ax.mesh, ax.axes)
     return ops.gather_rows(x, idx, plan)
 
 
-def _counts(seg, n, dtype, plan=None):
+def _counts(seg, n, dtype, plan=None, ax=None):
     ones = torch.ones((seg.shape[0], 1), dtype=dtype, device=seg.device)
-    return seg_sum(ones, seg, n, plan)
+    return seg_sum(ones, seg, n, plan, ax)
 
 
-def seg_mean(x, seg, n, eps=1e-6, plan=None):
-    return seg_sum(x, seg, n, plan) / (_counts(seg, n, x.dtype, plan) + eps)
+def seg_mean(x, seg, n, eps=1e-6, plan=None, ax=None):
+    return seg_sum(x, seg, n, plan, ax) / (_counts(seg, n, x.dtype, plan, ax) + eps)
 
 
-def _mask_empty(agg, seg, n, plan=None):
+def _mask_empty(agg, seg, n, plan=None, ax=None):
     """Zero out segments with no contributing edges."""
-    return torch.where(_counts(seg, n, agg.dtype, plan) > 0, agg, 0.0)
+    return torch.where(_counts(seg, n, agg.dtype, plan, ax) > 0, agg, 0.0)
+
+
+def _index(seg, x):
+    return seg.to(torch.int64).reshape(-1, *([1] * (x.dim() - 1))).expand_as(x)
 
 
 def _scatter(x, seg, n, reduce):
     out = torch.zeros((n, *x.shape[1:]), dtype=x.dtype, device=x.device)
-    index = seg.to(torch.int64).reshape(-1, *([1] * (x.dim() - 1))).expand_as(x)
-    return out.scatter_reduce_(0, index, x, reduce, include_self=False)
+    return out.scatter_reduce_(0, _index(seg, x), x, reduce, include_self=False)
 
 
-def seg_max(x, seg, n, plan=None):
-    return _mask_empty(_scatter(x, seg, n, "amax"), seg, n, plan)
+class _SegExtreme(torch.autograd.Function):
+    """The max (or min) of each segment over every rank's edges: the
+    rank's own (an empty segment at -inf, or +inf), reduced over the data
+    axes.  The backward splits a segment's gradient evenly among the rows
+    of every rank that reach its extreme, as PyTorch's ``scatter_reduce``
+    does among its ties."""
+
+    @staticmethod
+    def forward(ctx, x, seg, n, reduce, ax):
+        fill = -torch.inf if reduce == "amax" else torch.inf
+        out = torch.full((n, *x.shape[1:]), fill, dtype=x.dtype, device=x.device)
+        out.scatter_reduce_(0, _index(seg, x), x, reduce, include_self=False)
+        out = coll.all_reduce_raw(out, ax.mesh, ax.axes, reduce[1:])
+        ctx.save_for_backward(x, seg, out)
+        ctx.ax = ax
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, seg, out = ctx.saved_tensors
+        idx = _index(seg, x)
+        hit = (x == out.gather(0, idx)).to(grad.dtype)
+        ties = torch.zeros_like(out, dtype=grad.dtype).scatter_add_(0, idx, hit)
+        ties = coll.all_reduce_raw(ties, ctx.ax.mesh, ctx.ax.axes)
+        return hit * (grad / ties).gather(0, idx), None, None, None, None
 
 
-def seg_min(x, seg, n, plan=None):
-    return _mask_empty(_scatter(x, seg, n, "amin"), seg, n, plan)
+def seg_max(x, seg, n, plan=None, ax=None):
+    agg = _scatter(x, seg, n, "amax") if ax is None else _SegExtreme.apply(
+        x, seg, n, "amax", ax)
+    return _mask_empty(agg, seg, n, plan, ax)
 
 
-def seg_std(x, seg, n, eps=1e-6, plan=None):
-    m = seg_mean(x, seg, n, plan=plan)
-    m2 = seg_mean(x * x, seg, n, plan=plan)
+def seg_min(x, seg, n, plan=None, ax=None):
+    agg = _scatter(x, seg, n, "amin") if ax is None else _SegExtreme.apply(
+        x, seg, n, "amin", ax)
+    return _mask_empty(agg, seg, n, plan, ax)
+
+
+def seg_std(x, seg, n, eps=1e-6, plan=None, ax=None):
+    m = seg_mean(x, seg, n, plan=plan, ax=ax)
+    m2 = seg_mean(x * x, seg, n, plan=plan, ax=ax)
     return torch.sqrt(torch.clamp(m2 - m * m, min=0.0) + eps)
 
 
-def seg_softmax(logits, seg, n, plan=None):
+def seg_softmax(logits, seg, n, plan=None, ax=None):
     """Edge softmax grouped by destination node."""
-    mx = seg_max(logits, seg, n, plan)
-    ex = torch.exp(logits - gather(mx, seg, plan))
-    den = seg_sum(ex, seg, n, plan)
-    return ex / (gather(den, seg, plan) + 1e-9)
+    mx = seg_max(logits, seg, n, plan, ax)
+    ex = torch.exp(logits - gather(mx, seg, plan, ax))
+    den = seg_sum(ex, seg, n, plan, ax)
+    return ex / (gather(den, seg, plan, ax) + 1e-9)
 
 
-def degrees(dst, n, plan=None):
-    return _counts(dst, n, torch.float32, plan)[:, 0]
+def degrees(dst, n, plan=None, ax=None):
+    return _counts(dst, n, torch.float32, plan, ax)[:, 0]
 
 
 def masked_nll(logits, batch: dict):

@@ -17,6 +17,14 @@ product the reference leaves to XLA).
 
 Triplet indices (t_in: edge k->j, t_out: edge j->i) come with the batch
 (:func:`repro_torch.data.pipeline.build_triplets`).
+
+With a ``mesh`` the edges and the triplets are this rank's blocks along
+the data axes (:mod:`.common`'s edge parallelism).  A triplet reads edges
+that other ranks hold: the edge rows it reads (``rel`` and each block's
+``m_rbf @ w_kj``) are all-gathered over the data axes (their gradients
+reduce-scattered back), and the triplet sum into the edges is
+reduce-scattered to this rank's edges.  ``species_emb`` and ``out_atom``
+act on node rows, the other weights on edge or triplet rows.
 """
 
 from __future__ import annotations
@@ -29,7 +37,9 @@ import torch
 from repro_torch.device import resolve
 from repro_torch.kernels import ops
 
-from .common import gather, init_mlp, mlp, seg_sum
+from repro_torch.core import collectives as coll
+
+from .common import edge_shard, edge_side, gather, init_mlp, mlp, seg_sum
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,53 +109,66 @@ def init_params(gen: torch.Generator, cfg: DimeNetConfig,
     }
 
 
-def forward(params, cfg: DimeNetConfig, batch: dict):
+def forward(params, cfg: DimeNetConfig, batch: dict, mesh=None):
     """batch: z (N,) species, pos (N,3), edge_index (2,E) j->i, triplets
     (2,T) = (edge id k->j, edge id j->i), graph_ids, n_graphs; ids int32.
-    Returns the per-graph energy (G,)."""
+    Returns the per-graph energy (G,).  With ``mesh``, the edges and
+    triplets are this rank's (the triplets' edge ids global)."""
+    ax = edge_shard(mesh)
     z, pos = batch["z"], batch["pos"].float()
     src, dst = batch["edge_index"][0], batch["edge_index"][1]
     t_in, t_out = batch["triplets"][0], batch["triplets"][1]
     gid, n_graphs = batch["graph_ids"], int(batch["n_graphs"])
-    n, e = z.shape[0], src.shape[0]
+    n, e = z.shape[0], src.shape[0] * (1 if ax is None else ax.size)
     plan, src_plan = ops.segment_plan(dst, n), ops.segment_plan(src, n)
     in_plan, out_plan = ops.segment_plan(t_in, e), ops.segment_plan(t_out, e)
     z_plan = ops.segment_plan(z, cfg.n_species)
     gid_plan = ops.segment_plan(gid, n_graphs)
 
-    rel = gather(pos, dst, plan) - gather(pos, src, src_plan)
+    def every_edge(rows):  # the edge rows of every rank, for the triplets
+        return rows if ax is None else coll.all_gather_dim(rows, ax.mesh, ax.axes, 0)
+
+    rel = gather(pos, dst, plan, ax) - gather(pos, src, src_plan, ax)
     d = torch.sqrt(torch.clamp((rel * rel).sum(-1), min=1e-12))
     rbf = radial_bessel(d, cfg.n_radial, cfg.cutoff, cfg.envelope_p)
+    rel_all = every_edge(rel)
+    d_all = d if ax is None else torch.sqrt(torch.clamp((rel_all * rel_all).sum(-1),
+                                                        min=1e-12))
 
     # triplet angle between edge (k->j) and (j->i): vectors meet at j
-    v_kj = -gather(rel, t_in, in_plan)
-    v_ji = gather(rel, t_out, out_plan)
+    v_kj = -gather(rel_all, t_in, in_plan)
+    v_ji = gather(rel_all, t_out, out_plan)
     cosang = (v_kj * v_ji).sum(-1) / torch.clamp(
         torch.linalg.norm(v_kj, dim=-1) * torch.linalg.norm(v_ji, dim=-1), min=1e-9
     )
     angle = torch.arccos(torch.clamp(cosang, -1.0, 1.0))
-    sbf = angular_basis(angle, gather(d, t_in, in_plan), cfg.n_spherical, cfg.n_radial,
-                        cfg.cutoff)
+    sbf = angular_basis(angle, gather(d_all, t_in, in_plan), cfg.n_spherical,
+                        cfg.n_radial, cfg.cutoff)
 
     hz = gather(params["species_emb"], z, z_plan)
-    m = mlp(params["edge_mlp"], torch.cat([gather(hz, src, src_plan),
-                                           gather(hz, dst, plan), rbf], -1))  # (E, H)
+    m = mlp(edge_side(params["edge_mlp"], ax),
+            torch.cat([gather(hz, src, src_plan, ax), gather(hz, dst, plan, ax), rbf],
+                      -1))  # (E, H)
 
     energy = torch.zeros((n_graphs, 1), dtype=torch.float32, device=pos.device)
     for blk in params["blocks"]:
-        m_rbf = m * (rbf @ blk["w_rbf"])  # (E, H)
-        m_kj = gather(m_rbf @ blk["w_kj"], t_in, in_plan)  # (T, H)
-        sb = sbf @ blk["w_sbf"]  # (T, nb)
-        inter = torch.einsum("th,tb,hbo->to", m_kj, sb, blk["bilinear"])  # (T, H)
+        eb = edge_side({k: blk[k] for k in ("w_rbf", "w_sbf", "w_kj", "bilinear",
+                                            "mlp_out")}, ax)
+        m_rbf = m * (rbf @ eb["w_rbf"])  # (E, H)
+        m_kj = gather(every_edge(m_rbf @ eb["w_kj"]), t_in, in_plan)  # (T, H)
+        sb = sbf @ eb["w_sbf"]  # (T, nb)
+        inter = torch.einsum("th,tb,hbo->to", m_kj, sb, eb["bilinear"])  # (T, H)
         agg = seg_sum(inter, t_out, e, out_plan)  # (E, H)
-        m = m + mlp(blk["mlp_out"], agg)
-        atom = seg_sum(m, dst, n, plan)  # (N, H)
+        if ax is not None:
+            agg = coll.reduce_scatter_dim(agg, ax.mesh, ax.axes, 0)
+        m = m + mlp(eb["mlp_out"], agg)
+        atom = seg_sum(m, dst, n, plan, ax)  # (N, H)
         contrib = mlp(blk["out_atom"], atom)  # (N, 1)
         energy = energy + seg_sum(contrib.float(), gid, n_graphs, gid_plan)
     return energy[:, 0]
 
 
-def loss_fn(params, cfg: DimeNetConfig, batch: dict):
+def loss_fn(params, cfg: DimeNetConfig, batch: dict, mesh=None):
     """Mean squared error of the energy against ``batch["y"]``."""
-    err = forward(params, cfg, batch) - batch["y"].float()
+    err = forward(params, cfg, batch, mesh) - batch["y"].float()
     return (err * err).mean()

@@ -9,6 +9,11 @@ The port of ``repro.models.gnn.egnn``: the position update (rows of 3),
 the message sum and the per-graph readout go through the ``segment_sum``
 kernel, and so do the backward passes of the node gathers; the forward
 builds one segment plan each of ``dst``, ``src`` and ``graph_ids``.
+
+With a ``mesh`` the edges are this rank's block along the data axes
+(:mod:`.common`'s edge parallelism): ``phi_e`` and ``phi_x`` act on edge
+rows, ``embed``, ``phi_h`` and ``head`` on node rows; the per-graph
+readout sums node rows, which every rank holds.
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ import torch
 from repro_torch.device import resolve
 from repro_torch.kernels import ops
 
-from .common import gather, init_mlp, mlp, seg_sum
+from .common import edge_shard, edge_side, gather, init_mlp, mlp, seg_sum
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,10 +55,11 @@ def init_params(gen: torch.Generator, cfg: EGNNConfig,
     }
 
 
-def forward(params, cfg: EGNNConfig, batch: dict):
+def forward(params, cfg: EGNNConfig, batch: dict, mesh=None):
     """batch: x (N, d_in), pos (N, 3), edge_index (2, E) int32, graph_ids
     (N,) int32, n_graphs.  Returns (per-graph prediction (G, n_targets),
-    final positions (N, 3))."""
+    final positions (N, 3)).  With ``mesh``, the edges are this rank's."""
+    ax = edge_shard(mesh)
     h = mlp(params["embed"], batch["x"])
     pos = batch["pos"].float()
     src, dst = batch["edge_index"][0], batch["edge_index"][1]
@@ -62,20 +68,21 @@ def forward(params, cfg: EGNNConfig, batch: dict):
     plan, src_plan = ops.segment_plan(dst, n), ops.segment_plan(src, n)
     gid_plan = ops.segment_plan(gid, n_graphs)
     for lp in params["layers"]:
-        rel = gather(pos, dst, plan) - gather(pos, src, src_plan)
+        phi_e, phi_x = edge_side(lp["phi_e"], ax), edge_side(lp["phi_x"], ax)
+        rel = gather(pos, dst, plan, ax) - gather(pos, src, src_plan, ax)
         d2 = (rel * rel).sum(-1, keepdim=True)
-        m = mlp(lp["phi_e"], torch.cat([gather(h, dst, plan), gather(h, src, src_plan),
-                                        d2.to(h.dtype)], -1))
-        w = mlp(lp["phi_x"], m).float()
-        pos = pos + seg_sum(rel * w, dst, n, plan) / (n**0.5)
-        agg = seg_sum(m, dst, n, plan)
+        m = mlp(phi_e, torch.cat([gather(h, dst, plan, ax), gather(h, src, src_plan, ax),
+                                  d2.to(h.dtype)], -1))
+        w = mlp(phi_x, m).float()
+        pos = pos + seg_sum(rel * w, dst, n, plan, ax) / (n**0.5)
+        agg = seg_sum(m, dst, n, plan, ax)
         h = h + mlp(lp["phi_h"], torch.cat([h, agg], -1))
     node_out = mlp(params["head"], h)
     return seg_sum(node_out, gid, n_graphs, gid_plan), pos
 
 
-def loss_fn(params, cfg: EGNNConfig, batch: dict):
+def loss_fn(params, cfg: EGNNConfig, batch: dict, mesh=None):
     """Mean squared error of the first target against ``batch["y"]``."""
-    pred, _ = forward(params, cfg, batch)
+    pred, _ = forward(params, cfg, batch, mesh)
     err = pred[:, 0].float() - batch["y"].float()
     return (err * err).mean()

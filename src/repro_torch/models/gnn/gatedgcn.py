@@ -10,6 +10,11 @@ of a node go through the ``segment_sum`` kernel, two launches a layer, and
 so does the backward of the node gathers ``x[dst]`` and ``x[src]``; the
 forward builds one segment plan of ``dst`` and one of ``src``.  LayerNorm
 replaces BatchNorm, as in the reference.  ``loss_fn`` is the masked NLL.
+
+With a ``mesh`` the edges (``edge_index``, ``edge_attr``) are this rank's
+block along the data axes (:mod:`.common`'s edge parallelism): ``A``,
+``B``, ``C``, ``V`` and ``embed_e`` act on edge rows, ``U``, ``embed_x``
+and ``head`` on node rows.
 """
 
 from __future__ import annotations
@@ -22,7 +27,8 @@ import torch.nn.functional as F
 from repro_torch.device import resolve
 from repro_torch.kernels import ops
 
-from .common import gather, init_mlp, layer_norm, masked_nll, mlp, seg_sum
+from .common import (edge_shard, edge_side, gather, init_mlp, layer_norm, masked_nll, mlp,
+                     seg_sum)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,32 +60,35 @@ def init_params(gen: torch.Generator, cfg: GatedGCNConfig,
     }
 
 
-def forward(params, cfg: GatedGCNConfig, batch: dict) -> torch.Tensor:
+def forward(params, cfg: GatedGCNConfig, batch: dict, mesh=None) -> torch.Tensor:
     """batch: x (N, d_in), edge_attr (E, d_edge_in), edge_index (2, E)
     int32 (row 0 the sources, row 1 the destinations).  Returns logits
     (N, n_classes).  One segment plan of the destinations serves every
     segment sum of the forward and the backward of ``x[dst]``; one of the
-    sources serves the backward of ``x[src]``."""
+    sources serves the backward of ``x[src]``.  With ``mesh``, the edges
+    are this rank's."""
+    ax = edge_shard(mesh)
     x = mlp(params["embed_x"], batch["x"])
-    e = mlp(params["embed_e"], batch["edge_attr"])
+    e = mlp(edge_side(params["embed_e"], ax), batch["edge_attr"])
     src, dst = batch["edge_index"][0], batch["edge_index"][1]
     n = x.shape[0]
     plan, src_plan = ops.segment_plan(dst, n), ops.segment_plan(src, n)
     for lp in params["layers"]:
-        (aw, ab), (bw, bb), (cw, cb) = lp["A"], lp["B"], lp["C"]
-        (uw, ub), (vw, vb) = lp["U"], lp["V"]
-        x_src = gather(x, src, src_plan)
-        e_new = gather(x, dst, plan) @ aw + x_src @ bw + e @ cw + (ab + bb + cb)
+        edge = edge_side({k: lp[k] for k in "ABCV"}, ax)
+        (aw, ab), (bw, bb), (cw, cb) = edge["A"], edge["B"], edge["C"]
+        (uw, ub), (vw, vb) = lp["U"], edge["V"]
+        x_src = gather(x, src, src_plan, ax)
+        e_new = gather(x, dst, plan, ax) @ aw + x_src @ bw + e @ cw + (ab + bb + cb)
         gate = torch.sigmoid(e_new.float()).to(x.dtype)
         msg = gate * (x_src @ vw + vb)
-        den = seg_sum(gate, dst, n, plan) + 1e-6
-        agg = seg_sum(msg, dst, n, plan) / den
+        den = seg_sum(gate, dst, n, plan, ax) + 1e-6
+        agg = seg_sum(msg, dst, n, plan, ax) / den
         x = x + F.silu(layer_norm(x @ uw + ub + agg))
         e = e + F.silu(layer_norm(e_new))
     return mlp(params["head"], x)
 
 
-def loss_fn(params, cfg: GatedGCNConfig, batch: dict):
+def loss_fn(params, cfg: GatedGCNConfig, batch: dict, mesh=None):
     """Masked NLL of the node labels (``batch["labels"]``, int; optional
     ``batch["train_mask"]``, f32), as the reference's."""
-    return masked_nll(forward(params, cfg, batch), batch)
+    return masked_nll(forward(params, cfg, batch, mesh), batch)

@@ -8,6 +8,10 @@ amplification / attenuation) message passing with tower MLPs.  The port of
 forward, and so does the backward of ``x[dst]`` and ``x[src]`` (a plan of
 ``src`` too).  The max and min are PyTorch's ``scatter_reduce``, backward
 included.  ``loss_fn`` is the masked NLL.
+
+With a ``mesh`` the edges are this rank's block along the data axes
+(:mod:`.common`'s edge parallelism): the message MLPs (``pre``) act on
+edge rows, ``embed``, ``post`` and ``head`` on node rows.
 """
 
 from __future__ import annotations
@@ -20,8 +24,8 @@ import torch.nn.functional as F
 from repro_torch.device import resolve
 from repro_torch.kernels import ops
 
-from .common import (degrees, gather, init_mlp, layer_norm, masked_nll, mlp, seg_max,
-                     seg_mean, seg_min, seg_std)
+from .common import (degrees, edge_shard, edge_side, gather, init_mlp, layer_norm,
+                     masked_nll, mlp, seg_max, seg_mean, seg_min, seg_std)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,27 +57,29 @@ def init_params(gen: torch.Generator, cfg: PNAConfig,
     }
 
 
-def forward(params, cfg: PNAConfig, batch: dict) -> torch.Tensor:
+def forward(params, cfg: PNAConfig, batch: dict, mesh=None) -> torch.Tensor:
     """batch: x (N, d_in), edge_index (2, E) int32.  Returns logits
     (N, n_classes).  One segment plan of the destinations serves every
     segment sum of the forward and the backward of ``x[dst]``; one of the
-    sources serves the backward of ``x[src]``."""
+    sources serves the backward of ``x[src]``.  With ``mesh``, the edges
+    are this rank's."""
+    ax = edge_shard(mesh)
     x = mlp(params["embed"], batch["x"])
     src, dst = batch["edge_index"][0], batch["edge_index"][1]
     n = x.shape[0]
     plan, src_plan = ops.segment_plan(dst, n), ops.segment_plan(src, n)
-    deg = degrees(dst, n, plan)
+    deg = degrees(dst, n, plan, ax)
     log_deg = torch.log(deg + 1.0)
     amp = (log_deg / cfg.delta)[:, None]
     att = (cfg.delta / torch.clamp(log_deg, min=1e-6))[:, None]
     for lp in params["layers"]:
-        m = mlp(lp["pre"], torch.cat([gather(x, dst, plan), gather(x, src, src_plan)],
-                                     dim=-1))
+        m = mlp(edge_side(lp["pre"], ax),
+                torch.cat([gather(x, dst, plan, ax), gather(x, src, src_plan, ax)], dim=-1))
         aggs = [
-            seg_mean(m, dst, n, plan=plan),
-            seg_max(m, dst, n, plan),
-            seg_min(m, dst, n, plan),
-            seg_std(m, dst, n, plan=plan),
+            seg_mean(m, dst, n, plan=plan, ax=ax),
+            seg_max(m, dst, n, plan, ax),
+            seg_min(m, dst, n, plan, ax),
+            seg_std(m, dst, n, plan=plan, ax=ax),
         ]
         agg = torch.cat(aggs, dim=-1)
         scaled = torch.cat([agg, agg * amp, agg * att], dim=-1)
@@ -81,6 +87,6 @@ def forward(params, cfg: PNAConfig, batch: dict) -> torch.Tensor:
     return mlp(params["head"], x)
 
 
-def loss_fn(params, cfg: PNAConfig, batch: dict):
+def loss_fn(params, cfg: PNAConfig, batch: dict, mesh=None):
     """Masked NLL of the node labels, as the reference's."""
-    return masked_nll(forward(params, cfg, batch), batch)
+    return masked_nll(forward(params, cfg, batch, mesh), batch)

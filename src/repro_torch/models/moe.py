@@ -19,8 +19,18 @@ Three choices keep the port equal to the reference on the same inputs:
     the reference's scatter order, one add at a time in the activation
     dtype: no atomic adds, so two runs on the card give the same bits.
 
-``dp_axes`` and ``ep_axis`` are accepted and change nothing on one device,
-as in the reference without a mesh.  :class:`RoutingLog` (entered with
+With a ``mesh`` (a :class:`repro_torch.launch.mesh.Mesh`), ``dp_axes``
+and ``ep_axis`` shard the call as the reference's ``with_sharding_constraint``
+layout does: each data rank holds one token chunk (chunk d of the
+reference's (C, Tl) view) and routes it; each rank along ``ep_axis``
+holds E / model of the experts (their weights' blocks), gathers the
+tokens of its experts' slots from its chunk (replicated along the model
+axis, so nothing crosses ranks), runs them, adds its slots' contributions
+in the unsharded order, and the partial outputs are summed over the model
+axis in the activation dtype.  The load-balancing loss takes the mean
+probabilities and the expert counts over all chunks (all-reduced over the
+data axes), as the reference's global one.  Without a mesh they change
+nothing, as in the reference without one.  :class:`RoutingLog` (entered with
 :func:`routing_log`) sees every call in its thread: the expert load and
 the pairs kept, and on request each call's router probabilities and top
 k on the host, or top k to replay in place of the router's own.
@@ -33,6 +43,8 @@ import dataclasses
 import threading
 
 import torch
+
+from repro_torch.core import collectives as coll
 
 from .layers import swiglu
 
@@ -113,7 +125,7 @@ class RoutingLog:
         tally[0] += r.gate_idx.numel()
         tally[1] = tally[1] + kept.sum()
         if self.keep_calls:
-            self.routes.append(dict(probs=r.probs.cpu(), gate_idx=r.top_idx.cpu()))
+            self.routes.append(dict(probs=r.probs.detach().cpu(), gate_idx=r.top_idx.cpu()))
         self.calls += 1
 
 
@@ -189,10 +201,13 @@ def remat_contexts():
 
 def route(xt: torch.Tensor, router_w: torch.Tensor, top_k: int,
           capacity_factor: float = 1.25,
-          forced: torch.Tensor | None = None) -> Routing:
+          forced: torch.Tensor | None = None, mesh=None, dp_axes: tuple = ()) -> Routing:
     """Route the chunks ``xt`` (C, Tl, D) through ``router_w`` (D, E):
     logits, softmax and gates in f32, the top k, the capacity and the
-    slot maps.  ``forced`` (C, Tl, K) replaces the router's top k."""
+    slot maps.  ``forced`` (C, Tl, K) replaces the router's top k.  With a
+    ``mesh``, the chunks are this data rank's and the load-balancing loss
+    takes the mean probabilities and the counts of every rank along
+    ``dp_axes``."""
     c, tl, _ = xt.shape
     e = router_w.shape[1]
     tk = tl * top_k
@@ -216,7 +231,13 @@ def route(xt: torch.Tensor, router_w: torch.Tensor, top_k: int,
     counts = torch.zeros((c, e), dtype=torch.float32, device=dev)
     counts.scatter_add_(1, flat_e, torch.ones(flat_e.shape, dtype=torch.float32,
                                               device=dev))
-    aux = e * torch.sum(me * counts.sum(0) / (c * tl * top_k))
+    total, n_tok = counts.sum(0), c * tl
+    ranks = 1 if coll.is_trivial(mesh, dp_axes) else mesh.axis(dp_axes).size
+    if ranks > 1:  # the mean over every rank's chunks; its gradient local
+        me = coll.all_reduce(me * (1.0 / ranks), mesh, dp_axes)
+        total = coll.all_reduce_raw(total, mesh, dp_axes)
+        n_tok *= ranks
+    aux = e * torch.sum(me * total / (n_tok * top_k))
 
     # sort-based dispatch, per chunk
     sorted_e, order = torch.sort(flat_e, dim=1, stable=True)
@@ -247,18 +268,24 @@ def moe_ffn(
     n_token_shards: int = 1,
     dp_axes: tuple = (),
     ep_axis: str | None = None,
+    mesh=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns (output (B,S,D), aux load-balancing loss)."""
-    b, s, d = x.shape
-    e = router_w.shape[1]
-    n_tok = b * s
-    c = n_chunks(n_tok, n_token_shards)
-    tl = n_tok // c
+    """Returns (output (B,S,D), aux load-balancing loss).  With ``mesh``,
+    ``x`` is this data rank's tokens and the expert weights this model
+    rank's experts (see the module's docstring)."""
     logs = getattr(_active, "logs", ())
     forced = None
     for log in logs:  # the first log that replays routes the call
         if forced is None:
             forced = log.forced(x.device)
+    if mesh is not None:
+        return _moe_sharded(x, router_w, w_gate, w_in, w_out, top_k, capacity_factor,
+                            n_token_shards, tuple(dp_axes), ep_axis, mesh, logs, forced)
+    b, s, d = x.shape
+    e = router_w.shape[1]
+    n_tok = b * s
+    c = n_chunks(n_tok, n_token_shards)
+    tl = n_tok // c
 
     xt = x.reshape(c, tl, d)
     r = route(xt, router_w, top_k, capacity_factor, forced)
@@ -281,8 +308,54 @@ def moe_ffn(
     contrib = torch.cat([contrib, contrib.new_zeros(c, 1, d)], dim=1)
     pair_slot = torch.empty_like(r.slot).scatter_(1, r.order, r.slot)
     pair_slot = torch.sort(pair_slot.reshape(c, tl, top_k), dim=-1).values
+    return _combine(contrib, pair_slot, top_k).reshape(b, s, d), r.aux
+
+
+def _combine(contrib: torch.Tensor, pair_slot: torch.Tensor, top_k: int) -> torch.Tensor:
+    """Each token's contributions (rows of ``contrib``, (C, slots + 1, D),
+    the last row zero) at its ``pair_slot`` (C, Tl, K, ascending), added
+    one at a time."""
+    c = contrib.shape[0]
+    chunk = torch.arange(c, device=contrib.device)
     parts = contrib[chunk[:, None, None], pair_slot]  # (C, Tl, K, D)
     out = parts[:, :, 0]
     for j in range(1, top_k):
         out = out + parts[:, :, j]
+    return out
+
+
+def _moe_sharded(x, router_w, w_gate, w_in, w_out, top_k, capacity_factor,
+                 n_token_shards, dp, ep, mesh, logs, forced):
+    """The sharded ``moe_ffn``: one chunk a data rank, E / model experts a
+    model rank."""
+    b, s, d = x.shape
+    e = router_w.shape[1]
+    ranks = 1 if coll.is_trivial(mesh, dp) else mesh.axis(dp).size
+    tl = b * s
+    if n_chunks(tl * ranks, n_token_shards) != ranks:
+        raise ValueError(f"sharded moe_ffn wants one token chunk a data rank: "
+                         f"n_token_shards {n_token_shards}, {ranks} data ranks")
+    xt = x.reshape(1, tl, d)
+    r = route(xt, router_w, top_k, capacity_factor, forced, mesh=mesh, dp_axes=dp)
+    for log in logs:
+        log.add(r)
+    cap, el = r.cap, w_gate.shape[0]
+    lo = (0 if coll.is_trivial(mesh, ep) else mesh.axis(ep).index) * el * cap
+    n_slots = el * cap
+
+    # the chunk's tokens and the gates enter this rank's experts: their
+    # gradients there are this rank's part of the whole
+    xt_in = coll.grad_all_reduce(xt, mesh, ep) if ep else xt
+    gate = coll.grad_all_reduce(r.slot_gate, mesh, ep) if ep else r.slot_gate
+    xt_pad = torch.cat([xt_in, xt_in.new_zeros(1, 1, d)], dim=1)
+    buf = xt_pad[0][r.slot_tok[0, lo:lo + n_slots]]  # (El*cap, D)
+    h = swiglu(buf.reshape(el, cap, d), w_gate, w_in, w_out).reshape(1, n_slots, d)
+    contrib = (h * gate[:, lo:lo + n_slots, None].to(h.dtype)).to(x.dtype)
+    contrib = torch.cat([contrib, contrib.new_zeros(1, 1, d)], dim=1)
+    pair_slot = torch.empty_like(r.slot).scatter_(1, r.order, r.slot)
+    pair_slot = torch.sort(pair_slot.reshape(1, tl, top_k), dim=-1).values - lo
+    pair_slot = torch.where((pair_slot >= 0) & (pair_slot < n_slots), pair_slot, n_slots)
+    out = _combine(contrib, pair_slot, top_k)
+    if ep:
+        out = coll.all_reduce(out, mesh, ep)  # the partial outputs, in x's dtype
     return out.reshape(b, s, d), r.aux

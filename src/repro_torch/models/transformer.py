@@ -12,9 +12,23 @@ embeddings.  The port of ``repro.models.transformer``:
 Parameters keep the reference's pytree: ``{"embed", "final_norm",
 "layers": {name: (L, ...) stacked tensor}}``, so a reference checkpoint
 carries over through :func:`params_from_numpy`.  The layers run as a loop
-over the stacked tensors.  ``param_shardings`` waits for a later slice
-(ROADMAP Queue 1 item 1).  Training runs with ``attn_impl="xla_chunked"``,
+over the stacked tensors.  Training runs with ``attn_impl="xla_chunked"``,
 as the reference's: the flash kernel has no backward.
+
+Sharded training: ``param_shardings`` is the reference's layout (heads,
+FFN, experts and vocab over ``model``; with ``cfg.fsdp`` also a free
+dimension over the data axes), and ``forward``/``loss_fn`` with a
+``mesh`` run on each rank's blocks of it, its batch rows of the data
+axes: q/k/v, gate and in column-parallel, o and out row-parallel with a
+sum over ``model``; the tied embedding vocab-parallel (a masked lookup,
+then the sum) and so the cross entropy (max, log-sum-exp and the label
+logit reduced over ``model``); the loss a mean over the data axes.  A
+rank attends over its whole heads where ``model`` divides both head
+counts, and otherwise gathers the q/k/v columns over ``model`` first.
+Under FSDP each layer's weights are all-gathered inside the layer loop
+(their gradients reduce-scattered).  The gradients a rank gets are its
+blocks' partial sums over the data axes (the optimizer's ZeRO-1 step sums
+them).
 
 Where the reference returns a fresh cache (JAX arrays are immutable),
 ``decode_step`` and ``_layer`` write the new K/V into the given cache in
@@ -28,8 +42,12 @@ import dataclasses
 import numpy as np
 import torch
 import torch.utils.checkpoint
+from torch.utils import _pytree as pytree
 
+from repro_torch.core import collectives as coll
 from repro_torch.device import resolve
+from repro_torch.launch.mesh import data_axes
+from repro_torch.launch.sharding import NamedSharding, PartitionSpec as P, ShapeDtype
 
 from .layers import DTYPE, apply_rope, gqa_attention, rms_norm, rope_angles, swiglu
 from .moe import moe_ffn, remat_contexts
@@ -151,6 +169,84 @@ def init_params(gen: torch.Generator, cfg: LMConfig,
     }
 
 
+def param_shapes(cfg: LMConfig) -> dict:
+    """The global :class:`~repro_torch.launch.sharding.ShapeDtype` of each
+    parameter of :func:`init_params`, without the data."""
+    f32 = torch.float32
+    d, l = cfg.d_model, cfg.n_layers
+    hq, hkv = cfg.n_heads * cfg.d_head, cfg.n_kv * cfg.d_head
+    layer = {
+        "attn_norm": ((l, d), f32), "wq": ((l, d, hq), DTYPE),
+        "wk": ((l, d, hkv), DTYPE), "wv": ((l, d, hkv), DTYPE),
+        "wo": ((l, hq, d), DTYPE), "ffn_norm": ((l, d), f32),
+    }
+    if cfg.qkv_bias:
+        layer.update(bq=((l, hq), DTYPE), bk=((l, hkv), DTYPE), bv=((l, hkv), DTYPE))
+    if cfg.is_moe:
+        e, fe = cfg.n_experts, cfg.d_expert
+        layer.update(router=((l, d, e), f32), e_gate=((l, e, d, fe), DTYPE),
+                     e_in=((l, e, d, fe), DTYPE), e_out=((l, e, fe, d), DTYPE))
+        if cfg.n_shared:
+            fs = fe * cfg.n_shared
+            layer.update(s_gate=((l, d, fs), DTYPE), s_in=((l, d, fs), DTYPE),
+                         s_out=((l, fs, d), DTYPE))
+    else:
+        layer.update(w_gate=((l, d, cfg.d_ff), DTYPE), w_in=((l, d, cfg.d_ff), DTYPE),
+                     w_out=((l, cfg.d_ff, d), DTYPE))
+    return {"embed": ShapeDtype((cfg.vocab, d), DTYPE),
+            "final_norm": ShapeDtype((d,), f32),
+            "layers": {k: ShapeDtype(*v) for k, v in layer.items()}}
+
+
+def param_shardings(cfg: LMConfig, mesh, dp=("pod", "data"), tp="model") -> dict:
+    """:class:`~repro_torch.launch.sharding.NamedSharding` tree matching
+    ``init_params``, the reference's: heads, FFN, experts and vocab over
+    ``tp``; norms and the router replicated.  With ``cfg.fsdp`` the
+    tensors are also split over the data axes on a free dimension (the
+    ZeRO-1 choice)."""
+    dp = tuple(a for a in dp if a in mesh.axis_names)
+
+    def ns(*spec):
+        return NamedSharding(mesh, P(*spec))
+
+    layer = {
+        "attn_norm": ns(None, None),
+        "wq": ns(None, None, tp),
+        "wk": ns(None, None, tp),
+        "wv": ns(None, None, tp),
+        "wo": ns(None, tp, None),
+        "ffn_norm": ns(None, None),
+    }
+    if cfg.qkv_bias:
+        layer["bq"] = ns(None, tp)
+        layer["bk"] = ns(None, tp)
+        layer["bv"] = ns(None, tp)
+    if cfg.is_moe:
+        layer["router"] = ns(None, None, None)
+        layer["e_gate"] = ns(None, tp, None, None)
+        layer["e_in"] = ns(None, tp, None, None)
+        layer["e_out"] = ns(None, tp, None, None)
+        if cfg.n_shared:
+            layer["s_gate"] = ns(None, None, tp)
+            layer["s_in"] = ns(None, None, tp)
+            layer["s_out"] = ns(None, tp, None)
+    else:
+        layer["w_gate"] = ns(None, None, tp)
+        layer["w_in"] = ns(None, None, tp)
+        layer["w_out"] = ns(None, tp, None)
+    out = {
+        "embed": ns(tp, None),  # vocab-parallel
+        "final_norm": ns(None),
+        "layers": layer,
+    }
+    if cfg.fsdp and dp:
+        from repro_torch.optim.adamw import _zero1_sharding  # the same free-dim logic
+
+        out = pytree.tree_map(lambda sh, shp: _zero1_sharding(sh, shp.shape, mesh, dp),
+                              out, param_shapes(cfg))
+    return out
+
+
 def params_from_numpy(tree, device: str | torch.device):
     """The reference's parameter pytree, as numpy arrays
     (``jax.tree.map(np.asarray, params)``), as the port's tensors on
@@ -250,22 +346,28 @@ def _embed(params, tokens: torch.Tensor) -> torch.Tensor:
     return params["embed"].to(DTYPE)[tokens.to(torch.int64)]
 
 
-def forward(params, cfg: LMConfig, tokens: torch.Tensor):
+def forward(params, cfg: LMConfig, tokens: torch.Tensor, mesh=None):
     """tokens (B, S) -> hidden (B, S, D), aux loss sum.
 
     With ``cfg.remat`` and grad mode on, each group of ``cfg.remat_group``
     layers (one layer when the group does not divide the depth, as in the
     reference) runs under ``torch.utils.checkpoint``: the backward
-    recomputes the group, with the MoE calls routed as in the forward."""
+    recomputes the group, with the MoE calls routed as in the forward.
+    With ``mesh``, ``params`` are this rank's blocks of
+    :func:`param_shardings` and ``tokens`` its rows."""
+    tp = None if mesh is None else _TP(cfg, mesh)
     s = tokens.shape[1]
-    x = _embed(params, tokens)
+    x = _embed(params, tokens) if tp is None else tp.embed(params, tokens)
     cos, sin = rope_angles(torch.arange(s, device=x.device), cfg.d_head, cfg.rope_theta)
     g = cfg.remat_group if cfg.remat_group > 1 and cfg.n_layers % cfg.remat_group == 0 else 1
 
     def group(x, first):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(first, first + g):
-            x, a, _ = _layer(cfg, x, layer_params(params, i), cos, sin, q_offset=0)
+            if tp is None:
+                x, a, _ = _layer(cfg, x, layer_params(params, i), cos, sin, q_offset=0)
+            else:
+                x, a = tp.layer(x, tp.layer_params(params, i), cos, sin)
             aux = aux + a
         return x, aux
 
@@ -277,25 +379,150 @@ def forward(params, cfg: LMConfig, tokens: torch.Tensor):
         else:
             x, a = group(x, first)
         aux = aux + a
-    return rms_norm(x, params["final_norm"]), aux
+    final_norm = params["final_norm"] if tp is None else tp.whole(params, "final_norm")
+    return rms_norm(x, final_norm), aux
 
 
 def logits_of(params, hidden):
     return hidden @ params["embed"].to(hidden.dtype).T
 
 
-def loss_fn(params, cfg: LMConfig, tokens: torch.Tensor, labels: torch.Tensor):
+def loss_fn(params, cfg: LMConfig, tokens: torch.Tensor, labels: torch.Tensor,
+            mesh=None):
     """Mean next-token cross entropy of ``labels`` (B, S) plus 0.01 times
     the MoE load-balancing loss: the reference's log-sum-exp, shifted by
-    the row maximum (held constant in the backward), in f32."""
-    hidden, aux = forward(params, cfg, tokens)
-    logits = logits_of(params, hidden).float()
+    the row maximum (held constant in the backward), in f32.  With
+    ``mesh``, over this rank's blocks and rows (vocab-parallel; the mean
+    over every data rank's rows)."""
+    hidden, aux = forward(params, cfg, tokens, mesh)
+    if mesh is None:
+        logits, lo = logits_of(params, hidden).float(), 0
+    else:
+        tp = _TP(cfg, mesh)
+        embed = tp.whole(params, "embed")
+        logits = (coll.grad_all_reduce(hidden, mesh, tp.tp) @ embed.to(hidden.dtype).T).float()
+        lo = tp.m * embed.shape[0]
     m = logits.max(dim=-1, keepdim=True).values.detach()
-    lse = torch.log(torch.exp(logits - m).sum(dim=-1)) + m[..., 0]
-    vocab = torch.arange(cfg.vocab, device=logits.device)
+    if mesh is not None:
+        m = coll.all_reduce_raw(m, mesh, tp.tp, "max") if tp.tp else m
+    sum_exp = torch.exp(logits - m).sum(dim=-1)
+    vocab = torch.arange(lo, lo + logits.shape[-1], device=logits.device)
     onehot = labels.to(logits.device)[..., None] == vocab
     label_logit = torch.where(onehot, logits, 0.0).sum(dim=-1)
-    return (lse - label_logit).mean() + 0.01 * aux
+    if mesh is not None:
+        sum_exp = coll.all_reduce(sum_exp, mesh, tp.tp)
+        label_logit = coll.all_reduce(label_logit, mesh, tp.tp)
+    ce = (torch.log(sum_exp) + m[..., 0] - label_logit).mean()
+    if mesh is not None and tp.d_ranks > 1:  # the mean of the data ranks' means
+        ce = coll.all_reduce(ce * (1.0 / tp.d_ranks), mesh, tp.dp)
+    return ce + 0.01 * aux
+
+
+class _TP:
+    """One rank's view of the layout of :func:`param_shardings` on a mesh:
+    the model axis ``tp`` (None without one) and this rank's index ``m``
+    along it of ``n_tp``, the data axes ``dp`` and their ranks."""
+
+    def __init__(self, cfg: LMConfig, mesh):
+        self.cfg, self.mesh = cfg, mesh
+        self.tp = "model" if "model" in mesh.axis_names else None
+        self.dp = data_axes(mesh)
+        self.n_tp = mesh.shape[self.tp] if self.tp else 1
+        self.m = mesh.coords[self.tp] if self.tp else 0
+        self.d_ranks = 1
+        for a in self.dp:
+            self.d_ranks *= mesh.shape[a]
+        self.shardings = param_shardings(cfg, mesh, dp=self.dp)
+        self.whole_heads = cfg.n_heads % self.n_tp == 0 and cfg.n_kv % self.n_tp == 0
+
+    # -- FSDP: the data-axis split undone inside the step ----------------------
+    def _unsplit(self, t: torch.Tensor, ents: tuple) -> torch.Tensor:
+        for dim, e in enumerate(ents):
+            dpa = tuple(a for a in (e or ()) if a in self.dp)
+            if dpa:
+                t = coll.all_gather_dim(t, self.mesh, dpa, dim)
+        return t
+
+    def whole(self, params, name: str) -> torch.Tensor:
+        """A top-level parameter with its data-axis split gathered."""
+        t = params[name]
+        return self._unsplit(t, self.shardings[name].entries(t.dim()))
+
+    def layer_params(self, params, i: int) -> dict:
+        """Layer ``i``'s blocks along ``model``, gathered over the data axes
+        where FSDP split them; a stack split along its layers is summed
+        from its owner (the gradient back to it)."""
+        out = {}
+        for k, stack in params["layers"].items():
+            ents = self.shardings["layers"][k].entries(stack.dim())
+            lead = tuple(a for a in (ents[0] or ()) if a in self.dp)
+            if lead:
+                per = stack.shape[0]
+                # the owner's slice, zeros elsewhere; every rank's piece stays
+                # in the graph, so every rank joins the backward's sum
+                mine = float(self.mesh.axis(lead).index == i // per)
+                piece = coll.grad_all_reduce(
+                    coll.all_reduce(stack[i % per] * mine, self.mesh, lead), self.mesh, lead)
+            else:
+                piece = stack[i]
+            out[k] = self._unsplit(piece, ents[1:])
+        return out
+
+    # -- the vocab-parallel embedding ---------------------------------------------
+    def embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
+        table = self.whole(params, "embed").to(DTYPE)
+        if self.n_tp == 1:
+            return table[tokens.to(torch.int64)]
+        v = table.shape[0]
+        ids = tokens.to(torch.int64) - self.m * v
+        mine = (ids >= 0) & (ids < v)
+        rows = torch.where(mine[..., None], table[ids.clamp(0, v - 1)], 0.0)
+        return coll.all_reduce(rows, self.mesh, self.tp)
+
+    # -- the tensor-parallel decoder block ----------------------------------------
+    def _swiglu(self, h, w_gate, w_in, w_out):
+        out = swiglu(coll.grad_all_reduce(h, self.mesh, self.tp), w_gate, w_in, w_out)
+        return coll.all_reduce(out, self.mesh, self.tp)
+
+    def layer(self, x, lp, cos, sin):
+        cfg, mesh, tp = self.cfg, self.mesh, self.tp
+        b, s, _ = x.shape
+        h = rms_norm(x, lp["attn_norm"])
+        hp = coll.grad_all_reduce(h, mesh, tp)  # into the column-parallel q, k, v
+        q = hp @ lp["wq"].to(h.dtype)
+        k = hp @ lp["wk"].to(h.dtype)
+        v = hp @ lp["wv"].to(h.dtype)
+        if cfg.qkv_bias:
+            q = q + lp["bq"].to(h.dtype)
+            k = k + lp["bk"].to(h.dtype)
+            v = v + lp["bv"].to(h.dtype)
+        if self.whole_heads:
+            n_q, n_kv = cfg.n_heads // self.n_tp, cfg.n_kv // self.n_tp
+        else:  # a head split across ranks: every rank attends over all heads
+            q, k, v = (coll.all_gather_dim(t, mesh, tp, 2) for t in (q, k, v))
+            n_q, n_kv = cfg.n_heads, cfg.n_kv
+        q = apply_rope(q.reshape(b, s, n_q, cfg.d_head), cos, sin)
+        k = apply_rope(k.reshape(b, s, n_kv, cfg.d_head), cos, sin)
+        v = v.reshape(b, s, n_kv, cfg.d_head)
+        attn = gqa_attention(q, k, v, causal=True, q_offset=0, chunk=cfg.attn_chunk,
+                             impl=cfg.attn_impl).reshape(b, s, -1)
+        if not self.whole_heads:
+            cols = lp["wo"].shape[0]
+            attn = attn[..., self.m * cols:(self.m + 1) * cols]
+        x = x + coll.all_reduce(attn @ lp["wo"].to(x.dtype), mesh, tp)
+
+        h = rms_norm(x, lp["ffn_norm"])
+        if cfg.is_moe:
+            out, aux = moe_ffn(
+                h, lp["router"], lp["e_gate"], lp["e_in"], lp["e_out"],
+                cfg.top_k, cfg.capacity_factor, n_token_shards=cfg.n_token_shards,
+                dp_axes=cfg.dp_axes, ep_axis=tp, mesh=mesh)
+            if cfg.n_shared:
+                out = out + self._swiglu(h, lp["s_gate"], lp["s_in"], lp["s_out"])
+        else:
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            out = self._swiglu(h, lp["w_gate"], lp["w_in"], lp["w_out"])
+        return x + out, aux
 
 
 # ---------------------------------------------------------------------------

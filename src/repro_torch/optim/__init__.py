@@ -2,6 +2,8 @@
 clipping (:mod:`.adamw`) and int8 error-feedback exchange
 (:mod:`.compression`)."""
 
-from .adamw import adamw_init, adamw_update, clip_by_global_norm
+from .adamw import (adamw_init, adamw_init_blocks, adamw_update, clip_by_global_norm,
+                    opt_state_shardings)
 
-__all__ = ["adamw_init", "adamw_update", "clip_by_global_norm"]
+__all__ = ["adamw_init", "adamw_init_blocks", "adamw_update", "clip_by_global_norm",
+           "opt_state_shardings"]

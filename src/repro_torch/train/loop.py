@@ -1,6 +1,6 @@
 """Fault-tolerant training loop.
 
-The port of ``repro.train.loop`` on one device:
+The port of ``repro.train.loop``:
 
   * **checkpoint/restart** — ``Trainer.run`` checkpoints every
     ``ckpt_every`` steps (async writer, atomic rename) and ``resume()``s
@@ -20,9 +20,25 @@ The port of ``repro.train.loop`` on one device:
 
 A step is ``torch.autograd.grad`` of ``loss_fn(params, batch)`` over the
 flattened parameter leaves, then :func:`repro_torch.optim.adamw_update`;
-the loop reads the loss once a step.  Cross-node gradient compression
-(:mod:`repro_torch.optim.compression`) and sharded states wait for
-``param_shardings``.
+the loop reads the loss once a step.
+
+Sharded training (``mesh=``, ``cell=``): every rank of the mesh runs
+the Trainer on its blocks of a train cell
+(:class:`repro_torch.launch.workloads.Workload`) built on that mesh.
+``init_params`` are this rank's blocks of the cell's parameter shardings,
+the moments start as the cell's ``init_opt`` blocks, ``loss_fn`` is the
+sharded loss (the cell's ``loss``) and ``batch_fn`` gives this rank's
+batch; the update is the cell's own (ZeRO-1 for the LM and FM, the plain
+update for a GNN, whose gradients are whole on every rank), so the step
+is the cell's ``step``.  ``Trainer.shardings`` (the reference's
+``shardings=``) are the cell's ``{"params", "opt"}`` layouts.
+Checkpoints gather the global arrays and rank 0 writes them, in the
+layout either package reads; ``resume()`` takes this rank's blocks of
+them onto ``shardings``, whatever mesh wrote them (the elastic re-mesh
+restore).
+Like the reference's, the Trainer exchanges no compressed gradients
+(:mod:`repro_torch.optim.compression` is a separate exchange over a
+process group).
 """
 
 from __future__ import annotations
@@ -71,21 +87,34 @@ class Trainer:
         init_params,
         batch_fn: Callable[[int], dict],
         cfg: TrainConfig,
+        mesh=None,
+        cell=None,
         on_straggler: Callable[[int, float], None] | None = None,
     ):
         self.cfg = cfg
         self.loss_fn = loss_fn
         self.batch_fn = batch_fn
         self.on_straggler = on_straggler
+        self.mesh = mesh
         self.params = init_params
-        self.opt = adamw_init(init_params)
         self.device = pytree.tree_leaves(init_params)[0].device
+        if mesh is None:
+            self.shardings = None
+            self.opt = adamw_init(init_params)
+            self._update = adamw_update
+        else:
+            if cell is None:
+                raise ValueError("a sharded Trainer needs the train cell (cell=) it runs")
+            self.shardings = {"params": cell.in_shardings[0], "opt": cell.in_shardings[1]}
+            self.opt = cell.init_opt(self.device)
+            self._update = cell.update
         self.step = 0
         self.nan_skips = 0
         self.straggler_events: list[tuple[int, float]] = []
         self.losses: list[float] = []
         self.step_walls: list[float] = []
-        self._mgr = CheckpointManager(cfg.ckpt_dir, keep=cfg.keep, async_save=cfg.async_ckpt)
+        self._mgr = CheckpointManager(cfg.ckpt_dir, keep=cfg.keep, async_save=cfg.async_ckpt,
+                                      mesh=mesh)
 
     def _train_step(self, batch):
         flat, spec = pytree.tree_flatten(self.params)
@@ -94,7 +123,7 @@ class Trainer:
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(flat, grads)]
         with torch.no_grad():
-            new_params, new_opt, gn = adamw_update(
+            new_params, new_opt, gn = self._update(
                 self.params, pytree.tree_unflatten(grads, spec), self.opt, lr=self.cfg.lr)
             # NaN guard: keep the old state when the loss is non-finite
             ok = torch.isfinite(loss.detach())
@@ -114,7 +143,7 @@ class Trainer:
         if latest_step(self.cfg.ckpt_dir) is None:
             return False
         state = {"params": self.params, "opt": self.opt}
-        tree, aux, _ = restore_checkpoint(self.cfg.ckpt_dir, state)
+        tree, aux, _ = restore_checkpoint(self.cfg.ckpt_dir, state, shardings=self.shardings)
         self.params, self.opt = tree["params"], tree["opt"]
         self.step = int(aux["next_step"])
         return True
@@ -124,6 +153,7 @@ class Trainer:
             self.step,
             {"params": self.params, "opt": self.opt},
             aux={"next_step": self.step},
+            shardings=self.shardings,
         )
 
     # -- main loop --------------------------------------------------------

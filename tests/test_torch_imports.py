@@ -44,6 +44,7 @@ MODULES = [
     "repro_torch.optim", "repro_torch.optim.adamw", "repro_torch.optim.compression",
     "repro_torch.ckpt", "repro_torch.ckpt.checkpoint",
     "repro_torch.train", "repro_torch.train.loop",
+    "repro_torch.launch.sharding", "repro_torch.launch.workloads",
     "chip_smoke",
 ]
 
