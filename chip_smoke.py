@@ -207,6 +207,26 @@ on failure (the script then exits non-zero and prints no result):
    memory, collective calls and bytes a step by axes and op, launches a
    step; each step's loss and norm against the yardstick's, beside the
    tolerance (about 10x the largest gap read on an H100).
+12. the serving and engine cells of ``launch/workloads`` (``cells_*``),
+   inside phase 11's rank processes after its train cells (no group of
+   its own), each against its unsharded run on the card first: (a)
+   SmolLM-135M whole at (data 2, model 2): the prefill cell on 4 x 4,096
+   tokens, its cache laid out again for the decode cell, 8 decode steps
+   (logits within ``CELL_LM_TOL`` of the largest); (b) the Criteo-scale
+   FM's serve_bulk (262,144 rows) and retrieval_cand (1,000,000
+   candidates) cells, the table replicated, under the config and with
+   ``use_pallas=True`` (the FM and bag kernels launch under a mesh;
+   scores within ``CELL_FM_RTOL``); (c) the engine cell round_67m over the
+   4 ranks on a cut of phase 5's KG with a sameAs delta, card == CPU on
+   every rank exactly, the union of the ranks' new rows and rho equal to
+   one unsharded round over the whole arena; (d) world 1 on NCCL: (a) and
+   (c) through the (1, 1) cells bit for bit against the unsharded
+   functions.  Each rank's wall, peak memory, collectives by axes and op
+   and launches, beside the dry run's counts of the same cell (rank 0 of
+   a fake group of 4): its collective calls and bytes must equal every
+   rank's measured ones exactly, its peak is printed beside
+   ``max_memory_allocated`` with the ratio, its roofline time beside the
+   wall.
 
 Each path's launch counters are set to 0 just before its run and read just
 after.  Every wall and every CUDA-event time is taken before the process's
@@ -251,9 +271,6 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-SCALAR_OPS_PER_S = 67e12   # H100 SXM non-tensor FP32 rate, the ALU stand-in
-BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
 KEY_MAX = (1 << 63) - 1
 FULL = dict(n_groups=51600, n_plain=1470000)  # OpenCyc: 2.4 M triples
 FULL_MERGED = 7 * 51600  # group_size 8: seven merges per group
@@ -300,11 +317,29 @@ def max_err(a, b) -> float:
     return float((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
 
-def bound(n_bytes: float, n_ops: float,
-          ops_per_s: float = SCALAR_OPS_PER_S) -> tuple[float, str]:
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / ops_per_s * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def counts(entry: str, *args, **data) -> tuple[float, dict]:
+    """The bytes and operations (kind -> count) of one launch of C entry
+    point ``entry`` on the plain version's ``args``: the dry run's formulas
+    (``launch/costs.KERNEL_COUNTS``), given ``data``, what this run's
+    values make of the work where it depends on them."""
+    from repro_torch.launch.costs import KERNEL_COUNTS
+
+    return KERNEL_COUNTS[entry](*args, **data)
+
+
+def bound(n_bytes: float, ops: dict) -> tuple[float, str]:
+    """The card's least time (ms) for the work, and what sets it
+    (``launch/costs.bound``: the datasheet's rates of ``costs.HW``)."""
+    from repro_torch.launch.costs import bound as least
+
+    t, by = least(n_bytes, ops)
+    return t * 1e3, by
+
+
+def hbm_ms(n_bytes: float) -> float:
+    from repro_torch.launch.costs import HW
+
+    return n_bytes / HW["hbm_bytes_per_s"] * 1e3
 
 
 def log2c(n: int) -> int:
@@ -319,9 +354,10 @@ def packed_keys(gen, n: int, n_ids: int, dev) -> torch.Tensor:
 def recorder(records: dict):
     """``record(...)``: print one kernel measurement, fail if the kernel
     and its plain version differ by more than ``tol``, and keep it."""
-    def record(name, shape, err, ms, plain_ms, lib_ms, n_bytes, n_ops,
-               main=False, tol=0.0, ops_per_s=SCALAR_OPS_PER_S, extra=None):
-        b_ms, b_by = bound(n_bytes, n_ops, ops_per_s)
+    def record(name, shape, err, ms, plain_ms, lib_ms, work, main=False, tol=0.0,
+               extra=None):
+        """``work``: the bytes and operations of :func:`counts`."""
+        b_ms, b_by = bound(*work)
         lib = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
         print(f"  {name} {shape}{' [main path]' if main else ''}: max_abs_err "
               f"{err} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
@@ -350,6 +386,16 @@ def kernel_phase(ops, ref, records: dict, dev) -> None:
 
     # stable dedup order: packed keys, duplicates, KEY_MAX tail
     stream = 4 * (FULL_CAP + FULL_CAP) + 1
+    # the dry run sizes the wrappers' scratch as the library does on this card
+    from repro_torch.launch.costs import CARD_SIZES
+
+    want = [CARD_SIZES["dedup_order_scratch_words"](n) for n in (1, 4096, 4097, stream)]
+    got = [ops.dedup_order_scratch_words(n) for n in (1, 4096, 4097, stream)]
+    blocks = (ops.segment_sum_max_blocks(), CARD_SIZES["segment_sum_max_blocks"]())
+    print(f"  scratch sizes: dedup words {got} (the dry run's {want}), segment-sum "
+          f"blocks {blocks[0]} (the dry run's {blocks[1]})", flush=True)
+    if got != want or blocks[0] != blocks[1]:
+        raise AssertionError("launch/costs.CARD_SIZES differ from the library on this card")
     for n, label in ((1 << 20, "2^20"), (1 << 24, "2^24"),
                      (stream, "2^25+1")):
         keys = packed_keys(gen, n, 1 << 8, dev)  # small IDs: many duplicates
@@ -360,7 +406,7 @@ def kernel_phase(ops, ref, records: dict, dev) -> None:
                time_ms(lambda: ops.dedup_order(keys)),
                time_ms(lambda: ref.dedup_order(keys)),
                time_ms(lambda: torch.sort(keys, stable=True)),
-               12 * n, n * log2c(n), main=n == stream)
+               counts("dedup_order", keys), main=n == stream)
     # the whole signed range, LLONG_MIN and -1 among them
     n = (1 << 24) + 1
     keys = (torch.randint(-(1 << 31), 1 << 31, (n,), generator=gen, device=dev) << 32
@@ -372,7 +418,7 @@ def kernel_phase(ops, ref, records: dict, dev) -> None:
            time_ms(lambda: ops.dedup_order(keys)),
            time_ms(lambda: ref.dedup_order(keys)),
            time_ms(lambda: torch.sort(keys, stable=True)),
-           12 * n, n * log2c(n))
+           counts("dedup_order", keys))
 
 
 
@@ -410,7 +456,7 @@ def search_kernel_phase(ops, ref, records: dict, dev) -> None:
            time_ms(lambda: ops.searchsorted(keys, queries)),
            time_ms(lambda: ref.search_bounds(queries, keys)),
            time_ms(lambda: torch.searchsorted(keys, queries)),
-           8 * n + 8 * v + 4 * n, n * log2c(v + 1), main=True)
+           counts("search_bounds", queries, keys, 1), main=True)
     for label, q in (("both sides, n=2^25+1 sorted, v=2^22+1", queries),
                      ("both sides, n=2^22 random, v=2^22+1", search_queries(1 << 22))):
         n = q.shape[0]
@@ -419,7 +465,7 @@ def search_kernel_phase(ops, ref, records: dict, dev) -> None:
                time_ms(lambda: ops.search_bounds(q, keys)),
                time_ms(lambda: ref.search_bounds(q, keys)),
                time_ms(lambda: both_sides(q)),
-               8 * n + 8 * v + 8 * n, 2 * n * log2c(v + 1))
+               counts("search_bounds", q, keys))
     del queries, want
     n = 1 << 22
     rows = torch.stack([keys[:v] >> 42, (keys[:v] >> 21) & ((1 << 21) - 1)], dim=1)
@@ -435,7 +481,7 @@ def search_kernel_phase(ops, ref, records: dict, dev) -> None:
                time_ms(lambda: ref.prefix_range_bounds(prefix, keys)),
                time_ms(lambda: (torch.searchsorted(keys, lo),
                                 torch.searchsorted(keys, hi, side="right"))),
-               8 * n + 8 * v + 8 * n, 2 * n * log2c(v + 1))
+               counts("prefix_range_bounds", prefix, keys))
     del rows, prefix, keys
 
 
@@ -519,14 +565,12 @@ def rew_kernel_phase(ops, ref, records: dict, dev, later: list) -> None:
         err = max(max_err(ops.rewrite_triples(spo, rho), ref.rewrite_triples(spo, rho)),
                   max_err(ops.rewrite_triples(spo, rho, **kw),
                           ref.rewrite_triples(spo, rho, **kw)))
-        mask_bytes = n if form == "normalise" else 5 * n
         lookups = 3 * (int(kw["valid"].sum()) if form == "normalise" else n)
         record("rewrite_triples", f"{form} n={n},V={V}", err,
                time_ms(lambda: ops.rewrite_triples(spo, rho, **kw)),
                time_ms(lambda: ref.rewrite_triples(spo, rho, **kw)),
                time_ms(lambda: rho[spo.to(torch.int64)]),
-               12 * n + 4 * V + mask_bytes + 12 * n + n, 4 * n,
-               main=form == "sweep",
+               counts("rewrite_triples", spo, rho, **kw), main=form == "sweep",
                extra=dict(lookup_sector_bytes=lookups * SECTOR))
 
         def rewrite_device(entry=records["rewrite_triples"][-1], n=n, form=form,
@@ -573,7 +617,8 @@ def rew_kernel_phase(ops, ref, records: dict, dev, later: list) -> None:
                max(max_err(runs[0], plain), max_err(merged, plain)),
                time_ms(ops.uf_union_, lambda: (base.clone(), buf, pv)),
                time_ms(ref.uf_union_, lambda: (base.clone(), buf, pv)),
-               None, m + 8 * k + 4 * n_ends + 4 * n_hooked, 2 * k, main=main)
+               None, counts("uf_union", base, buf, pv, n_valid=k, n_ends=n_ends,
+                            n_hooked=n_hooked), main=main)
         # compress: the forest one scatter-min of the pairs leaves
         lo, hi = pairs.min(dim=1).values, pairs.max(dim=1).values
         hooked = base.clone().scatter_reduce_(0, hi, lo.to(torch.int32), "amin")
@@ -585,13 +630,13 @@ def rew_kernel_phase(ops, ref, records: dict, dev, later: list) -> None:
         record("uf_compress", f"{label}, V={V}", max_err(c_kernel, c_plain),
                time_ms(ops.uf_compress_, lambda: (hooked.clone(),)),
                time_ms(ref.uf_compress_, lambda: (hooked.clone(),)),
-               None, 4 * V + 4 * n_moved, V, main=main)
+               None, counts("uf_compress", hooked, n_moved=n_moved), main=main)
         # the whole merge: reads rep, the flags and the valid rows' pairs,
         # writes the new rep
         record("merge_pairs", f"{label}, V={V}, m={m}", max_err(merged, plain),
                time_ms(lambda: merge_pairs(base, buf, pv)),
                time_ms(lambda: plain_merge(ref, base, buf, pv)),
-               None, m + 8 * k + 8 * V, 2 * k, main=main)
+               None, (m + 8 * k + 8 * V, {"int": 2 * k}), main=main)
 
         def union_device(entries=(records["uf_union"][-1], records["uf_compress"][-1],
                                   records["merge_pairs"][-1]), main=main, seed=seed):
@@ -802,15 +847,12 @@ def serving_kernel_phase(ops, ref, records: dict, dev, later: list) -> None:
                 raise AssertionError(f"SDPA at {label} differs by {lib_err}")
             lib_ms = time_ms(library, reps=FLASH_REPS)
         print(f"  flash {label}: SDPA differs by {lib_err:.3g}", flush=True)
-        # admitted keys per query: min(T, q_offset + i + 1); the bytes are
-        # q and out once and the K/V rows the mask admits once
-        keys = sum(min(t, off + i + 1) for i in range(s))
-        need = min(t, off + s)
-        n_bytes = 2 * (2 * b * s * h * d + 2 * b * need * kv * d)
+        # the bound's bytes: q and out once and the K/V rows the causal mask
+        # admits once; its FLOPs: each query's admitted keys
         record("flash_attention", label, err, time_ms(flash, reps=FLASH_REPS),
                time_ms(lambda: ref.flash_attention(q, k, v, q_offset=off)),
-               lib_ms, n_bytes, 4 * d * h * b * keys, main=main, tol=FLASH_TOL,
-               ops_per_s=BF16_FLOPS_PER_S)
+               lib_ms, counts("flash_attention", q, k, v, True, off), main=main,
+               tol=FLASH_TOL)
         entry = records["flash_attention"][-1]
         entry.update(scaled_excess=excess, p_rounding_shares=shares,
                      library_max_abs_err=lib_err)
@@ -839,7 +881,7 @@ def serving_kernel_phase(ops, ref, records: dict, dev, later: list) -> None:
         record("fm_interact", label, err,
                time_ms(lambda: ops.fm_interact(x)),
                time_ms(lambda: ref.fm_interact(x)),
-               None, 4 * b * 390 + 4 * b, 3 * b * 390, main=main,
+               None, counts("fm_interact", x), main=main,
                tol=FM_TOL_REL * max(1.0, float(want.abs().max())))
 
 
@@ -898,7 +940,7 @@ def segment_bag_kernel_phase(ops, ref, records: dict, dst, dev, later: list) -> 
            time_ms(lambda: ops.dedup_order(keys)),
            time_ms(lambda: ref.dedup_order(keys)),
            time_ms(lambda: torch.sort(keys, stable=True)),
-           12 * e, e * log2c(e))
+           counts("dedup_order", keys))
     del keys
     plan = ops.segment_plan(seg, n)
     plan_ms = time_ms(lambda: ops.segment_plan(seg, n))
@@ -947,11 +989,9 @@ def segment_bag_kernel_phase(ops, ref, records: dict, dst, dev, later: list) -> 
         def library():
             return torch.zeros((n, k), dtype=dtype, device=dev).index_add_(0, idx, x)
 
-        size = x.element_size()
         record("segment_sum", f"KG in-edges E={e}, n={n}, K={k} {str(dtype)[6:]}",
                err, time_ms(kernel), time_ms(lambda: ref.segment_sum(x, seg, n)),
-               time_ms(library), size * e * k + 4 * e + size * n * k, e * k,
-               main=main, tol=tol)
+               time_ms(library), counts("segment_sum", x, seg, n), main=main, tol=tol)
         later.append(functools.partial(device_times, records["segment_sum"][-1],
                                        k, dtype))
         del x
@@ -991,14 +1031,12 @@ def segment_bag_kernel_phase(ops, ref, records: dict, dst, dev, later: list) -> 
                time_ms(lambda: ops.embedding_bag(ids, tab)),
                time_ms(lambda: ref.embedding_bag(ids, tab)),
                time_ms(lambda: F.embedding_bag(ids, tab, mode="sum")),
-               4 * bags * nf + SECTOR * touched_sectors(ids, tab) + 4 * bags * k,
-               bags * nf * k, main=main, tol=tol)
+               counts("embedding_bag", ids, tab, sectors=touched_sectors(ids, tab)),
+               main=main, tol=tol)
         entry = records["embedding_bag"][-1]
         # the bound as if every lookup read its row's sectors from device
         # memory: ceil(4K / 32) sectors a lookup, none of them held by L2
-        row_bytes = -(-4 * k // SECTOR) * SECTOR
-        entry["lookup_sectors_bound_ms"], _ = bound(
-            4 * bags * nf + row_bytes * bags * nf + 4 * bags * k, bags * nf * k)
+        entry["lookup_sectors_bound_ms"], _ = bound(*counts("embedding_bag", ids, tab))
         # a plain gather of the same rows, no sum: the measured ceiling of
         # these random reads, beside the library's bag
         ids64 = ids.to(torch.int64)
@@ -1454,7 +1492,7 @@ def moe_deepseek(ops, records: dict, later: list) -> tuple[int, list]:
         decode_step_ms=st.decode_seconds / st.decode_steps * 1e3,
         # every decode step runs every expert over at least one row and the
         # logits read the embedding: all weights once
-        decode_step_bound_ms=w_bytes / HBM_BYTES_PER_S * 1e3,
+        decode_step_bound_ms=hbm_ms(w_bytes),
         arena_bytes=arena, max_memory_allocated=peak, max_memory_reserved=reserved,
         launches=launches, expert_load=load, same_tokens_twice=True,
         first_wave_logits_bit_equal=True,
@@ -1521,7 +1559,7 @@ def moe_qwen3(ops, records: dict, reqs: list) -> None:
         prefill_s=st.prefill_seconds, decode_steps=st.decode_steps,
         decode_s=st.decode_seconds,
         decode_step_ms=st.decode_seconds / st.decode_steps * 1e3,
-        decode_step_bound_ms=w_bytes / HBM_BYTES_PER_S * 1e3,
+        decode_step_bound_ms=hbm_ms(w_bytes),
         max_memory_allocated=peak, launches=launches,
         prefill_expert_load=expert_load(log),
     )
@@ -3458,7 +3496,7 @@ def train_kernel_checks(ops, ref, records: dict, batch: dict, later_batches: dic
                time_ms(lambda: ops.segment_sum(x, seg, n, plan)),
                time_ms(lambda: ref.segment_sum(x, seg, n)),
                time_ms(lambda: torch.zeros((n, k), device="cuda").index_add_(0, idx, x)),
-               4 * e * k + 4 * e + 4 * n * k, e * k, tol=tol)
+               counts("segment_sum", x, seg, n), tol=tol)
 
 
 def training_phase(ops, ref, records: dict, kg: dict, later: list) -> int:
@@ -3920,6 +3958,8 @@ def _sht_rank(rank: int, world: int, spec_path: str) -> None:
         for job in spec["jobs"]:
             out["jobs"][job["label"]] = dict(unsharded=sht_steps(job, None, device),
                                              sharded=sht_steps(job, meshes[0], device))
+        if spec.get("cells"):  # phase 12 (d)
+            out["cells"] = cells_world1(spec["cells"], meshes[0], device)
     else:
         for job in spec["jobs"]:
             torch.distributed.barrier()  # each job starts on every rank at once
@@ -3931,6 +3971,12 @@ def _sht_rank(rank: int, world: int, spec_path: str) -> None:
             run.update(wall_s=time.perf_counter() - t0, coords=mesh.coords)
             out["jobs"][job["label"]] = run
             print(f"  rank {rank}: {job['label']} done in {run['wall_s']:.1f} s", flush=True)
+        if spec.get("cells"):  # phase 12 (a)-(c), after the train cells
+            torch.distributed.barrier()
+            t0 = time.perf_counter()
+            out["cells"] = cells_rank(spec["cells"], meshes[0], device)
+            out["cells_wall_s"] = time.perf_counter() - t0
+            print(f"  rank {rank}: phase 12 cells done in {out['cells_wall_s']:.1f} s", flush=True)
     Path(spec_path).with_name(f"rank{rank}.json").write_text(json.dumps(out))
 
 
@@ -4074,6 +4120,9 @@ def sharded_training_phase(records: dict, kg: dict) -> dict:
         return f"[{time.perf_counter() - t_phase:.0f} s]"
 
     gb = _sht_gnn_batches(kg, work, SHT_GNN_STEPS)
+    prep = cells_prepare(kg, work)  # phase 12's inputs, yardsticks and dry-run counts
+    print(f"  {at()} phase 12 prepared in {prep['prepare_s']:.1f} s", flush=True)
+    cells = dict(dir=prep["dir"])
     nodes, edges, _ = gb["sizes"][0]
     meshes = [((2, 2), ("data", "model")), ((1, 2), ("data", "model")), ((2,), ("data",))]
     jobs = [
@@ -4101,7 +4150,7 @@ def sharded_training_phase(records: dict, kg: dict) -> dict:
               f"{[round(x['wall_s'], 3) for x in yard[job['label']]['steps']]} s a step",
               flush=True)
     ranks = _sht_spawn(work, "abcd", 4, "gloo", meshes=meshes,
-                       jobs=jobs[:1] + [restore] + jobs[1:])
+                       jobs=jobs[:1] + [restore] + jobs[1:], cells=cells)
     print(f"  {at()} the sharded ranks done", flush=True)
     out: dict = {"card": card_line(), "yardsticks": yard}
 
@@ -4166,7 +4215,7 @@ def sharded_training_phase(records: dict, kg: dict) -> dict:
               dict(family="lm", arch="qwen2-1.5b", n_layers=SHT_E_LM_LAYERS,
                    batch=SHT_LM_BATCH, seq=SHT_LM_SEQ, steps=SHT_LM_STEPS, label="lm")]
     (rank,) = _sht_spawn(work, "e", 1, "nccl", world1=True, jobs=e_jobs,
-                         meshes=[((1, 1), ("data", "model"))])
+                         meshes=[((1, 1), ("data", "model"))], cells=cells)
     for label in ("gnn", "lm"):
         u, sh = rank["jobs"][label]["unsharded"], rank["jobs"][label]["sharded"]
         same = ([x["loss"] for x in u["steps"]] == [x["loss"] for x in sh["steps"]]
@@ -4177,11 +4226,655 @@ def sharded_training_phase(records: dict, kg: dict) -> dict:
               f"{sh['digest']})", flush=True)
         if not same:
             raise AssertionError(f"(e) {label}: the world-1 sharded run differs")
-    out["e"] = rank
     out["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase 12: the serving and engine cells of launch/workloads (in phase 11's "
+          f"ranks), sharded == unsharded, measured == the dry run's counts {at()}", flush=True)
+    cell_rec, cell_launches = cells_check(prep, ranks, rank.pop("cells"))
+    out["e"] = rank
+    cell_rec["ranks_wall_s"] = [r["cells_wall_s"] for r in ranks]
+    records["cells"] = cell_rec
+    for r in ranks:
+        r.pop("cells")
+    for k, v in cell_launches.items():
+        launches[k] = launches.get(k, 0) + v
+    print(f"  phase 12: prepared in {prep['prepare_s']:.1f} s, the ranks' cells in "
+          f"{max(cell_rec['ranks_wall_s']):.1f} s; launches over the ranks "
+          f"{json.dumps(cell_launches)}", flush=True)
     shutil.rmtree(work, ignore_errors=True)
     records["sharded_training"] = out
     return launches
+
+
+# phase 12: the serving and engine cells of launch/workloads, in phase 11's ranks
+CELL_LM = "smollm-135m"
+# (a) cut from prefill_32k and decode_32k (32 x 32,768): the batch and the
+# length, for gloo's host copies and the phase's time
+CELL_LM_BATCH, CELL_LM_PROMPT, CELL_LM_STEPS = 4, 4096, 8
+# (a)'s logits, sharded against unsharded, relative to the largest |logit|:
+# 30 bf16 layers whose tensor-parallel sums run in another order, each a
+# rounding of the residual stream apart (2^-8 relative), walk about
+# sqrt(30) * 2^-8 = 2.1e-2 apart; an H100 read 2.0e-2 to 2.5e-2 over the
+# prefill and 8 steps in each of three runs, and the limit is twice the
+# largest
+CELL_LM_TOL = 5e-2
+CELL_FM_RTOL = 1e-5  # (b) f32 scores, of the largest score
+# (c): phase 5's KG cut to the first 20,000 groups and 500,000 plain rows
+# (860,000 rows, each shard under its 2^18 rows), and a sameAs star of
+# CELL_ENGINE_MERGED groups (7 rows a group) as the round's delta.  The
+# round routes each row's reflexive rows to their subjects' owners, so
+# every <p sameAs p> of one predicate lands in one owner's bucket: on an
+# H100 the busiest bucket took 53.5 rows a group (2,569 at 48 groups,
+# 6,849 at 128), so route_cap's 4,096 rows overflow from 77 groups on, and
+# 72 groups load it to about 3,850.  CELL_ENGINE_HOT runs 128 groups, and
+# the round must flag exactly the ranks whose rows to one owner exceed
+# route_cap
+CELL_ENGINE_GROUPS, CELL_ENGINE_PLAIN, CELL_ENGINE_MERGED = 20000, 500000, 72
+CELL_ENGINE_HOT = 128
+CELL_MESH = ((2, 2), ("data", "model"))
+
+
+def _cell_lm_specs(steps: int = CELL_LM_STEPS):
+    """SmolLM-135M whole: its prefill cell at the prompt's length and its
+    decode cell at the prompt plus ``steps``."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+
+    spec = get_arch(CELL_LM)
+    b, s = CELL_LM_BATCH, CELL_LM_PROMPT
+    return (spec, ShapeSpec(f"prefill_{b}x{s}", "prefill", dict(global_batch=b, seq_len=s)),
+            ShapeSpec(f"decode_{b}x{s + steps}", "decode",
+                      dict(global_batch=b, seq_len=s + steps)))
+
+
+def _cell_lm_params(cfg, device):
+    from repro_torch.models import transformer as lm
+
+    return lm.init_params(torch.Generator(device="cuda").manual_seed(0), cfg, device)
+
+
+def _cell_fm_specs():
+    from repro_torch.configs import get_arch
+
+    spec = get_arch("fm")
+    return [(pallas, dataclasses.replace(spec, config=dataclasses.replace(
+        spec.config, use_pallas=pallas))) for pallas in (False, True)]
+
+
+def _cell_fm_params(cfg, device):
+    from repro_torch.models import recsys
+
+    return recsys.init_params(torch.Generator(device="cuda").manual_seed(0), cfg, device)
+
+
+def _cell_engine_spec(whole: bool = False):
+    """``round_67m`` on the config's caps, or, for the unsharded round over
+    the ``whole`` arena of the 4 shards, its capacity and caps times 4."""
+    from repro_torch.configs import get_arch
+
+    spec = get_arch("sameas_rew")
+    shape = spec.shape("round_67m")
+    if not whole:
+        return spec, shape
+    cfg = spec.config
+    cfg = dataclasses.replace(cfg, bind_cap=4 * cfg.bind_cap, out_cap=4 * cfg.out_cap,
+                              rewrite_cap=4 * cfg.rewrite_cap, route_cap=None)
+    return (dataclasses.replace(spec, config=cfg),
+            dataclasses.replace(shape, dims=dict(shape.dims,
+                                                 capacity=4 * shape.dims["capacity"])))
+
+
+def _cell_engine_rows(kg: dict, merged: int = CELL_ENGINE_MERGED) -> tuple:
+    """Phase 5's KG cut (its group rows come first, 18 a group, then the
+    plain rows), the sameAs stars <e_g_0 sameAs e_g_i> of the first
+    ``merged`` groups as the delta (epoch 1, the rest 0), at round 2."""
+    from repro_torch.core.terms import SAME_AS
+
+    facts, dic = kg["facts"], kg["dic"]
+    n_group_rows = FULL["n_groups"] * 18
+    rows = np.concatenate([facts[:CELL_ENGINE_GROUPS * 18],
+                           facts[n_group_rows:n_group_rows + CELL_ENGINE_PLAIN]])
+    star = [(dic.id_of(f":e{g}_0"), SAME_AS, dic.id_of(f":e{g}_{i}"))
+            for g in range(merged) for i in range(1, 8)]
+    rows = np.concatenate([rows, np.asarray(star, np.int32)])
+    epochs = np.zeros(rows.shape[0], np.int32)
+    epochs[-len(star):] = 1
+    return rows, epochs
+
+
+def _engine_args(cell, arena, device) -> list:
+    """This rank's blocks of the engine cell's global ``arena`` (numpy) as
+    ``device`` tensors."""
+    from repro_torch.launch.sharding import _to_tensor, local_block
+
+    return [_to_tensor(local_block(a, sh), device) for a, sh in zip(arena, cell.in_shardings)]
+
+
+ENGINE_NAMES = ("spo", "epoch", "marked", "n_used", "rep", "sort_perm", "sorted_keys")
+
+
+def _engine_named(out) -> dict:
+    return {**dict(zip(ENGINE_NAMES, out[:-1])), **out[-1]}
+
+
+def cells_prepare(kg: dict, work: Path) -> dict:
+    """Phase 12's inputs and yardsticks, in this process before phase 11's
+    ranks spawn (each freed after): (a) SmolLM's unsharded prefill and
+    decode on the card, (b) the FM's unsharded serve and retrieval under
+    both settings, (c) one unsharded engine round over the whole arena; and
+    the dry run's counts of each cell at (data 2, model 2), rank 0."""
+    from repro_torch.launch.workloads import engine_arena, engine_rule
+    from repro_torch.core.engine import eval_plan, process_candidates
+    from repro_torch.models import recsys, transformer as lm
+
+    d = work / "cells"
+    d.mkdir(parents=True)
+    t0 = time.perf_counter()
+    out: dict = {"dir": str(d)}
+    # (a)
+    spec, pshape, dshape = _cell_lm_specs()
+    cfg = spec.config
+    rng = np.random.default_rng(12)
+    tok = rng.integers(0, cfg.vocab, (CELL_LM_BATCH, CELL_LM_PROMPT + CELL_LM_STEPS))
+    prompt, new = tok[:, :CELL_LM_PROMPT].astype(np.int32), tok[:, CELL_LM_PROMPT:].astype(np.int32)
+    np.savez(d / "lm_inputs.npz", prompt=prompt, new=new)
+    with torch.no_grad():
+        params = _cell_lm_params(cfg, "cuda")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        logits, cache = lm.prefill(params, cfg, torch.from_numpy(prompt).cuda())
+        yard = {"pre": logits.float().cpu().numpy()}
+        whole = {k: torch.zeros((*v.shape[:2], dshape.dims["seq_len"], *v.shape[3:]),
+                                dtype=v.dtype, device="cuda") for k, v in cache.items()}
+        for k in whole:
+            whole[k][:, :, :CELL_LM_PROMPT] = cache[k]
+        del cache
+        for i in range(CELL_LM_STEPS):
+            logits, whole = lm.decode_step(params, cfg, whole,
+                                           torch.from_numpy(new[:, i]).cuda(), CELL_LM_PROMPT + i)
+            yard[f"dec{i}"] = logits.float().cpu().numpy()
+        torch.cuda.synchronize()
+        out["lm_yard_s"] = time.perf_counter() - t1
+    np.savez(d / "lm_yard.npz", **yard)
+    del params, whole, yard
+    _free_card()
+    # (b)
+    rng = np.random.default_rng(13)
+    fspec = _cell_fm_specs()[0][1]
+    fcfg = fspec.config
+    b = fspec.shape("serve_bulk").dims["batch"]
+    n_cand = fspec.shape("retrieval_cand").dims["n_candidates"]
+    cand = np.zeros((n_cand + 511) // 512 * 512, np.int32)  # sentinel rows pad them
+    cand[:n_cand] = rng.integers(0, fcfg.n_rows, n_cand)
+    ids = rng.integers(0, fcfg.rows_per_field, (b, fcfg.n_fields)).astype(np.int32)
+    user = rng.integers(0, fcfg.rows_per_field, (1, fcfg.n_fields)).astype(np.int32)
+    np.savez(d / "fm_inputs.npz", ids=ids, user=user, cand=cand)
+    yard = {}
+    with torch.no_grad():
+        params = _cell_fm_params(fcfg, "cuda")
+        for pallas, s in _cell_fm_specs():
+            tag = "pallas" if pallas else "config"
+            yard[f"serve_{tag}"] = recsys.serve_step(
+                params, s.config, {"ids": torch.from_numpy(ids).cuda()}).cpu().numpy()
+            yard[f"retrieval_{tag}"] = recsys.retrieval_scores(
+                params, s.config, torch.from_numpy(user).cuda(),
+                torch.from_numpy(cand).cuda()).cpu().numpy()
+    np.savez(d / "fm_yard.npz", **yard)
+    del params
+    _free_card()
+    # (c)
+    rows, epochs = _cell_engine_rows(kg)
+    espec, eshape = _cell_engine_spec()
+    dims = eshape.dims
+    np.savez(d / "engine_arena4.npz", *engine_arena(rows, dims["n_resources"], dims["capacity"],
+                                                    4, r=2, epochs=epochs))
+    hot, hot_epochs = _cell_engine_rows(kg, CELL_ENGINE_HOT)
+    np.savez(d / "engine_arena4_hot.npz", *engine_arena(hot, dims["n_resources"],
+                                                        dims["capacity"], 4, r=2,
+                                                        epochs=hot_epochs))
+    del hot, hot_epochs
+    quarter = rows[:, 0] % 4 == 0
+    np.savez(d / "engine_arena1.npz", *engine_arena(rows[quarter], dims["n_resources"],
+                                                    dims["capacity"], 1, r=2,
+                                                    epochs=epochs[quarter]))
+    uspec, ushape = _cell_engine_spec(whole=True)
+    arena = [torch.from_numpy(np.asarray(a)).cuda() for a in engine_arena(
+        rows, dims["n_resources"], ushape.dims["capacity"], 1, r=2, epochs=epochs)]
+    _, plan, slots = engine_rule()
+    ucfg = uspec.config
+    used = int(arena[4][0])
+    with torch.no_grad():
+        heads, valid, _, _, ov_b, ov_o = eval_plan(
+            arena[0], arena[1], arena[2], arena[7], arena[6], arena[10], arena[8], arena[9],
+            plan=plan, head_var_slots=slots, bind_cap=ucfg.bind_cap, out_cap=ucfg.out_cap,
+            tomb=arena[3])
+        res = process_candidates(arena[0], arena[1], arena[2], arena[4], arena[5], arena[6],
+                                 arena[7], heads, valid, arena[10],
+                                 rewrite_cap=ucfg.rewrite_cap)
+    named = _engine_named(res)
+    flags = {k: int(named[k]) for k in ("n_new", "n_pairs", "n_marked", "n_reflexive")}
+    overflow = {k: bool(named[k]) for k in ("ov_rewrite", "ov_store")}
+    overflow.update(bind=bool(ov_b), out=bool(ov_o))
+    new_rows = named["spo"][used:int(named["n_used"][0])].cpu().numpy()
+    np.savez(d / "engine_yard.npz", new_rows=new_rows, rep=named["rep"].cpu().numpy())
+    out["engine"] = dict(rows=int(rows.shape[0]), delta=int(epochs.sum()),
+                         unsharded=dict(flags, overflow=overflow))
+    print(f"  (cells) engine arena: {rows.shape[0]} rows, {int(epochs.sum())} of them the "
+          f"delta; unsharded round over the whole arena: {json.dumps(flags)}, overflow "
+          f"{json.dumps(overflow)}", flush=True)
+    if any(overflow.values()) or not flags["n_new"]:
+        raise AssertionError("(cells) the unsharded engine round overflowed or found nothing")
+    del arena, heads, valid, res, named
+    _free_card()
+    out["dryrun"] = cells_dryrun()
+    out["prepare_s"] = time.perf_counter() - t0
+    return out
+
+
+def _cell_labels() -> list:
+    """(label, spec, shape) of every measured cell of phase 12."""
+    spec, pshape, dshape = _cell_lm_specs()
+    cells = [("a_prefill", spec, pshape), ("a_decode", spec, dshape)]
+    for pallas, s in _cell_fm_specs():
+        tag = "pallas" if pallas else "config"
+        cells += [(f"b_serve_{tag}", s, s.shape("serve_bulk")),
+                  (f"b_retrieval_{tag}", s, s.shape("retrieval_cand"))]
+    espec, eshape = _cell_engine_spec()
+    return cells + [("c_engine", espec, eshape)]
+
+
+def cells_dryrun() -> dict:
+    """The dry run's counts of each phase-12 cell at (data 2, model 2),
+    rank 0 of a fake group of 4 (destroyed after)."""
+    from repro_torch.launch.dryrun import count_cell, fake_group
+    from repro_torch.launch.mesh import make_mesh
+
+    out = {}
+    with fake_group(4, 0):
+        mesh = make_mesh(*CELL_MESH)
+        for label, spec, shape in _cell_labels():
+            rec = count_cell(spec, shape, mesh)
+            rec.update(arch=spec.name, shape=shape.name, mesh="d2m2", status="ok")
+            out[label] = rec
+    return out
+
+
+def _measured(mesh, fn, warm=None):
+    """``fn()`` timed (host clock, ending in a synchronise) with this
+    rank's peak memory (and what was allocated when it began), launches
+    and collectives from zero; ``warm()`` first, unmeasured, where given
+    (the process's first call of a path loads its kernels and handles)."""
+    from repro_torch.kernels import ops
+
+    if warm is not None:
+        warm()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    mesh.reset_counts()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    rec = dict(wall_s=time.perf_counter() - t0, allocated_before=before,
+               max_memory_allocated=torch.cuda.max_memory_allocated(),
+               launches={k: v for k, v in ops.LAUNCHES.items() if v},
+               collectives=mesh.counts())
+    return out, rec
+
+
+def _placed(make):
+    """``make()``, which puts a cell's inputs on the card, and the bytes it
+    left allocated there: the inputs' size on the card."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    out = make()
+    torch.cuda.synchronize()
+    return out, torch.cuda.memory_allocated() - before
+
+
+def _route_loads(run):
+    """``run()``, with the engine's owner routing (``core.engine._route_rows``)
+    counting the rows this rank puts in each owner's bucket: ``(run()'s
+    result, [[rows to owner 0, owner 1, ...] for each routing call])``."""
+    from repro_torch.core import engine
+
+    loads = []
+    inner = engine._route_rows
+
+    def counted(stream, flags, valid, mesh, route_cap):
+        owner = torch.remainder(stream[:, 0], mesh.world).to(torch.int64)
+        loads.append(torch.bincount(owner[valid], minlength=mesh.world))
+        return inner(stream, flags, valid, mesh, route_cap)
+
+    engine._route_rows = counted
+    try:
+        out = run()
+    finally:
+        engine._route_rows = inner
+    return out, [x.tolist() for x in loads]
+
+
+def cells_rank(cells: dict, mesh, device: str) -> dict:
+    """Phase 12 on one rank of the (data 2, model 2) mesh: (a) SmolLM's
+    prefill cell, its cache laid out again for the decode cell, and the
+    decode steps; (b) the FM's serve and retrieval cells under both
+    settings; (c) the engine round on the card, then on the CPU over the
+    same gloo groups, and on the card at CELL_ENGINE_HOT's delta.  Each
+    measured call records its inputs' bytes on the card.  Outputs go to
+    ``cells["dir"]``."""
+    from repro_torch.launch.sharding import gather, gather_tree, place
+    from repro_torch.launch.workloads import build_cell
+
+    d = Path(cells["dir"])
+    rank = mesh.rank
+    rec: dict = {"allocated_at_start": torch.cuda.memory_allocated()}
+    save = {}
+    # (a)
+    spec, pshape, dshape = _cell_lm_specs()
+    with np.load(d / "lm_inputs.npz") as z:
+        prompt, new = z["prompt"], z["new"]
+    pc, dc = build_cell(spec, pshape, mesh), build_cell(spec, dshape, mesh)
+    params, param_bytes = _placed(
+        lambda: place(_cell_lm_params(spec.config, device), pc.in_shardings[0], device))
+    tok, tok_bytes = _placed(lambda: place(prompt, pc.in_shardings[1], device))
+    (logits, cache), rec["a_prefill"] = _measured(mesh, lambda: pc.step(params, tok))
+    rec["a_prefill"]["inputs_bytes"] = param_bytes + tok_bytes
+    save["pre"] = gather(logits, pc.out_shardings[0]).float().cpu().numpy()
+    whole = gather_tree(cache, pc.out_shardings[1])
+    del cache, tok, logits
+    t = dshape.dims["seq_len"]
+    padded = {}
+    for name in list(whole):
+        block = whole.pop(name)
+        padded[name] = torch.zeros((*block.shape[:2], t, *block.shape[3:]),
+                                   dtype=block.dtype, device=device)
+        padded[name][:, :, :CELL_LM_PROMPT] = block
+        del block
+    dcache, cache_bytes = _placed(lambda: place(padded, dc.in_shardings[1], device))
+    del padded
+    steps = []
+    for i in range(CELL_LM_STEPS):
+        t_i, t_bytes = _placed(lambda: place(new[:, i], dc.in_shardings[2], device))
+        (logits, dcache), r = _measured(
+            mesh, lambda: dc.step(params, dcache, t_i, CELL_LM_PROMPT + i))
+        r["inputs_bytes"] = param_bytes + cache_bytes + t_bytes
+        steps.append(r)
+        save[f"dec{i}"] = gather(logits, dc.out_shardings[0]).float().cpu().numpy()
+    rec["a_decode"] = dict(steps=steps)
+    del params, dcache, logits, t_i
+    _free_card()
+    # (b)
+    with np.load(d / "fm_inputs.npz") as z:
+        fm = {k: z[k] for k in z.files}
+    params = None
+    for pallas, s in _cell_fm_specs():
+        tag = "pallas" if pallas else "config"
+        if params is None:  # replicated: every rank the same
+            params, param_bytes = _placed(lambda: _cell_fm_params(s.config, device))
+        sc = build_cell(s, s.shape("serve_bulk"), mesh)
+        ids, in_bytes = _placed(lambda: place({"ids": fm["ids"]}, sc.in_shardings[1], device))
+        got, rec[f"b_serve_{tag}"] = _measured(mesh, lambda: sc.step(params, ids),
+                                               warm=lambda: sc.step(params, ids))
+        rec[f"b_serve_{tag}"]["inputs_bytes"] = param_bytes + in_bytes
+        save[f"serve_{tag}"] = gather(got, sc.out_shardings).cpu().numpy()
+        del got, ids
+        rc = build_cell(s, s.shape("retrieval_cand"), mesh)
+        (user, cand), in_bytes = _placed(lambda: (
+            torch.from_numpy(fm["user"]).to(device),
+            place(fm["cand"], rc.in_shardings[2], device)))
+        got, rec[f"b_retrieval_{tag}"] = _measured(mesh, lambda: rc.step(params, user, cand),
+                                                   warm=lambda: rc.step(params, user, cand))
+        rec[f"b_retrieval_{tag}"]["inputs_bytes"] = param_bytes + in_bytes
+        save[f"retrieval_{tag}"] = gather(got, rc.out_shardings).cpu().numpy()
+        del got, user, cand
+    del params
+    _free_card()
+    # (c): the card, then the CPU through the same groups (gloo carries both)
+    espec, eshape = _cell_engine_spec()
+    ec = build_cell(espec, eshape, mesh)
+    with np.load(d / "engine_arena4.npz") as z:
+        arena = [z[f"arr_{i}"] for i in range(len(z.files))]
+    runs = {}
+    for dev in (device, "cpu"):
+        if dev == device:
+            args, in_bytes = _placed(lambda: _engine_args(ec, arena, device))
+            # warmed up on a copy (the round writes spo and epoch), which
+            # counts the rows routed to each owner
+            loads = []
+            out, rec["c_engine"] = _measured(
+                mesh, lambda: ec.step(*args),
+                warm=lambda: loads.extend(_route_loads(
+                    lambda: ec.step(*_engine_args(ec, arena, device)))[1]))
+            rec["c_engine"].update(inputs_bytes=in_bytes, route_loads=loads)
+        else:
+            args = _engine_args(ec, arena, dev)
+            out = ec.step(*args)
+        runs[dev] = {k: v.cpu().numpy() for k, v in _engine_named(out).items()}
+        del args, out
+    used_before = int(arena[4][rank])
+    same = {k: bool(np.array_equal(runs[device][k], runs["cpu"][k])) for k in runs["cpu"]}
+    rec["c_engine"].update(card_equals_cpu=same,
+                           flags={k: runs[device][k].tolist() for k in
+                                  ("n_new", "n_pairs", "n_marked", "n_reflexive",
+                                   "ov_rewrite", "ov_store", "ov_route", "ov_pair")})
+    got = runs[device]
+    np.save(d / f"engine_new_r{rank}.npy", got["spo"][used_before:int(got["n_used"][0])])
+    np.save(d / f"engine_rep_r{rank}.npy", got["rep"])
+    # CELL_ENGINE_HOT's delta: the route bucket of the hot owner overflows
+    with np.load(d / "engine_arena4_hot.npz") as z:
+        arena = [z[f"arr_{i}"] for i in range(len(z.files))]
+    out, loads = _route_loads(lambda: ec.step(*_engine_args(ec, arena, device)))
+    hot = _engine_named(out)
+    rec["c_engine_hot"] = dict(route_loads=loads, **{
+        k: hot[k].cpu().reshape(-1).tolist() for k in
+        ("n_new", "n_marked", "ov_rewrite", "ov_store", "ov_route", "ov_pair")})
+    del out, hot, arena
+    if rank == 0:
+        np.savez(d / "cells_out.npz", **save)
+    _free_card()
+    return rec
+
+
+def cells_world1(cells: dict, mesh, device: str) -> dict:
+    """Phase 12 (d), world 1 on NCCL: (a)'s prefill and decode and (c)'s
+    round (on shard 0's rows) through the cells of the (1, 1) mesh against
+    the unsharded functions on this card, bit for bit."""
+    from repro_torch.core.engine import eval_plan, process_candidates
+    from repro_torch.launch.sharding import place
+    from repro_torch.launch.workloads import build_cell, engine_rule
+    from repro_torch.models import transformer as lm
+
+    d = Path(cells["dir"])
+    spec, pshape, dshape = _cell_lm_specs()
+    cfg = spec.config
+    with np.load(d / "lm_inputs.npz") as z:
+        prompt, new = z["prompt"], z["new"]
+    runs = []
+    with torch.no_grad():
+        for sharded in (True, False):
+            params = _cell_lm_params(cfg, device)
+            tok = torch.from_numpy(prompt).to(device)
+            if sharded:
+                pc, dc = build_cell(spec, pshape, mesh), build_cell(spec, dshape, mesh)
+                params = place(params, pc.in_shardings[0], device)
+                logits, cache = pc.step(params, tok)
+            else:
+                logits, cache = lm.prefill(params, cfg, tok)
+            outs = [logits]
+            full = {k: torch.zeros((*v.shape[:2], dshape.dims["seq_len"], *v.shape[3:]),
+                                   dtype=v.dtype, device=device) for k, v in cache.items()}
+            for k in full:
+                full[k][:, :, :CELL_LM_PROMPT] = cache[k]
+            for i in range(CELL_LM_STEPS):
+                t_i = torch.from_numpy(new[:, i]).to(device)
+                if sharded:
+                    logits, full = dc.step(params, full, t_i, CELL_LM_PROMPT + i)
+                else:
+                    logits, full = lm.decode_step(params, cfg, full, t_i, CELL_LM_PROMPT + i)
+                outs.append(logits)
+            runs.append((outs, full))
+            del params, cache
+    lm_same = (all(torch.equal(a, b) for a, b in zip(runs[0][0], runs[1][0]))
+               and all(torch.equal(runs[0][1][k], runs[1][1][k]) for k in ("k", "v")))
+    del runs
+    _free_card()
+    espec, eshape = _cell_engine_spec()
+    with np.load(d / "engine_arena1.npz") as z:
+        arena = [z[f"arr_{i}"] for i in range(len(z.files))]
+    ec = build_cell(espec, eshape, mesh)
+    cell = {k: v.cpu() for k, v in _engine_named(ec.step(*_engine_args(ec, arena, device))).items()}
+    a = [torch.from_numpy(np.asarray(x)).to(device) for x in arena]
+    _, plan, slots = engine_rule()
+    ecfg = espec.config
+    with torch.no_grad():
+        heads, valid, *_ = eval_plan(a[0], a[1], a[2], a[7], a[6], a[10], a[8], a[9],
+                                     plan=plan, head_var_slots=slots, bind_cap=ecfg.bind_cap,
+                                     out_cap=ecfg.out_cap, tomb=a[3])
+        un = _engine_named(process_candidates(a[0], a[1], a[2], a[4], a[5], a[6], a[7],
+                                              heads, valid, a[10],
+                                              rewrite_cap=ecfg.rewrite_cap,
+                                              route_cap=ecfg.route_cap))
+    engine_same = all(torch.equal(cell[k].reshape(-1), un[k].cpu().reshape(-1)) for k in un)
+    _free_card()
+    return dict(lm_bit_equal=bool(lm_same), engine_bit_equal=bool(engine_same),
+                engine_new=int(cell["n_new"][0]))
+
+
+def _rel_gap(a, b) -> float:
+    return float(np.abs(a - b).max()) / max(float(np.abs(b).max()), 1e-30)
+
+
+def cells_check(prep: dict, ranks: list, world1: dict) -> tuple:
+    """Phase 12's checks, after the spawns: (a)'s logits against the
+    unsharded run within CELL_LM_TOL, (b)'s scores within CELL_FM_RTOL,
+    (c) card == CPU on every rank, the union of the ranks' new rows equal
+    to the unsharded round's and rho equal, (d) bit for bit; the dry run's
+    collective bytes equal each rank's measured ones exactly; each rank's
+    wall, peak and counts beside the dry run's peak and roofline time.
+    Returns the record and the launches summed over the ranks."""
+    from repro_torch.launch import roofline
+
+    d = Path(prep["dir"])
+    with np.load(d / "cells_out.npz") as z:
+        got = {k: z[k] for k in z.files}
+    with np.load(d / "lm_yard.npz") as z:
+        lm_yard = {k: z[k] for k in z.files}
+    with np.load(d / "fm_yard.npz") as z:
+        fm_yard = {k: z[k] for k in z.files}
+    out: dict = {"card": card_line(), "prepare_s": prep["prepare_s"],
+                 "engine_arena": prep["engine"]}
+    gaps = {k: _rel_gap(got[k], lm_yard[k]) for k in lm_yard}
+    print(f"  (a) SmolLM-135M whole, (data 2, model 2), prefill {CELL_LM_BATCH} x "
+          f"{CELL_LM_PROMPT} then {CELL_LM_STEPS} decode steps: logits against the unsharded "
+          f"run on the card, relative to the largest: {json.dumps(gaps)} (tolerance "
+          f"{CELL_LM_TOL})", flush=True)
+    if not max(gaps.values()) <= CELL_LM_TOL:
+        raise AssertionError(f"(a) sharded logits differ beyond {CELL_LM_TOL}: {gaps}")
+    out["a_gaps"] = gaps
+    fm_gaps = {}
+    for k, want in fm_yard.items():
+        err = np.abs(got[k] - want)
+        fm_gaps[k] = float(err.max()) / max(float(np.abs(want).max()), 1e-30)
+        if got[k].shape != want.shape or not (err <= CELL_FM_RTOL * np.abs(want).max()).all():
+            raise AssertionError(f"(b) {k}: sharded scores differ from unsharded: {fm_gaps[k]}")
+    print(f"  (b) FM serve_bulk and retrieval_cand at (data 2, model 2), table replicated: "
+          f"scores against unsharded, of the largest: {json.dumps(fm_gaps)} (tolerance "
+          f"{CELL_FM_RTOL})", flush=True)
+    out["b_gaps"] = fm_gaps
+    # (c)
+    with np.load(d / "engine_yard.npz") as z:
+        want_rows, want_rep = z["new_rows"], z["rep"]
+    union = np.concatenate([np.load(d / f"engine_new_r{r['rank']}.npy") for r in ranks])
+    same_rows = np.array_equal(np.unique(union, axis=0), np.unique(want_rows, axis=0)) \
+        and union.shape[0] == want_rows.shape[0]
+    same_rep = all(np.array_equal(np.load(d / f"engine_rep_r{r['rank']}.npy"), want_rep)
+                   for r in ranks)
+    card_cpu = all(all(r["cells"]["c_engine"]["card_equals_cpu"].values()) for r in ranks)
+    overflow = any(any(r["cells"]["c_engine"]["flags"][k][0] for k in
+                       ("ov_rewrite", "ov_store", "ov_route", "ov_pair")) for r in ranks)
+    cap = _cell_engine_spec()[0].config.route_cap
+    by_rank = sorted(ranks, key=lambda r: r["rank"])
+    loads = [max(max(x) for x in r["cells"]["c_engine"]["route_loads"]) for r in by_rank]
+    print(f"  (c) engine round_67m over 4 shards, a delta of {prep['engine']['delta']} rows "
+          f"({CELL_ENGINE_MERGED} groups): card == CPU on every rank: {card_cpu}; the "
+          f"ranks' {union.shape[0]} new rows == the unsharded round's {want_rows.shape[0]}: "
+          f"{same_rows}; rho equal: {same_rep}; flags by rank "
+          f"{[r['cells']['c_engine']['flags'] for r in by_rank]}; the most rows a rank "
+          f"routes to one owner, by rank: {loads} of route_cap {cap} (to each owner: "
+          f"{[r['cells']['c_engine']['route_loads'] for r in by_rank]})", flush=True)
+    if not (card_cpu and same_rows and same_rep) or overflow:
+        raise AssertionError("(c) the sharded engine round differs or overflowed")
+    hot = [r["cells"]["c_engine_hot"] for r in by_rank]
+    hot_loads = [max(max(x) for x in h["route_loads"]) for h in hot]
+    flagged = [bool(h["ov_route"][0]) for h in hot]
+    print(f"  (c) the same round at a delta of {CELL_ENGINE_HOT} groups: the most rows a "
+          f"rank routes to one owner, by rank: {hot_loads} of route_cap {cap} (to each "
+          f"owner: {[h['route_loads'] for h in hot]}); ov_route by rank {flagged}; "
+          f"{json.dumps([{k: v for k, v in h.items() if k != 'route_loads'} for h in hot])}",
+          flush=True)
+    if flagged != [x > cap for x in hot_loads] or not any(flagged):
+        raise AssertionError(f"(c) at {CELL_ENGINE_HOT} groups ov_route {flagged} does not "
+                             f"match the routed rows {hot_loads} over route_cap {cap}")
+    out["c"] = dict(card_equals_cpu=card_cpu, new_rows=int(union.shape[0]),
+                    union_equals_unsharded=bool(same_rows), rho_equal=bool(same_rep),
+                    route_cap=cap, route_load_by_rank=loads,
+                    hot=dict(groups=CELL_ENGINE_HOT, route_load_by_rank=hot_loads,
+                             ov_route_by_rank=flagged))
+    # (d)
+    print(f"  (d) world 1 on NCCL: {json.dumps(world1)}", flush=True)
+    if not (world1["lm_bit_equal"] and world1["engine_bit_equal"]):
+        raise AssertionError(f"(d) world 1 differs from unsharded: {world1}")
+    out["d"] = world1
+    # each rank's measurements beside the dry run's counts
+    launches: dict = {}
+    out["cells"] = {}
+    out["allocated_at_start"] = [r["cells"]["allocated_at_start"] for r in by_rank]
+    print(f"  allocated on the card when phase 12 began, by rank (phase 11's leftovers): "
+          f"{out['allocated_at_start']} B", flush=True)
+    for label, dry in prep["dryrun"].items():
+        want = {k: v["bytes"] for k, v in dry["collectives"]["by_kind"].items()}
+        want_calls = {k: v["count"] for k, v in dry["collectives"]["by_kind"].items()}
+        row = roofline.analyse(dry)
+        bound_s = max(row["compute_s"], row["memory_s"], row["collective_s"])
+        per_rank = []
+        for r in by_rank:
+            m = r["cells"][label]
+            steps = m["steps"] if "steps" in m else [m]
+            for s in steps:
+                if s["collectives"]["bytes"] != want or s["collectives"]["calls"] != want_calls:
+                    raise AssertionError(f"(cells) {label} rank {r['rank']}: measured "
+                                         f"collectives {s['collectives']} != the dry run's "
+                                         f"{want_calls} calls, {want} bytes")
+                for k, v in s["launches"].items():
+                    launches[k] = launches.get(k, 0) + v
+            # the cell's own peak: what it added to the rank's allocation,
+            # and its inputs, measured on the card as they were placed
+            per_rank.append(dict(
+                rank=r["rank"], walls_s=[s["wall_s"] for s in steps],
+                peak=max(s["max_memory_allocated"] for s in steps),
+                allocated_before=max(s["allocated_before"] for s in steps),
+                inputs_bytes=max(s["inputs_bytes"] for s in steps),
+                own_peak=max(s["max_memory_allocated"] - s["allocated_before"]
+                             + s["inputs_bytes"] for s in steps),
+                launches=steps[-1]["launches"]))
+        dry_peak, dry_in = dry["memory"]["peak_bytes"], dry["memory"]["argument_bytes"]
+        peak = max(x["peak"] for x in per_rank)
+        own = max(x["own_peak"] for x in per_rank)
+        inputs = max(x["inputs_bytes"] for x in per_rank)
+        held = max(x["allocated_before"] - x["inputs_bytes"] for x in per_rank)
+        print(f"  {label}: walls by rank {[[round(w, 4) for w in x['walls_s']] for x in per_rank]}"
+              f" s against the roofline's {bound_s * 1e3:.4f} ms ({row['dominant']}); the dry "
+              f"run's peak {dry_peak} B over max_memory_allocated {peak} B: "
+              f"{dry_peak / max(peak, 1):.3f}; of that, the cell's inputs measured on the card "
+              f"{inputs} B (the dry run's {dry_in} B) and {held} B held from before it "
+              f"began; over the cell's own peak (its rise plus its inputs) {own} B: "
+              f"{dry_peak / max(own, 1):.3f}; collectives a call {json.dumps(want_calls)} "
+              f"calls, {json.dumps(want)} B on every rank == the dry run's; launches a call "
+              f"{json.dumps(per_rank[0]['launches'])}", flush=True)
+        out["cells"][label] = dict(ranks=per_rank, own_peak=own, dryrun=dict(
+            collectives=dry["collectives"], memory=dry["memory"], cost=dry["cost"],
+            roofline=row))
+    return out, launches
 
 
 def search_census(ops, run) -> dict:

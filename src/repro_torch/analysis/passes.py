@@ -28,8 +28,8 @@ from dataclasses import asdict, dataclass
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_flatten
 
+from repro_torch.compat import pytree
 from repro_torch.kernels import ops
 
 # ---------------------------------------------------------------------------
@@ -102,9 +102,9 @@ class _Recorder(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
-        flat = tree_flatten((args, kwargs))[0]
+        flat = pytree.tree_flatten((args, kwargs))[0]
         ins = [a for a in flat if isinstance(a, torch.Tensor)]
-        outs = [o for o in tree_flatten(out)[0] if isinstance(o, torch.Tensor)]
+        outs = [o for o in pytree.tree_flatten(out)[0] if isinstance(o, torch.Tensor)]
         note = ""
         if ".".join(str(func).split(".")[:2]) in _INDEX_OPS and any(
                 isinstance(i, torch.Tensor) and i.dtype == torch.bool

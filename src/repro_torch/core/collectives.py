@@ -26,15 +26,19 @@ Which device a backend carries: NCCL carries CUDA tensors only; gloo
 carries CPU tensors and CUDA tensors (all three collectives, on int32,
 int64 and uint8 CUDA tensors; two ranks on one card cannot share NCCL, so
 they run on gloo).  Any other pairing raises: a mesh over CUDA tensors
-never carries on on the CPU.
+never carries on on the CPU.  The ``fake`` backend
+(:mod:`repro_torch.launch.dryrun`'s world of 256 or 512 ranks in one
+process) takes any tensor, fake ones included, and moves nothing; the
+counters count what a real group would carry.
 
 Sharded training runs over a named :class:`~repro_torch.launch.mesh.Mesh`,
 each collective over the ranks that differ along some of its axes (a name
 or a tuple of names in mesh order, such as ``"model"`` or ``("pod",
 "data")``); a group of one rank moves nothing and counts nothing.  The
 raw forms (:func:`all_reduce_raw` with sum, max or min,
-:func:`all_gather_raw` and :func:`reduce_scatter_raw` along any dimension)
-are not differentiable; the autograd pairs are the conjugates that keep a
+:func:`all_gather_raw` and :func:`reduce_scatter_raw` along any dimension,
+:func:`all_to_all_raw` from one dimension into another) are not
+differentiable; the autograd pairs are the conjugates that keep a
 gradient whole:
 
 =========================  ==============  =============================
@@ -61,7 +65,7 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["all_gather", "all_gather_dim", "all_gather_raw", "all_reduce",
-           "all_reduce_raw", "all_to_all", "axis_index", "grad_all_reduce", "is_trivial",
+           "all_reduce_raw", "all_to_all", "all_to_all_raw", "axis_index", "grad_all_reduce", "is_trivial",
            "pany", "psum", "reduce_scatter_dim", "reduce_scatter_raw"]
 
 I32 = torch.int32
@@ -73,10 +77,11 @@ def axis_index(mesh) -> int:
 
 
 def _check(op: str, x: torch.Tensor, mesh) -> None:
-    """Raise where the mesh's backend cannot carry ``x``'s device."""
+    """Raise where the mesh's backend cannot carry ``x``'s device (the
+    ``fake`` backend of the dry run takes any: it moves nothing)."""
     dev = x.device.type
-    if (mesh.backend, dev) not in (("nccl", "cuda"), ("gloo", "cpu"),
-                                   ("gloo", "cuda")):
+    if mesh.backend != "fake" and (mesh.backend, dev) not in (
+            ("nccl", "cuda"), ("gloo", "cpu"), ("gloo", "cuda")):
         raise ValueError(f"{op}: a {mesh.backend} group does not carry {dev} tensors")
 
 
@@ -196,6 +201,29 @@ def reduce_scatter_raw(x: torch.Tensor, mesh, axes, dim: int = 0) -> torch.Tenso
         return out
 
     return _run("reduce_scatter", front, mesh, ag, fn).movedim(0, dim).contiguous()
+
+
+def all_to_all_raw(x: torch.Tensor, mesh, axes, split_dim: int,
+                   concat_dim: int) -> torch.Tensor:
+    """``x`` cut along ``split_dim`` into the group's blocks, block ``j``
+    sent to the group's rank ``j``, and the blocks received concatenated
+    along ``concat_dim`` in the group's order:
+    ``jax.lax.all_to_all(x, axes, split_dim, concat_dim, tiled=True)``."""
+    ag = mesh.axis(axes)
+    if ag.size == 1:
+        return x
+    if x.shape[split_dim] % ag.size:
+        raise ValueError(f"all_to_all: {x.shape[split_dim]} rows do not split "
+                         f"over {ag.size} ranks")
+    blocks = x.unflatten(split_dim, (ag.size, -1)).movedim(split_dim, 0)
+
+    def fn(wire):
+        out = torch.empty_like(wire)
+        dist.all_to_all_single(out, wire, group=ag.group)
+        return out
+
+    got = _run("all_to_all", blocks, mesh, ag, fn)  # (group, ...) by source
+    return got.movedim(0, concat_dim).flatten(concat_dim, concat_dim + 1).contiguous()
 
 
 class _AllReduce(torch.autograd.Function):

@@ -10,7 +10,9 @@ on the card — the proof that a run went through the kernels — and
 form of the search apart from its point form), for the serving tier's
 per-phase ledger.  :func:`traced` hands one thread's kernel calls, with
 their operands' sizes, to a tracer (the audit's recorder,
-:mod:`repro_torch.analysis`).  The kernels
+:mod:`repro_torch.analysis`); a tracer with ``card_path`` set (the dry
+run's counter, :mod:`repro_torch.launch.costs`, on fake CPU tensors)
+takes each wrapper's card branch, its launch handed to the tracer.  The kernels
 serve four paths: REW materialisation (dedup, search, rewrite, union-find),
 LM serving (flash attention), FM serving (the FM interaction and the
 embedding bag) and GNN inference (the segment sum, with its plan built by
@@ -125,13 +127,27 @@ def traced(tracer):
     card (``operands`` the wrapper's input tensors, ``capture`` the
     :func:`recording` dict of a graph capture in progress, else None), and
     ``tracer.plain(entry)``, a context manager, around each plain version
-    run for CPU tensors."""
+    run for CPU tensors.
+
+    A tracer with ``card_path`` set counts the card's path on tensors that
+    hold no data: every wrapper takes its card branch for CPU tensors too
+    (the same checks and allocations), ``tracer.kernel_call(entry, args)``
+    takes the place of each launch (``args`` the plain version's), and
+    ``tracer.card_size(query, *args)`` answers what the card's library
+    would (:func:`dedup_order_scratch_words`, the segment sum's blocks).
+    Nothing is launched or booked in ``LAUNCHES``."""
     prev = getattr(_local, "tracer", None)
     _local.tracer = tracer
     try:
         yield tracer
     finally:
         _local.tracer = prev
+
+
+def _counter():
+    """This thread's tracer if it counts the card's path, else None."""
+    tracer = getattr(_local, "tracer", None)
+    return tracer if getattr(tracer, "card_path", False) else None
 
 
 def _plain(fn: str, *args):
@@ -182,14 +198,22 @@ def _entry(fn: str):
     return entry
 
 
-def _launch(fn: str, device: torch.device, *args, operands=()) -> None:
+def _launch(fn: str, device: torch.device, *args, operands=(), counted=()) -> None:
     """Call one C entry point on ``device``'s current stream, raise on a
     non-zero ``cudaGetLastError``, and count the launch (and hand it, with
-    its ``operands``, to this thread's tracer).  The host work per
-    call is kept small (a cached entry point, the raw stream handle, the
-    device switched only when it is not the current one): a small kernel's
-    call time is mostly this."""
+    its ``operands``, to this thread's tracer).  Tensor arguments pass as
+    their data pointers and None as NULL.  Under a tracer that counts the
+    card's path the entry point is not called: ``tracer.kernel_call(fn,
+    counted)`` books it (``counted`` the plain version's arguments).  The
+    host work per call is kept small (a cached entry point, the raw stream
+    handle, the device switched only when it is not the current one): a
+    small kernel's call time is mostly this."""
+    counter = _counter()
+    if counter is not None:
+        counter.kernel_call(fn, counted)
+        return
     entry = _entry(fn)
+    args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     if device.index != torch.cuda.current_device():
         with torch.cuda.device(device):
             err = entry(*args, torch._C._cuda_getCurrentRawStream(device.index))
@@ -203,19 +227,16 @@ def _launch(fn: str, device: torch.device, *args, operands=()) -> None:
         tracer.launch(fn, operands, getattr(_local, "recording", None))
 
 
-def _ptr(t: torch.Tensor | None):
-    return None if t is None else t.data_ptr()
-
-
 def _on_card(*tensors: torch.Tensor) -> bool:
-    """True for CUDA tensors, False for CPU ones; raises on anything else."""
+    """True for CUDA tensors, False for CPU ones (True under a tracer that
+    counts the card's path); raises on anything else."""
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev:
             raise ValueError(f"tensors on {t.device} and {dev}")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"no kernel for device {dev}")
-    return dev.type == "cuda"
+    return dev.type == "cuda" or _counter() is not None
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
@@ -233,6 +254,9 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
 def dedup_order_scratch_words(n: int) -> int:
     """32-bit scratch words the dedup_order kernel needs for ``n`` keys, as
     its source lays them out (digit counts, plans, tile status words)."""
+    counter = _counter()
+    if counter is not None:
+        return counter.card_size("dedup_order_scratch_words", n)
     entry = library("dedup_order").dedup_order_scratch_words
     entry.argtypes = (_N,)
     entry.restype = _N
@@ -253,9 +277,8 @@ def dedup_order(keys: torch.Tensor) -> torch.Tensor:
     ibuf = torch.empty((2, n), dtype=torch.int32, device=dev)
     scratch = torch.zeros(dedup_order_scratch_words(n), dtype=torch.int32,
                           device=dev)
-    _launch("dedup_order", dev, keys.data_ptr(), n, kbuf[0].data_ptr(),
-            kbuf[1].data_ptr(), ibuf[0].data_ptr(), ibuf[1].data_ptr(),
-            scratch.data_ptr(), scratch.numel(), out.data_ptr(), operands=(keys,))
+    _launch("dedup_order", dev, keys, n, kbuf[0], kbuf[1], ibuf[0], ibuf[1], scratch,
+            scratch.numel(), out, operands=(keys,), counted=(keys,))
     return out
 
 
@@ -269,9 +292,8 @@ def _search(queries, keys, lo: bool, hi: bool):
     outs = [torch.empty(n, dtype=torch.int32, device=keys.device) if want
             else None for want in (lo, hi)]
     if n:
-        _launch("search_bounds", keys.device, queries.data_ptr(), n,
-                keys.data_ptr(), keys.shape[0], _ptr(outs[0]), _ptr(outs[1]),
-                operands=(queries, keys))
+        _launch("search_bounds", keys.device, queries, n, keys, keys.shape[0], outs[0],
+                outs[1], operands=(queries, keys), counted=(queries, keys, lo + hi))
     return outs[0], outs[1]
 
 
@@ -305,9 +327,8 @@ def prefix_range_bounds(prefix_cols: torch.Tensor, keys: torch.Tensor):
     start = torch.empty(n, dtype=torch.int32, device=keys.device)
     end = torch.empty(n, dtype=torch.int32, device=keys.device)
     if n:
-        _launch("prefix_range_bounds", keys.device, prefix_cols.data_ptr(), n, k,
-                keys.data_ptr(), keys.shape[0], start.data_ptr(), end.data_ptr(),
-                operands=(prefix_cols, keys))
+        _launch("prefix_range_bounds", keys.device, prefix_cols, n, k, keys, keys.shape[0],
+                start, end, operands=(prefix_cols, keys), counted=(prefix_cols, keys))
     return start, end
 
 
@@ -340,9 +361,9 @@ def rewrite_triples(spo: torch.Tensor, rho: torch.Tensor, *,
         return _plain("rewrite_triples", spo, rho, valid, epoch, marked)
     out = torch.empty_like(spo)
     changed = torch.empty(n, dtype=torch.bool, device=spo.device)
-    _launch("rewrite_triples", spo.device, spo.data_ptr(), n, rho.data_ptr(),
-            rho.shape[0], _ptr(valid), _ptr(epoch), _ptr(marked),
-            out.data_ptr(), changed.data_ptr(), operands=(spo, rho))
+    _launch("rewrite_triples", spo.device, spo, n, rho, rho.shape[0], valid, epoch,
+            marked, out, changed, operands=(spo, rho),
+            counted=(spo, rho, valid, epoch, marked))
     return out, changed
 
 
@@ -365,8 +386,7 @@ def uf_compress_(rep: torch.Tensor) -> None:
     if not _on_card(rep):
         _plain("uf_compress_", rep)
         return
-    _launch("uf_compress", rep.device, rep.data_ptr(), rep.shape[0],
-            operands=(rep,))
+    _launch("uf_compress", rep.device, rep, rep.shape[0], operands=(rep,), counted=(rep,))
 
 
 def uf_union_(rep: torch.Tensor, pairs: torch.Tensor, valid: torch.Tensor) -> None:
@@ -385,9 +405,8 @@ def uf_union_(rep: torch.Tensor, pairs: torch.Tensor, valid: torch.Tensor) -> No
     if not _on_card(rep, pairs, valid):
         _plain("uf_union_", rep, pairs, valid)
         return
-    _launch("uf_union", rep.device, rep.data_ptr(), rep.shape[0],
-            pairs.data_ptr(), valid.data_ptr(), pairs.shape[0],
-            operands=(rep, pairs, valid))
+    _launch("uf_union", rep.device, rep, rep.shape[0], pairs, valid, pairs.shape[0],
+            operands=(rep, pairs, valid), counted=(rep, pairs, valid))
 
 
 def _no_grad_wanted(name: str, *tensors: torch.Tensor) -> None:
@@ -447,7 +466,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash kernel: head dim {d} not in {FLASH_HEAD_DIMS}")
     vec = 16 // q.element_size()
     qst, kst, vst = q.stride(), k.stride(), v.stride()
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    counting = _counter() is not None  # fake tensors: no pointers
+    ptrs = (0, 0, 0) if counting else (q.data_ptr(), k.data_ptr(), v.data_ptr())
     for name, st, ptr in zip("qkv", (qst, kst, vst), ptrs):
         if st[3] != 1 or st[0] % vec or st[1] % vec or st[2] % vec or ptr % 16:
             raise ValueError(f"flash kernel: {name} needs a contiguous last "
@@ -455,11 +475,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     if out.numel() == 0 or t == 0:
         return out.zero_()
-    args = array.array("q", (*ptrs, out.data_ptr(), b, s, t, h, kv, qst[0], qst[1],
-                             qst[2], kst[0], kst[1], kst[2], vst[0], vst[1], vst[2],
-                             int(causal), q_offset, d, dtype == torch.bfloat16))
+    args = array.array("q", (*ptrs, 0 if counting else out.data_ptr(), b, s, t, h, kv,
+                             qst[0], qst[1], qst[2], kst[0], kst[1], kst[2], vst[0],
+                             vst[1], vst[2], int(causal), q_offset, d,
+                             dtype == torch.bfloat16))
     _launch("flash_attention", q.device, args.buffer_info()[0], 1.0 / d**0.5,
-            operands=(q, k, v))
+            operands=(q, k, v), counted=(q, k, v, causal, q_offset))
     return out
 
 
@@ -474,8 +495,8 @@ def fm_interact(x: torch.Tensor) -> torch.Tensor:
     out = torch.empty(b, dtype=x.dtype, device=x.device)
     if b == 0:
         return out
-    _launch("fm_interact", x.device, x.data_ptr(), out.data_ptr(), b, f, k,
-            int(x.dtype == torch.bfloat16), operands=(x,))
+    _launch("fm_interact", x.device, x, out, b, f, k, int(x.dtype == torch.bfloat16),
+            operands=(x,), counted=(x,))
     return out
 
 
@@ -536,10 +557,9 @@ def _segment_sum(x: torch.Tensor, seg: torch.Tensor, n_segments: int,
         return out
     blocks = segment_sum_max_blocks()
     carry = torch.empty(blocks * 2 * k, dtype=torch.float32, device=x.device)
-    _launch("segment_sum", x.device, x.data_ptr(), plan.perm.data_ptr(),
-            plan.seg.data_ptr(), plan.offsets.data_ptr(), e, n_segments, k,
-            out.data_ptr(), carry.data_ptr(), blocks,
-            int(x.dtype == torch.bfloat16), operands=(x, seg))
+    _launch("segment_sum", x.device, x, plan.perm, plan.seg, plan.offsets, e, n_segments,
+            k, out, carry, blocks, int(x.dtype == torch.bfloat16), operands=(x, seg),
+            counted=(x, seg, n_segments))
     return out
 
 
@@ -615,10 +635,17 @@ def gather_rows(x: torch.Tensor, idx: torch.Tensor,
     return _GatherRows.apply(x, idx, plan)
 
 
-@functools.cache
 def segment_sum_max_blocks() -> int:
     """The most blocks the segment-sum kernel's first pass runs on this
     card (each leaves two partial rows in the f32 scratch), asked once."""
+    counter = _counter()
+    if counter is not None:
+        return counter.card_size("segment_sum_max_blocks")
+    return _segment_sum_max_blocks()
+
+
+@functools.cache
+def _segment_sum_max_blocks() -> int:
     entry = library("segment_sum").segment_sum_max_blocks
     entry.argtypes = ()
     entry.restype = _N
@@ -641,7 +668,6 @@ def embedding_bag(ids: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     out = torch.empty((b, k), dtype=table.dtype, device=table.device)
     if out.numel() == 0:
         return out
-    _launch("embedding_bag", table.device, ids.data_ptr(), table.data_ptr(),
-            b, f, v, k, out.data_ptr(), int(table.dtype == torch.bfloat16),
-            operands=(ids, table))
+    _launch("embedding_bag", table.device, ids, table, b, f, v, k, out,
+            int(table.dtype == torch.bfloat16), operands=(ids, table), counted=(ids, table))
     return out

@@ -133,11 +133,13 @@ def segment_sum(x: torch.Tensor, seg: torch.Tensor, n_segments: int) -> torch.Te
     """(E, K) rows summed by segment id into (n_segments, K): ``out[s]`` is
     the sum of the rows whose ``seg`` is s.  Rows whose id lies outside
     [0, n_segments) are dropped; empty segments are zero.  f32 sums, cast
-    to x's dtype."""
+    to x's dtype.  Every shape is static (the dry run's fake tensors allow
+    no mask by value): a dropped row adds into a spare last row, which is
+    cut off, so each kept segment takes the same sums in the same order."""
     keep = (seg >= 0) & (seg < n_segments)
-    out = torch.zeros((n_segments, x.shape[1]), dtype=torch.float32, device=x.device)
-    out.index_add_(0, seg[keep].to(torch.int64), x[keep].float())
-    return out.to(x.dtype)
+    out = torch.zeros((n_segments + 1, x.shape[1]), dtype=torch.float32, device=x.device)
+    out.index_add_(0, torch.where(keep, seg, n_segments).to(torch.int64), x.float())
+    return out[:n_segments].to(x.dtype)
 
 
 def embedding_bag(ids: torch.Tensor, table: torch.Tensor) -> torch.Tensor:

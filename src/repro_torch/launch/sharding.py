@@ -31,7 +31,8 @@ import dataclasses
 
 import numpy as np
 import torch
-from torch.utils import _pytree as pytree
+
+from repro_torch.compat import pytree
 
 __all__ = ["NamedSharding", "PartitionSpec", "block_index", "entries", "gather",
            "gather_tree", "local_block", "place", "replicated_axes",

@@ -37,8 +37,8 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
-from torch.utils import _pytree as pytree
 
+from repro_torch.compat import pytree
 from repro_torch.core import collectives as coll
 from repro_torch.kernels import ops
 from repro_torch.launch.mesh import data_axes

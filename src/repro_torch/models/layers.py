@@ -73,6 +73,18 @@ def gqa_attention(
     """
     if impl == "flash" and _is_scalar(q_offset):
         return ops.flash_attention(q, k, v, causal=causal, q_offset=int(q_offset))
+    _, l, acc = attention_state(q, k, v, causal=causal, q_offset=q_offset, chunk=chunk)
+    return attention_out(l, acc, q.dtype)
+
+
+def attention_state(q, k, v, causal: bool = True, q_offset=0, chunk: int = 1024,
+                    k_offset: int = 0):
+    """The chunked online softmax of :func:`gqa_attention` over the keys
+    ``k``/``v`` (B, T, KV, Dh), which sit at positions ``k_offset + t`` (a
+    sequence block of a longer cache): its running max ``m`` and
+    denominator ``l``, each (B, KV, G, S), and its accumulator ``acc`` (B,
+    S, KV, G, Dh), all f32.  States over disjoint blocks of keys merge by
+    rescaling to their common max; :func:`attention_out` finishes one."""
     b, s, h, dh = q.shape
     t, kv = k.shape[1], k.shape[2]
     g = h // kv
@@ -100,6 +112,8 @@ def gqa_attention(
         scores = scores / (dh**0.5)
         k_pos = c * chunk + torch.arange(chunk, device=dev)
         valid = k_pos < t
+        if k_offset:
+            k_pos = k_pos + k_offset
         if causal and per_slot:
             mask = valid[None, None, :] & (q_pos[:, :, None] >= k_pos[None, None, :])
             scores = torch.where(mask[:, None, None, :, :], scores, NEG_INF)
@@ -115,8 +129,15 @@ def gqa_attention(
         pv = torch.einsum("bkgst,btkd->bskgd", p.to(qg.dtype), vb).float()
         acc = acc * alpha.permute(0, 3, 1, 2)[..., None] + pv
         m = m_new
+    return m, l, acc
+
+
+def attention_out(l: torch.Tensor, acc: torch.Tensor, dtype) -> torch.Tensor:
+    """The attention output (B, S, H, Dh) in ``dtype`` of a (merged)
+    :func:`attention_state`."""
+    b, s, kv, g, dh = acc.shape
     out = acc / torch.clamp_min(l.permute(0, 3, 1, 2)[..., None], 1e-30)
-    return out.reshape(b, s, h, dh).to(q.dtype)
+    return out.reshape(b, s, kv * g, dh).to(dtype)
 
 
 def naive_attention(q, k, v, causal=True, q_offset=0):

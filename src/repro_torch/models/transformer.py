@@ -30,6 +30,17 @@ Under FSDP each layer's weights are all-gathered inside the layer loop
 blocks' partial sums over the data axes (the optimizer's ZeRO-1 step sums
 them).
 
+Sharded serving (the prefill and decode cells of
+:mod:`repro_torch.launch.workloads`): ``prefill`` with a ``mesh`` runs the
+same blocks and hands each model rank its sequence block of every KV head
+(an all-to-all over ``model`` turns head columns into sequence blocks, or
+the block is cut from the gathered heads); ``decode_step`` with a ``mesh``
+gathers every head's q, k and v over ``model``, attends over the rank's
+block of the cache (:func:`~repro_torch.models.layers.attention_state`),
+merges the partial softmax states over ``model`` (their max, then the
+rescaled sums) and applies this rank's columns of ``wo``.  Its logits are
+vocab-parallel, as the prefill's are.
+
 Where the reference returns a fresh cache (JAX arrays are immutable),
 ``decode_step`` and ``_layer`` write the new K/V into the given cache in
 place and return it: the arena is the largest tensor of a server.
@@ -42,14 +53,15 @@ import dataclasses
 import numpy as np
 import torch
 import torch.utils.checkpoint
-from torch.utils import _pytree as pytree
 
+from repro_torch.compat import pytree
 from repro_torch.core import collectives as coll
 from repro_torch.device import resolve
 from repro_torch.launch.mesh import data_axes
 from repro_torch.launch.sharding import NamedSharding, PartitionSpec as P, ShapeDtype
 
-from .layers import DTYPE, apply_rope, gqa_attention, rms_norm, rope_angles, swiglu
+from .layers import (DTYPE, apply_rope, attention_out, attention_state, gqa_attention,
+                     rms_norm, rope_angles, swiglu)
 from .moe import moe_ffn, remat_contexts
 
 
@@ -293,6 +305,19 @@ def _write_cache(cache: torch.Tensor, new: torch.Tensor, q_offset) -> None:
         cache[:, start:start + s] = new
 
 
+def _qkv(cfg: LMConfig, h, lp) -> tuple:
+    """q, k and v of the normed input ``h`` (this rank's columns under a
+    mesh), with the QKV bias where the config has one."""
+    q = h @ lp["wq"].to(h.dtype)
+    k = h @ lp["wk"].to(h.dtype)
+    v = h @ lp["wv"].to(h.dtype)
+    if cfg.qkv_bias:
+        q = q + lp["bq"].to(h.dtype)
+        k = k + lp["bk"].to(h.dtype)
+        v = v + lp["bv"].to(h.dtype)
+    return q, k, v
+
+
 def _layer(cfg: LMConfig, x, lp, cos, sin, q_offset, k_cache=None, v_cache=None):
     """One decoder block.  If k_cache/v_cache (B,T,KV,Dh) are given, the new
     K/V are written into them at ``q_offset`` first (in place) and
@@ -301,13 +326,7 @@ def _layer(cfg: LMConfig, x, lp, cos, sin, q_offset, k_cache=None, v_cache=None)
     no cache)."""
     b, s, d = x.shape
     h = rms_norm(x, lp["attn_norm"])
-    q = h @ lp["wq"].to(h.dtype)
-    k = h @ lp["wk"].to(h.dtype)
-    v = h @ lp["wv"].to(h.dtype)
-    if cfg.qkv_bias:
-        q = q + lp["bq"].to(h.dtype)
-        k = k + lp["bk"].to(h.dtype)
-        v = v + lp["bv"].to(h.dtype)
+    q, k, v = _qkv(cfg, h, lp)
     q = q.reshape(b, s, cfg.n_heads, cfg.d_head)
     k = k.reshape(b, s, cfg.n_kv, cfg.d_head)
     v = v.reshape(b, s, cfg.n_kv, cfg.d_head)
@@ -484,18 +503,15 @@ class _TP:
         out = swiglu(coll.grad_all_reduce(h, self.mesh, self.tp), w_gate, w_in, w_out)
         return coll.all_reduce(out, self.mesh, self.tp)
 
-    def layer(self, x, lp, cos, sin):
+    def layer(self, x, lp, cos, sin, kv: bool = False):
+        """One decoder block on this rank's blocks; with ``kv`` also the
+        layer's K/V (B, S, KV heads, Dh): this rank's heads where ``model``
+        divides the head counts, else every head."""
         cfg, mesh, tp = self.cfg, self.mesh, self.tp
         b, s, _ = x.shape
         h = rms_norm(x, lp["attn_norm"])
         hp = coll.grad_all_reduce(h, mesh, tp)  # into the column-parallel q, k, v
-        q = hp @ lp["wq"].to(h.dtype)
-        k = hp @ lp["wk"].to(h.dtype)
-        v = hp @ lp["wv"].to(h.dtype)
-        if cfg.qkv_bias:
-            q = q + lp["bq"].to(h.dtype)
-            k = k + lp["bk"].to(h.dtype)
-            v = v + lp["bv"].to(h.dtype)
+        q, k, v = _qkv(cfg, hp, lp)
         if self.whole_heads:
             n_q, n_kv = cfg.n_heads // self.n_tp, cfg.n_kv // self.n_tp
         else:  # a head split across ranks: every rank attends over all heads
@@ -510,7 +526,12 @@ class _TP:
             cols = lp["wo"].shape[0]
             attn = attn[..., self.m * cols:(self.m + 1) * cols]
         x = x + coll.all_reduce(attn @ lp["wo"].to(x.dtype), mesh, tp)
+        x, aux = self._ffn(x, lp)
+        return (x, aux, (k, v)) if kv else (x, aux)
 
+    def _ffn(self, x, lp):
+        """The FFN half of a block (dense or MoE), its residual added."""
+        cfg, mesh, tp = self.cfg, self.mesh, self.tp
         h = rms_norm(x, lp["ffn_norm"])
         if cfg.is_moe:
             out, aux = moe_ffn(
@@ -523,6 +544,65 @@ class _TP:
             aux = torch.zeros((), dtype=torch.float32, device=x.device)
             out = self._swiglu(h, lp["w_gate"], lp["w_in"], lp["w_out"])
         return x + out, aux
+
+    # -- serving: the KV cache split by sequence over ``model`` --------------------
+    def seq_block(self, kv: torch.Tensor) -> torch.Tensor:
+        """(2, B, S, heads, Dh) K/V of :meth:`layer` -> this rank's sequence
+        block of every KV head (2, B, S / model, KV, Dh): an all-to-all over
+        ``model`` turns head columns into sequence blocks; where the heads
+        were gathered, the block is cut out."""
+        sb = kv.shape[2] // self.n_tp
+        if self.whole_heads:
+            return coll.all_to_all_raw(kv, self.mesh, self.tp, split_dim=2, concat_dim=3)
+        return kv[:, :, self.m * sb:(self.m + 1) * sb].contiguous()
+
+    def decode_layer(self, x, lp, cos, sin, pos: int, k_cache, v_cache):
+        """One decoder block for one new token a row against this rank's
+        sequence block of the cache (B, T / model, KV, Dh), which starts at
+        position ``m * T / model``.  Every rank takes every head's q, k and v
+        (gathered over ``model``), the rank whose block holds ``pos`` writes
+        the new K/V, each attends over its block, and the partial softmax
+        states merge over ``model`` (their max, then the rescaled sums)
+        before this rank's columns of ``wo``."""
+        cfg, mesh, tp = self.cfg, self.mesh, self.tp
+        b = x.shape[0]
+        h = rms_norm(x, lp["attn_norm"])
+        q, k, v = (coll.all_gather_raw(t, mesh, tp, 2) if tp else t
+                   for t in _qkv(cfg, h, lp))
+        q = apply_rope(q.reshape(b, 1, cfg.n_heads, cfg.d_head), cos, sin)
+        k = apply_rope(k.reshape(b, 1, cfg.n_kv, cfg.d_head), cos, sin)
+        v = v.reshape(b, 1, cfg.n_kv, cfg.d_head)
+        sb = k_cache.shape[1]
+        lo = self.m * sb
+        if lo <= pos < lo + sb:
+            _write_cache(k_cache, k, pos - lo)
+            _write_cache(v_cache, v, pos - lo)
+        kc, vc = k_cache.to(k.dtype), v_cache.to(v.dtype)
+        if cfg.attn_impl == "flash":
+            if self.n_tp > 1:
+                raise NotImplementedError(
+                    "a decode step over a cache split by sequence merges softmax "
+                    "states; the flash kernel returns no log-sum-exp (ROADMAP)")
+            attn = gqa_attention(q, kc, vc, causal=True, q_offset=pos, chunk=cfg.attn_chunk,
+                                 impl="flash")
+        else:
+            m, l, acc = attention_state(q, kc, vc, causal=True, q_offset=pos,
+                                        chunk=cfg.attn_chunk, k_offset=lo)
+            if self.n_tp > 1:
+                top = coll.all_reduce_raw(m, mesh, tp, "max")
+                scale = torch.exp(m - top)
+                l = coll.all_reduce_raw(l * scale, mesh, tp)
+                acc = coll.all_reduce_raw(acc * scale.permute(0, 3, 1, 2)[..., None], mesh, tp)
+            attn = attention_out(l, acc, q.dtype)
+        attn = attn.reshape(b, 1, -1)
+        cols = lp["wo"].shape[0]
+        attn = attn[..., self.m * cols:(self.m + 1) * cols]
+        x = x + coll.all_reduce(attn @ lp["wo"].to(x.dtype), mesh, tp)
+        return self._ffn(x, lp)[0]
+
+    def logits(self, params, hidden):
+        """Vocab-parallel logits: this rank's vocab columns."""
+        return hidden @ self.whole(params, "embed").to(hidden.dtype).T
 
 
 # ---------------------------------------------------------------------------
@@ -537,9 +617,18 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int,
             "v": torch.zeros(shape, dtype=DTYPE, device=device)}
 
 
-def prefill(params, cfg: LMConfig, tokens: torch.Tensor):
+def prefill(params, cfg: LMConfig, tokens: torch.Tensor, mesh=None):
     """Full forward that also returns the per-layer KV cache (L,B,S,..);
-    runs where ``params`` and ``tokens`` lie."""
+    runs where ``params`` and ``tokens`` lie.
+
+    With ``mesh`` (the serving cell), ``params`` are this rank's blocks of
+    :func:`param_shardings` and ``tokens`` its rows of the data axes; the
+    logits of the last position come out vocab-parallel (this rank's
+    columns) and the cache as this rank's sequence block over ``model`` of
+    every KV head (L, B, S / model, KV, Dh): the reference's output
+    shardings."""
+    if mesh is not None:
+        return _prefill_sharded(params, cfg, tokens, mesh)
     b, s = tokens.shape
     x = _embed(params, tokens)
     cos, sin = rope_angles(torch.arange(s, device=x.device), cfg.d_head, cfg.rope_theta)
@@ -554,15 +643,50 @@ def prefill(params, cfg: LMConfig, tokens: torch.Tensor):
     return logits_of(params, hidden[:, -1:, :]), cache
 
 
-def decode_step(params, cfg: LMConfig, cache: dict, token: torch.Tensor, pos):
+def _prefill_sharded(params, cfg: LMConfig, tokens: torch.Tensor, mesh):
+    tp = _TP(cfg, mesh)
+    b, s = tokens.shape
+    if s % tp.n_tp:
+        raise ValueError(f"{s} positions do not split over {tp.n_tp} model ranks")
+    x = tp.embed(params, tokens)
+    cos, sin = rope_angles(torch.arange(s, device=x.device), cfg.d_head, cfg.rope_theta)
+    shape = (cfg.n_layers, b, s // tp.n_tp, cfg.n_kv, cfg.d_head)
+    cache = {"k": torch.empty(shape, dtype=DTYPE, device=x.device),
+             "v": torch.empty(shape, dtype=DTYPE, device=x.device)}
+    for i in range(cfg.n_layers):
+        x, _, (k, v) = tp.layer(x, tp.layer_params(params, i), cos, sin, kv=True)
+        kv = tp.seq_block(torch.stack([k, v]))
+        cache["k"][i] = kv[0]
+        cache["v"][i] = kv[1]
+    hidden = rms_norm(x, tp.whole(params, "final_norm"))
+    return tp.logits(params, hidden[:, -1:, :]), cache
+
+
+def decode_step(params, cfg: LMConfig, cache: dict, token: torch.Tensor, pos,
+                mesh=None):
     """One decode step: token (B,), pos a scalar int (current length).
 
     The cache has static length T; entries at >= pos are masked by
     causality (q_offset = pos).  Writes the new K/V into ``cache`` in place;
     returns (logits (B,V), cache).
+
+    With ``mesh`` (the serving cell), ``params`` are this rank's blocks,
+    ``token`` its rows of the data axes and ``cache`` its sequence block over
+    ``model`` (:func:`prefill`'s layout); the logits come out
+    vocab-parallel.  ``pos`` is a host int on every rank.
     """
-    x = _embed(params, token)[:, None, :]  # (B,1,D)
     pos = int(pos)
+    if mesh is not None:
+        tp = _TP(cfg, mesh)
+        x = tp.embed(params, token)[:, None, :]
+        cos, sin = rope_angles(torch.tensor([pos], device=x.device), cfg.d_head,
+                               cfg.rope_theta)
+        for i in range(cfg.n_layers):
+            x = tp.decode_layer(x, tp.layer_params(params, i), cos, sin, pos,
+                                cache["k"][i], cache["v"][i])
+        hidden = rms_norm(x, tp.whole(params, "final_norm"))
+        return tp.logits(params, hidden)[:, 0, :], cache
+    x = _embed(params, token)[:, None, :]  # (B,1,D)
     cos, sin = rope_angles(torch.tensor([pos], device=x.device), cfg.d_head,
                            cfg.rope_theta)
     for i in range(cfg.n_layers):

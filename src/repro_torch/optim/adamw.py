@@ -23,8 +23,8 @@ sharding.
 from __future__ import annotations
 
 import torch
-from torch.utils import _pytree as pytree
 
+from repro_torch.compat import pytree
 from repro_torch.core import collectives as coll
 from repro_torch.launch.mesh import data_axes
 from repro_torch.launch.sharding import (NamedSharding, PartitionSpec, block_index,

@@ -20,7 +20,8 @@ from __future__ import annotations
 
 import torch
 import torch.distributed as dist
-from torch.utils import _pytree as pytree
+
+from repro_torch.compat import pytree
 
 
 def quantize_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -51,9 +51,9 @@ from typing import Callable
 
 import numpy as np
 import torch
-from torch.utils import _pytree as pytree
 
 from repro_torch.ckpt import CheckpointManager, latest_step, restore_checkpoint
+from repro_torch.compat import pytree
 from repro_torch.optim import adamw_init, adamw_update
 
 

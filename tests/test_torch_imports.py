@@ -45,6 +45,8 @@ MODULES = [
     "repro_torch.ckpt", "repro_torch.ckpt.checkpoint",
     "repro_torch.train", "repro_torch.train.loop",
     "repro_torch.launch.sharding", "repro_torch.launch.workloads",
+    "repro_torch.compat", "repro_torch.launch.costs", "repro_torch.launch.dryrun",
+    "repro_torch.launch.roofline", "repro_torch.launch.bufdump",
     "chip_smoke",
 ]
 
