@@ -181,9 +181,21 @@ on failure (the script then exits non-zero and prints no result):
    SmolLM-135M at full width, 5 steps of ``lm_batch`` at 4 x 1,024
    tokens, remat on, and (d) the Criteo-scale FM, 5 steps of
    ``recsys_batch`` at 65,536 rows, each twice: step walls, peak memory,
-   whether the two runs are bit-equal.  A profiled training step of (a)
-   and its forward alone (the segment sum's share forward and backward)
-   run with the other profiler jobs;
+   whether the two runs are bit-equal; (e) SmolLM-135M whole (30 layers,
+   the config's chunked attention: 4 KV chunks, remat) at one data rank's
+   share of ``train_4k``, 16 x 4,096 tokens, 3 steps in a process of its
+   own (``tools/lm_train_peak.py``): the step walls and the peak
+   (``max_memory_allocated``, and the backward through the layers' alone)
+   beside the dry run's count of the same step at a (1, 1) mesh (counted
+   on the host from the start of the script) and the parent commit's
+   measured peak (``LM_PEAK_PARENT``), each held under its
+   ``LM_PEAK_SHARE`` of the parent's; before it the reduced SmolLM
+   at 4 KV chunks, loss and gradients on the card against the CPU.  A
+   profiled training step of (a) and its forward alone (the segment
+   sum's share forward and backward) run with the other profiler jobs;
+10b. the six examples of ``repro_torch.examples`` on the card at their
+   defaults (``train_lm`` at 20 steps): each one's wall and printed lines,
+   ``quickstart``'s equal to its run on the CPU;
 11. sharded training: ``repro_torch.launch.workloads`` train cells on
    ``torch.distributed``, one spawned process a rank, each cell's
    unsharded run on the card first (freed before the ranks spawn) as its
@@ -206,7 +218,10 @@ on failure (the script then exits non-zero and prints no result):
    for bit (deterministic algorithms on).  Each rank's step walls, peak
    memory, collective calls and bytes a step by axes and op, launches a
    step; each step's loss and norm against the yardstick's, beside the
-   tolerance (about 10x the largest gap read on an H100).
+   tolerance (about 10x the largest gap read on an H100).  (a) runs
+   sequence-parallel (its residuals split by sequence over ``model``):
+   each rank's collective calls and bytes a step, by axes and op, must
+   equal the dry run's count of its cell.
 12. the serving and engine cells of ``launch/workloads`` (``cells_*``),
    inside phase 11's rank processes after its train cells (no group of
    its own), each against its unsharded run on the card first: (a)
@@ -235,18 +250,23 @@ on every later launch, which the host-bound REW and LM walls would carry.
 Phase 11 runs last, after the profiler jobs: its ranks are fresh processes
 (only its yardsticks, in this process, carry the sessions' host cost).
 So phase 8 profiles its forward after its own walls, the profiled reruns
-of phases 5, 5b, 6 and 6b (6b's last of all), phase 10's profiled step,
-the search census and the kernels' device times run after phase 10 with
-phase 7's, and phase 6 then times its traffic once more
-to show that cost.  A profiler session whose kept run holds no device
-event is made again, up to three in all; a kernel's device time a call
-then falls back to CUDA events, and the record counts both.
+of phases 5, 5b and 7, phase 10's profiled step, the search census and
+the kernels' device times run after phase 10, then those of 6 and 6b,
+and phase 6 then times its traffic once more to show that cost.  These
+jobs check no result of the port: each starts only while phase 11, scaled
+by how much slower this host ran the phases so far, still fits the run's
+limit, and the record names those skipped.  A profiler session whose kept
+run holds no device event is made again, up to three in all; a kernel's
+device time then falls back to CUDA events (the FM's two kernels also
+where the trace kept the rest), a serving rerun to its host walls, and
+the record counts each.
 Then one JSON line ``{"kernels": [...]}`` and, last, the device line.  The
 full record goes to ``chiprun_out/chip_smoke.json``.
 """
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import copy
 import gc
@@ -260,6 +280,8 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+
+T_PROCESS = time.perf_counter()  # the run's limit counts from here on
 
 import dataclasses
 import functools
@@ -713,25 +735,28 @@ def p_rounding_shares(q, k, v, q_offset: int, got: torch.Tensor) -> dict:
 
 PROFILE_SESSIONS = 3  # torch.profiler sessions tried before a trace counts as lost
 PROFILER_LOST = dict(sessions=0, event_timed=0)  # goes to the record
+TRACE_LOST = f"not measured: no device event in {PROFILE_SESSIONS} profiler sessions"
 
 
 def lost_session(session: int) -> None:
-    """Note a session whose kept run holds no device event and, unless it
-    was the last one tried, wait a second before the next: CUPTI has
-    dropped every kernel of a session begun just after another one."""
+    """Note a session whose kept run holds no device event (or none of a
+    kernel it needs) and, unless it was the last one tried, wait a second
+    before the next: CUPTI has dropped every kernel of a session begun
+    just after another one, and once the FM kernels' events alone."""
     PROFILER_LOST["sessions"] += 1
-    print(f"  torch.profiler kept no device event (session {session} of "
-          f"{PROFILE_SESSIONS})", flush=True)
+    print(f"  torch.profiler kept no device event, or none of a kernel needed "
+          f"(session {session} of {PROFILE_SESSIONS})", flush=True)
     if session < PROFILE_SESSIONS:
         time.sleep(1.0)
 
 
-def profiled(fn):
+def profiled(fn, need: tuple = ()):
     """``fn()`` twice under torch.profiler, keeping the second run's trace:
     CUPTI can miss the first kernels launched after tracing starts (a
     profiled GNN forward has lost its first two, the segment plan's sort
     and search), so the first run is the profiler's warm-up step.  A
-    session whose kept run holds no device event is made again, up to
+    session whose kept run holds no device event, or no device time of a
+    port kernel named in ``need``, is made again, up to
     ``PROFILE_SESSIONS`` in all.  Returns the profile, the kept run's host
     wall (it ends in a synchronise) and its result."""
     for session in range(1, PROFILE_SESSIONS + 1):
@@ -744,10 +769,50 @@ def profiled(fn):
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
                 prof.step()
-        if device_time(prof, wall)["busy_ms"] > 0:
+        busy = device_time(prof, wall)
+        if busy["busy_ms"] > 0 and all(busy["port_kernels_ms"].get(k, 0.0) > 0
+                                       for k in need):
             break
         lost_session(session)
     return prof, wall, out
+
+
+def event_kernel_ms(ops, fn, names: list) -> dict:
+    """Device ms of the port kernels ``names`` in one run of ``fn`` (after
+    a warm-up run), by CUDA events around each call of their wrappers in
+    ``ops`` (so the wrapper's own device work, such as zeroing an output,
+    is in it): for a profiled run whose trace kept the other kernels but
+    lost these.  Counted in ``PROFILER_LOST``."""
+    spans: dict = {name: [] for name in names}
+    wrappers = {name: getattr(ops, name) for name in names}
+
+    def timed(name, wrapper):
+        def call(*args, **kwargs):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = wrapper(*args, **kwargs)
+            end.record()
+            spans[name].append((start, end))
+            return out
+        return call
+
+    for name in names:
+        setattr(ops, name, timed(name, wrappers[name]))
+    try:
+        fn()
+        torch.cuda.synchronize()
+        for kept in spans.values():
+            kept.clear()
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        for name in names:
+            setattr(ops, name, wrappers[name])
+    if not all(spans.values()):
+        raise AssertionError(f"no call of {[n for n in names if not spans[n]]}")
+    PROFILER_LOST["event_timed"] += 1
+    print(f"  CUDA-event time of {', '.join(names)} instead", flush=True)
+    return {name: sum(s.elapsed_time(e) for s, e in spans[name]) for name in names}
 
 
 def device_ms_per_call(fn, calls: int = 50) -> float:
@@ -1157,13 +1222,13 @@ def lm_serving_phase(ops, records: dict, later: list) -> int:
                 profiled_wall = time.perf_counter() - t0
             busy = device_time(prof, profiled_wall)
             if busy["busy_ms"] > 0:
+                flash_ms = busy["port_kernels_ms"].get("flash_attention", 0.0)
+                busy["flash_share_of_wall"] = flash_ms / 1e3 / profiled_wall
+                busy["flash_share_of_busy"] = flash_ms / busy["busy_ms"]
                 break
             lost_session(session)
-        else:
-            raise AssertionError("torch.profiler saw no device time")
-        flash_ms = busy["port_kernels_ms"].get("flash_attention", 0.0)
-        busy["flash_share_of_wall"] = flash_ms / 1e3 / profiled_wall
-        busy["flash_share_of_busy"] = flash_ms / busy["busy_ms"]
+        else:  # the host walls stand for it
+            busy = TRACE_LOST
         rerun = dict(profiled_requests=LM_SLOTS, profiled_wall_s=profiled_wall,
                      profiled_same_tokens=all(outs[r.uid] == r.out
                                               for r in again_done),
@@ -1462,12 +1527,12 @@ def moe_deepseek(ops, records: dict, later: list) -> tuple[int, list]:
                 profiled_wall = time.perf_counter() - t0
             busy = device_time(prof, profiled_wall)
             if busy["busy_ms"] > 0:
+                flash_ms = busy["port_kernels_ms"].get("flash_attention", 0.0)
+                busy["flash_share_of_busy"] = flash_ms / busy["busy_ms"]
                 break
             lost_session(session)
-        else:
-            raise AssertionError("torch.profiler saw no device time")
-        flash_ms = busy["port_kernels_ms"].get("flash_attention", 0.0)
-        busy["flash_share_of_busy"] = flash_ms / busy["busy_ms"]
+        else:  # the host walls stand for it
+            busy = TRACE_LOST
         rerun = dict(profiled_requests=LM_SLOTS, profiled_wall_s=profiled_wall,
                      device_time=busy)
         print(f"  MoE serving (DeepSeek), profiled rerun: {json.dumps(rerun)}",
@@ -1722,13 +1787,27 @@ def fm_serving_phase(ops, records: dict, later: list) -> int:
         device ms per port kernel and per glue kernel, and the busy share."""
         fm = fm_model()
         batch = fm["batches"]["serve_bulk"]
-        prof, wall, _ = profiled(lambda: recsys.serve_step(fm["params"], fm["cfg"], batch))
+        need = ("fm_interact", "embedding_bag")
+
+        def step():
+            return recsys.serve_step(fm["params"], fm["cfg"], batch)
+
+        before = {name: ops.LAUNCHES[name] for name in need}
+        prof, wall, _ = profiled(step, need=need)
         busy = device_time(prof, wall)
-        if busy["busy_ms"] <= 0:
-            raise AssertionError("torch.profiler saw no device time")
-        for name in ("fm_interact", "embedding_bag"):
-            if busy["port_kernels_ms"].get(name, 0.0) <= 0:
-                raise AssertionError(f"FM profile: no device time of {name}")
+        # the profiled steps went through both kernels: a launch each a step,
+        # two steps a session
+        launched = {name: ops.LAUNCHES[name] - before[name] for name in need}
+        if any(n < 2 or n % 2 for n in launched.values()) or \
+                len(set(launched.values())) != 1:
+            raise AssertionError(f"FM profile: launches {launched} in sessions "
+                                 "of two steps")
+        lost = [name for name in need if busy["port_kernels_ms"].get(name, 0.0) <= 0]
+        if lost:  # the trace lost these (and maybe the rest): the busy share
+            # is not the step's
+            busy["port_kernels_ms"].update(event_kernel_ms(ops, step, lost))
+            busy["event_timed_kernels"] = lost
+            busy["busy_share"] = None
         rerun = dict(profiled_batch=int(batch["ids"].shape[0]), profiled_wall_s=wall,
                      device_time=busy)
         print(f"  FM serving, profiled serve_step of serve_bulk: {json.dumps(rerun)}",
@@ -3317,6 +3396,30 @@ TRAIN_STEPS, TRAIN_KILL, TRAIN_CKPT_EVERY = 40, 17, 10
 TRAIN_CHECK_LAYERS, TRAIN_CHECK_BATCHES = 2, 3
 TRAIN_SMALL_STEPS = 5
 LM_TRAIN_BATCH, LM_TRAIN_SEQ = 4, 1024
+# (e): one data rank's share of train_4k (16 x 4,096 tokens), counted on
+# the host and measured in a process of its own by tools/lm_train_peak.py;
+# beside it the same tool's reading on the parent tree (the commit before
+# the chunk recompute and the sequence-parallel residuals; H100 80GB HBM3
+# at 700 W, PERF.md)
+LM_PEAK_BATCH, LM_PEAK_SEQ, LM_PEAK_STEPS = 16, 4096, 3
+LM_PEAK_PARENT = dict(max_memory_allocated=45_862_305_792, layers_backward_peak=33_667_042_816)
+LM_PEAK_CHUNK = 16  # the reduced card == CPU check: 4 KV chunks of 16 keys
+# its gradients: bf16 activations, whose products cuBLAS and the CPU round
+# at other places (one bf16 unit is 2^-8 = 3.9e-3 of a value), so
+# TRAIN_GRAD_TOL's 1e-3 cannot hold.  tools/lm_grad_gap.py on an H100 80GB
+# HBM3 at 700 W: 9.74e-3 of a leaf's largest at this seed, 9.7e-3 to
+# 1.99e-2 over 4 seeds, the card's gradients bit for bit those of the tree
+# before the chunk recompute (and the same gaps with the parameters cast to
+# f32: the activations stay bf16); the limit is the largest of them (the
+# loss 1.2e-5 at this seed, held to TRAIN_LOSS_RTOL)
+LM_GRAD_TOL = 2e-2
+# each peak must stay under this share of the parent's: the layers'
+# backward (15.38 of 33.67 GB measured), where a chunk recompute that kept
+# a chunk's blocks, or a layer's tensor, to the backward would come back
+# above it, and the whole step (32.98 of 45.86 GB), which the loss head's
+# f32 logits set: one more (B, S, V) block live would come back above it
+LM_PEAK_SHARE = dict(max_memory_allocated=0.85, layers_backward_peak=0.6)
+LM_PEAK_TIMEOUT_S = 600.0
 # card against CPU, one loss and gradient: f32 sums in other orders (the
 # segment sums' plan order against index_add_, cuBLAS against the CPU's
 # products); the loss within TRAIN_LOSS_RTOL, each gradient leaf within
@@ -3348,12 +3451,13 @@ def grad_step(loss_fn, params, batch):
 
 
 def card_vs_cpu_grads(label: str, loss_fn, params, batches: list,
-                      ties: bool = False) -> dict:
+                      ties: bool = False, grad_tol: float = TRAIN_GRAD_TOL) -> dict:
     """One loss and gradient of ``params`` (on the CPU) on each of
     ``batches`` (dicts of numpy arrays or tensors), on the card and on the
     CPU: every value finite, the loss and each leaf within the limits
-    (with ``ties``, each leaf's relative L2 error within
-    ``TRAIN_GRAD_L2_TOL``; its largest error is recorded beside)."""
+    (``grad_tol`` of the leaf's largest value; with ``ties``, each leaf's
+    relative L2 error within ``TRAIN_GRAD_L2_TOL``; its largest error is
+    recorded beside)."""
     from repro_torch.data.graphs import graph_to
 
     card_params = _tree_to(params, "cuda")
@@ -3373,9 +3477,9 @@ def card_vs_cpu_grads(label: str, loss_fn, params, batches: list,
                 l2_err = max(l2_err, float(diff.norm()) / float(h.norm()))
     print(f"  {label}: card vs cpu, {len(batches)} batch(es): loss rel err "
           f"{loss_err:.3g} (limit {TRAIN_LOSS_RTOL}), gradient err {grad_err:.3g} of "
-          f"a leaf's largest (limit {'none' if ties else TRAIN_GRAD_TOL}), relative L2 "
+          f"a leaf's largest (limit {'none' if ties else grad_tol}), relative L2 "
           f"{l2_err:.3g} (limit {TRAIN_GRAD_L2_TOL if ties else 'none'})", flush=True)
-    grads_ok = l2_err <= TRAIN_GRAD_L2_TOL if ties else grad_err <= TRAIN_GRAD_TOL
+    grads_ok = l2_err <= TRAIN_GRAD_L2_TOL if ties else grad_err <= grad_tol
     if not (loss_err <= TRAIN_LOSS_RTOL and grads_ok):
         raise AssertionError(f"{label}: card and CPU differ beyond the limits")
     return dict(loss_rel_err=loss_err, grad_rel_err=grad_err, grad_l2_rel_err=l2_err,
@@ -3499,7 +3603,127 @@ def train_kernel_checks(ops, ref, records: dict, batch: dict, later_batches: dic
                counts("segment_sum", x, seg, n), tol=tol)
 
 
-def training_phase(ops, ref, records: dict, kg: dict, later: list) -> int:
+def lm_peak_tool(*args: str) -> list:
+    """The command of ``tools/lm_train_peak.py`` on this tree at (e)'s
+    batch and sequence, with ``args``."""
+    return [sys.executable, str(ROOT / "tools" / "lm_train_peak.py"), "--src", str(ROOT),
+            "--batch", str(LM_PEAK_BATCH), "--seq", str(LM_PEAK_SEQ), *args]
+
+
+def lm_peak_count_start() -> subprocess.Popen:
+    """Phase 10 (e)'s dry-run count, started on the host (no card) at the
+    start, beside the build; :func:`lm_peak_phase` waits for it."""
+    return subprocess.Popen(lm_peak_tool("--count"), stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+
+
+def _last_json(text: str) -> dict:
+    return json.loads(text.strip().splitlines()[-1])
+
+
+def lm_peak_phase(lm_count: subprocess.Popen) -> dict:
+    """Phase 10 (e): SmolLM-135M whole at 16 x 4,096 tokens, 3 steps in a
+    process of its own, beside the dry run's count and the parent's
+    peak; first the reduced config at 4 KV chunks, card against CPU."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import lm_batch
+    from repro_torch.models import transformer as lm
+
+    cfg = dataclasses.replace(get_arch("smollm-135m").reduced, attn_chunk=LM_PEAK_CHUNK)
+    host = lm.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    check = card_vs_cpu_grads(
+        f"SmolLM reduced, 4 KV chunks of {LM_PEAK_CHUNK}",
+        lambda p, b: lm.loss_fn(p, cfg, b["tokens"], b["labels"]), host,
+        [lm_batch(s, 2, 4 * LM_PEAK_CHUNK, cfg.vocab) for s in range(2)],
+        grad_tol=LM_GRAD_TOL)
+    _free_card()
+    t0 = time.perf_counter()
+    run = subprocess.run(lm_peak_tool("--measure", "--steps", str(LM_PEAK_STEPS)),
+                         capture_output=True, text=True, timeout=LM_PEAK_TIMEOUT_S)
+    if run.returncode:
+        raise AssertionError(f"(e) the SmolLM train_4k step failed: {run.stderr[-3000:]}")
+    got = _last_json(run.stdout)
+    got["process_s"] = time.perf_counter() - t0
+    out, err = lm_count.communicate(timeout=LM_PEAK_TIMEOUT_S)
+    if lm_count.returncode:
+        raise AssertionError(f"(e) the dry run's count failed: {err[-3000:]}")
+    dry = _last_json(out)["dryrun_peak_bytes"]
+    if not all(np.isfinite(got["losses"])):
+        raise AssertionError(f"(e) SmolLM train_4k: a non-finite loss {got['losses']}")
+    layers = max(got["layers_backward_peaks"])
+    for key, peak in (("max_memory_allocated", got["max_memory_allocated"]),
+                      ("layers_backward_peak", layers)):
+        if peak > LM_PEAK_SHARE[key] * LM_PEAK_PARENT[key]:
+            raise AssertionError(f"(e) SmolLM train_4k: {key} {peak} B, over "
+                                 f"{LM_PEAK_SHARE[key]} of the parent's {LM_PEAK_PARENT[key]} B")
+    print(f"  (e) SmolLM-135M, 30 layers, {LM_PEAK_BATCH} x {LM_PEAK_SEQ} tokens, "
+          f"{LM_PEAK_STEPS} steps: walls {[round(x, 3) for x in got['step_walls_s']]} s, "
+          f"losses {[round(x, 4) for x in got['losses']]}; peak max_memory_allocated "
+          f"{got['max_memory_allocated']} B (the dry run's count at a (1, 1) mesh "
+          f"{dry} B; the parent's measured {LM_PEAK_PARENT['max_memory_allocated']} B); "
+          f"the backward through the layers {layers} B (the parent's "
+          f"{LM_PEAK_PARENT['layers_backward_peak']} B); forward and loss head "
+          f"{max(got['head_peaks'])} B", flush=True)
+    return dict(got, dryrun_peak_bytes=dry, parent=LM_PEAK_PARENT, card_vs_cpu=check,
+                config="smollm-135m", batch=LM_PEAK_BATCH, seq=LM_PEAK_SEQ)
+
+
+EXAMPLES = ("quickstart", "materialise_kg", "serve_sparql", "serve_lm", "train_lm",
+            "kg_dedup_gnn")
+EXAMPLE_LINES = 6  # of each example's output, printed
+
+
+def _example(name: str, args: list) -> tuple[float, list]:
+    """Run ``repro_torch.examples.<name>``'s main: (wall, printed lines)."""
+    import importlib
+    import io
+
+    mod = importlib.import_module(f"repro_torch.examples.{name}")
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        mod.main(args)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, buf.getvalue().splitlines()
+
+
+def examples_phase(records: dict) -> None:
+    """Phase 10b: the six examples on the card at their defaults
+    (``train_lm`` at 20 steps); ``quickstart`` equal to its CPU run."""
+    work = ROOT / "build" / "examples"
+    shutil.rmtree(work, ignore_errors=True)
+    out = {}
+    for name in EXAMPLES:
+        args = ["--steps", "20", "--ckpt-dir", str(work / "train_lm")] if name == "train_lm" \
+            else []
+        wall, lines = _example(name, args)
+        out[name] = dict(wall_s=wall, lines=lines)
+        print(f"  {name} ({wall:.2f} s):", flush=True)
+        for line in lines[-EXAMPLE_LINES:]:
+            print(f"    {line}", flush=True)
+    _, host = _example("quickstart", ["--device", "cpu"])
+    checks = {
+        "quickstart == cpu": out["quickstart"]["lines"] == host,
+        "quickstart Theorem 1(3)":
+            out["quickstart"]["lines"][-1].endswith("|T^rho| = 21 == |AX| = 21: True"),
+        "materialise_kg Theorem 1": any(line.startswith("Theorem 1 validated")
+                                        for line in out["materialise_kg"]["lines"]),
+        "train_lm finite": bool(np.isfinite(float(out["train_lm"]["lines"][-1].split()[2]))),
+        "kg_dedup_gnn edges": any(line.startswith("dedup graph: 4891 edges")
+                                  for line in out["kg_dedup_gnn"]["lines"]),
+    }
+    total = sum(x["wall_s"] for x in out.values())
+    print(f"  the six examples in {total:.1f} s; {json.dumps(checks)}", flush=True)
+    if not all(checks.values()):
+        raise AssertionError(f"examples: {checks}")
+    shutil.rmtree(work, ignore_errors=True)
+    records["examples"] = dict(out, checks=checks, total_s=total)
+
+
+def training_phase(ops, ref, records: dict, kg: dict, later: list,
+                   lm_count: subprocess.Popen) -> int:
     """Phase 10; returns the segment sum's launches on its main path (the
     uninterrupted 40-step run of (a))."""
     from repro_torch.configs import get_arch
@@ -3727,6 +3951,7 @@ def training_phase(ops, ref, records: dict, kg: dict, later: list) -> int:
         _free_card()
     out["lm_config"] = dict(name=lcfg.name, n_layers=lcfg.n_layers, batch=LM_TRAIN_BATCH,
                             seq=LM_TRAIN_SEQ, remat=lcfg.remat, attn_impl=lcfg.attn_impl)
+    out["smollm_135m_train_4k"] = lm_peak_phase(lm_count)
     out["fm_config"] = dict(name=fcfg.name, n_rows=fcfg.n_rows, use_pallas=fcfg.use_pallas)
     shutil.rmtree(work)
     records["training"] = out
@@ -3813,6 +4038,22 @@ def _sht_batch(job: dict, step: int, cfg) -> tuple:
         with np.load(Path(job["batches"]) / f"step{step}.npz") as z:
             return ({k: z[k] for k in z.files},)
     return (recsys_batch(step, job["batch"], cfg.n_fields, cfg.rows_per_field),)
+
+
+def _sht_dry_collectives(job: dict, shape: tuple, axes: tuple) -> dict:
+    """The dry run's count of a phase-11 job's step on a mesh of ``shape``
+    (rank 0 of a fake group; every rank of an LM cell counts the same):
+    its collectives as a rank's ``mesh.counts()`` and its peak."""
+    from repro_torch.launch.dryrun import count_cell, fake_group
+    from repro_torch.launch.mesh import make_mesh
+
+    spec, sh = _sht_spec(job)
+    with fake_group(int(np.prod(shape)), 0):
+        rec = count_cell(spec, sh, make_mesh(shape, axes))
+    by = rec["collectives"]["by_kind"]
+    return dict(collectives=dict(calls={k: v["count"] for k, v in by.items()},
+                                 bytes={k: v["bytes"] for k, v in by.items()}),
+                peak_bytes=rec["memory"]["peak_bytes"])
 
 
 def _sht_counts(mesh) -> dict:
@@ -4158,14 +4399,25 @@ def sharded_training_phase(records: dict, kg: dict) -> dict:
         return [dict(r["jobs"][label], rank=r["rank"]) for r in ranks if label in r["jobs"]]
 
     a, ar = runs("a"), runs("a_restore")
-    _sht_print_ranks(f"(a) Qwen2-1.5B, {SHT_LM_LAYERS} layers (data 2, model 2)", a)
+    _sht_print_ranks(f"(a) Qwen2-1.5B, {SHT_LM_LAYERS} layers (data 2, model 2), "
+                     "sequence-parallel", a)
+    dry_a = _sht_dry_collectives(jobs[0], *meshes[0])
+    for r in a:
+        for x in r["steps"]:
+            if x["collectives"] != dry_a["collectives"]:
+                raise AssertionError(f"(a) rank {r['rank']} step {x['step'] + 1}: collectives "
+                                     f"{x['collectives']} != the dry run's {dry_a['collectives']}")
+    print(f"  (a) collectives a step on every rank == the dry run's: "
+          f"{json.dumps(dry_a['collectives'])}; the dry run's peak {dry_a['peak_bytes']} B",
+          flush=True)
     gaps = _sht_gaps("(a) Qwen2-1.5B (data 2, model 2)", "bf16", a[0]["steps"],
                      yard["a"]["steps"])
     _sht_print_ranks("(a) restored at (data 1, model 2)", ar)
     rgaps = _sht_gaps("(a) restored at (data 1, model 2)", "bf16", ar[0]["steps"],
                       yard["a"]["steps"][SHT_LM_SAVE_AFTER:])
     out["a"] = dict(config="qwen2-1.5b", layers=SHT_LM_LAYERS, tokens=SHT_LM_BATCH * SHT_LM_SEQ,
-                    remat=True, ranks=a, gaps=gaps, restored=ar, restored_gaps=rgaps)
+                    remat=True, sequence_parallel=True, ranks=a, gaps=gaps, restored=ar,
+                    restored_gaps=rgaps, dryrun=dry_a)
 
     b = runs("b")
     _sht_print_ranks("(b) DeepSeek-MoE-16B, 2 layers (data 2, model 2)", b)
@@ -4952,6 +5204,37 @@ def kernel_of(name: str) -> str | None:
     return next((k for n, k in KERNEL_OF.items() if n in name), None)
 
 
+RUN_LIMIT_S = 1200 - 100  # the script's limit on the card, less a margin
+# on a host like the final runs' of PR 27 (their readings beside each)
+PHASES_BEFORE_PROFILER_S = 493  # the phases before the profiler jobs: 493-525 s
+SHARDED_PHASE_S = 250  # the sharded training phase after them: 221-249 s
+PROFILER_JOB_S = 10  # the longest of the kernels', REW's, ..., training's jobs: 5.8 s
+SERVING_RERUN_S = 150  # the LM's and the MoE's profiled reruns: 82 and 141 s
+
+
+def profiler_jobs(jobs: list, phases_s: float, longest_s: float) -> dict:
+    """Run the queued profiler jobs in order while the sharded phase after
+    them, and one more job of at most ``longest_s``, still fit
+    ``RUN_LIMIT_S``: each scaled by how much slower than the reference run
+    this host ran the phases so far (``phases_s``).  The jobs measure and
+    check no result of the port, so a slow host skips the last of them.
+    Prints and returns each job's seconds and the names of those skipped."""
+    slow = max(1.0, phases_s / PHASES_BEFORE_PROFILER_S)
+    reserve = slow * (SHARDED_PHASE_S + longest_s)
+    ran, skipped = {}, []
+    for job in jobs:
+        name = getattr(job, "__qualname__", None) or job.func.__qualname__
+        if RUN_LIMIT_S - (time.perf_counter() - T_PROCESS) < reserve:
+            skipped.append(name)
+            continue
+        t0 = time.perf_counter()
+        job()
+        ran[f"{len(ran) + len(skipped)}:{name}"] = time.perf_counter() - t0
+    out = dict(host_slower_by=slow, reserve_s=reserve, job_s=ran, skipped=skipped)
+    print(f"  profiler jobs: {json.dumps(out)}", flush=True)
+    return out
+
+
 def device_time(prof, wall_s: float) -> dict:
     """Device time of the profiled run: per port kernel, the rest of
     PyTorch's kernels (glue) by name, and the busy share of the wall time."""
@@ -5041,6 +5324,9 @@ def main() -> None:
 
     records: dict = {"card": card, "torch": torch.__version__,
                      "cuda": torch.version.cuda}
+    # phase 10 (e)'s dry-run count, on the host while the kernels build
+    lm_count = lm_peak_count_start()
+    atexit.register(lm_count.kill)  # gone with the script, however it ends
     print("build:", flush=True)
     built = _build.build_all(verbose=True)
     # each device function's registers and spills, by ptxas
@@ -5096,14 +5382,14 @@ def main() -> None:
     phase("the audit (probe traces on the card, full-size dispatch cross-checks):")
     audit_phase(records)
 
+    # the LM's and the MoE's profiled reruns run after every other profiler
+    # job: the FM's short session, begun after either trace (~10^5
+    # kernels), has lost the FM kernels' events
+    last: list = []
     phase("LM serving at full width (SmolLM-135M, flash):")
-    launches["flash_attention"] = lm_serving_phase(ops, records, later)
+    launches["flash_attention"] = lm_serving_phase(ops, records, last)
 
     phase("MoE serving at full width (DeepSeek-MoE-16B whole, Qwen3-MoE-235B cut):")
-    # its profiled rerun runs after every other profiler job: the FM's
-    # session, begun after this trace of ~10^5 kernels, has lost the FM
-    # kernels' events
-    last: list = []
     launches["flash_attention"] += moe_serving_phase(ops, records, last)
 
     phase("FM serving at full scale (Criteo-scale FM, rho):")
@@ -5119,12 +5405,16 @@ def main() -> None:
 
     phase("training on the card (GatedGCN on KG minibatches; EGNN, DimeNet, PNA, "
           "SmolLM-135M, the FM):")
-    launches["segment_sum"] += training_phase(ops, ref, records, kg, later)
+    launches["segment_sum"] += training_phase(ops, ref, records, kg, later, lm_count)
 
-    phase("device times under torch.profiler (kernels, REW, updates, LM, FM and MoE "
-          "serving, the training step):")
-    for job in later + last:
-        job()
+    phase("the examples on the card (repro_torch.examples, at their defaults):")
+    examples_phase(records)
+
+    phase("device times under torch.profiler (kernels, REW, updates, FM serving, "
+          "the training step, LM and MoE serving):")
+    phases_s = time.perf_counter() - t_start
+    records["profiler_jobs"] = [profiler_jobs(later, phases_s, PROFILER_JOB_S),
+                                profiler_jobs(last, phases_s, SERVING_RERUN_S)]
 
     # after the profiler sessions: its ranks are fresh processes (CUPTI
     # dropped every event of the FM's profiled rerun when this phase ran

@@ -11,8 +11,12 @@ derives, per (arch x shape), from one rank's counts:
                  lanes x 1.98 GHz: derived, the datasheet gives none)
   memory_s     = bytes / 3.35 TB/s
   collective_s = each axis group's wire bytes / the link rate a card gets
-                 in that group, all-reduce counted twice (a ring moves its
-                 operand out and back), summed over the groups
+                 in that group, summed over the groups: an all-reduce's
+                 operand twice (a ring moves it out and back), a
+                 reduce-scatter's once, an all-gather's block once a rank
+                 of the group (the gathered whole passes each card), so
+                 that a reduce-scatter and an all-gather cost what the
+                 all-reduce of the same operand does
 
 The link model (every constant the "H100 SXM datasheet, 700 W" of
 :data:`repro_torch.launch.costs.HW`, none measured): a DGX H100 node
@@ -47,9 +51,15 @@ import os
 from repro_torch.launch.costs import HW, RATE
 from repro_torch.launch.dryrun import ART_DIR
 
-# wire bytes per operand byte: a ring all-reduce moves ~2x (reduce-scatter
-# then all-gather phases); the others ~1x
+# wire bytes per counted byte (the mesh counts each operand, an
+# all-gather's block): a ring all-reduce moves ~2x (reduce-scatter then
+# all-gather phases), an all-gather ~the group's ranks x its block, the
+# others ~1x
 WIRE_WEIGHT = {"all_reduce": 2.0, "all_reduce_max": 2.0, "all_reduce_min": 2.0}
+
+
+def wire_weight(op: str, ranks: int) -> float:
+    return float(ranks) if op == "all_gather" else WIRE_WEIGHT.get(op, 1.0)
 
 
 def load_cells(art_dir: str, mesh: str = "single") -> list[dict]:
@@ -73,7 +83,7 @@ def analyse(rec: dict) -> dict | None:
     for key, v in coll["by_kind"].items():
         axes, op = key.split(":")
         link = coll["links"][axes]
-        wire = v["bytes"] * WIRE_WEIGHT.get(op, 1.0)
+        wire = v["bytes"] * wire_weight(op, link["ranks"])
         collective_s += wire / link["bytes_per_s"]
         tag = "NVLink" if link["nodes"] == 1 else "network"
         by_link[tag] = by_link.get(tag, 0.0) + wire

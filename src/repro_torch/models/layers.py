@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.kernels import ops
 
@@ -84,7 +85,8 @@ def attention_state(q, k, v, causal: bool = True, q_offset=0, chunk: int = 1024,
     sequence block of a longer cache): its running max ``m`` and
     denominator ``l``, each (B, KV, G, S), and its accumulator ``acc`` (B,
     S, KV, G, Dh), all f32.  States over disjoint blocks of keys merge by
-    rescaling to their common max; :func:`attention_out` finishes one."""
+    rescaling to their common max; :func:`attention_out` finishes one.
+    Under grad each chunk's step runs under ``torch.utils.checkpoint``."""
     b, s, h, dh = q.shape
     t, kv = k.shape[1], k.shape[2]
     g = h // kv
@@ -103,11 +105,7 @@ def attention_state(q, k, v, causal: bool = True, q_offset=0, chunk: int = 1024,
         off = q_offset.to(dev) if per_slot else q_offset
         q_pos = (off[:, None] if per_slot else off) + torch.arange(s, device=dev)
 
-    m = torch.full((b, kv, g, s), -float("inf"), dtype=torch.float32, device=dev)
-    l = torch.zeros((b, kv, g, s), dtype=torch.float32, device=dev)
-    acc = torch.zeros((b, s, kv, g, dh), dtype=torch.float32, device=dev)
-    for c in range(n_chunks):
-        kb, vb = kc[:, c], vc[:, c]
+    def step(qg, m, l, acc, kb, vb, c: int):
         scores = torch.einsum("bskgd,btkd->bkgst", qg, kb).float()
         scores = scores / (dh**0.5)
         k_pos = c * chunk + torch.arange(chunk, device=dev)
@@ -128,7 +126,25 @@ def attention_state(q, k, v, causal: bool = True, q_offset=0, chunk: int = 1024,
         l = l * alpha + p.sum(dim=-1)
         pv = torch.einsum("bkgst,btkd->bskgd", p.to(qg.dtype), vb).float()
         acc = acc * alpha.permute(0, 3, 1, 2)[..., None] + pv
-        m = m_new
+        return m_new, l, acc
+
+    # under grad, each chunk's step is checkpointed (the reference's
+    # jax.checkpoint of its scan body): the backward keeps the carries and
+    # recomputes one chunk's (B, KV, G, S, chunk) blocks at a time.  Every
+    # tensor enters the step as an argument: a checkpoint keeps its
+    # function, and so its closure, until its backward, beyond an
+    # enclosing checkpoint's reach
+    remat = torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v))
+    m = torch.full((b, kv, g, s), -float("inf"), dtype=torch.float32, device=dev)
+    l = torch.zeros((b, kv, g, s), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, s, kv, g, dh), dtype=torch.float32, device=dev)
+    for c in range(n_chunks):
+        if remat:
+            m, l, acc = torch.utils.checkpoint.checkpoint(
+                step, qg, m, l, acc, kc[:, c], vc[:, c], c, use_reentrant=False,
+                preserve_rng_state=False)
+        else:
+            m, l, acc = step(qg, m, l, acc, kc[:, c], vc[:, c], c)
     return m, l, acc
 
 

@@ -27,7 +27,10 @@ holds E / model of the experts (their weights' blocks), gathers the
 tokens of its experts' slots from its chunk (replicated along the model
 axis, so nothing crosses ranks), runs them, adds its slots' contributions
 in the unsharded order, and the partial outputs are summed over the model
-axis in the activation dtype.  The load-balancing loss takes the mean
+axis in the activation dtype (with ``seq_parallel``, where the caller
+gathered the chunk along the sequence, reduce-scattered to this rank's
+sequence block, and only the rank's own block passes the router's
+gradient back).  The load-balancing loss takes the mean
 probabilities and the expert counts over all chunks (all-reduced over the
 data axes), as the reference's global one.  Without a mesh they change
 nothing, as in the reference without one.  :class:`RoutingLog` (entered with
@@ -269,10 +272,14 @@ def moe_ffn(
     dp_axes: tuple = (),
     ep_axis: str | None = None,
     mesh=None,
+    seq_parallel: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (output (B,S,D), aux load-balancing loss).  With ``mesh``,
     ``x`` is this data rank's tokens and the expert weights this model
-    rank's experts (see the module's docstring)."""
+    rank's experts (see the module's docstring).  ``seq_parallel``: ``x``
+    was all-gathered along the sequence over ``ep_axis`` (whose backward
+    sums its gradient over the axis), and the output is this rank's
+    sequence block (B, S / ep, D) of the sum, reduce-scattered."""
     logs = getattr(_active, "logs", ())
     forced = None
     for log in logs:  # the first log that replays routes the call
@@ -280,7 +287,8 @@ def moe_ffn(
             forced = log.forced(x.device)
     if mesh is not None:
         return _moe_sharded(x, router_w, w_gate, w_in, w_out, top_k, capacity_factor,
-                            n_token_shards, tuple(dp_axes), ep_axis, mesh, logs, forced)
+                            n_token_shards, tuple(dp_axes), ep_axis, mesh, logs, forced,
+                            seq_parallel)
     b, s, d = x.shape
     e = router_w.shape[1]
     n_tok = b * s
@@ -325,7 +333,7 @@ def _combine(contrib: torch.Tensor, pair_slot: torch.Tensor, top_k: int) -> torc
 
 
 def _moe_sharded(x, router_w, w_gate, w_in, w_out, top_k, capacity_factor,
-                 n_token_shards, dp, ep, mesh, logs, forced):
+                 n_token_shards, dp, ep, mesh, logs, forced, seq_parallel=False):
     """The sharded ``moe_ffn``: one chunk a data rank, E / model experts a
     model rank."""
     b, s, d = x.shape
@@ -336,7 +344,16 @@ def _moe_sharded(x, router_w, w_gate, w_in, w_out, top_k, capacity_factor,
         raise ValueError(f"sharded moe_ffn wants one token chunk a data rank: "
                          f"n_token_shards {n_token_shards}, {ranks} data ranks")
     xt = x.reshape(1, tl, d)
-    r = route(xt, router_w, top_k, capacity_factor, forced, mesh=mesh, dp_axes=dp)
+    seq_parallel = seq_parallel and not coll.is_trivial(mesh, ep)
+    xr = xt
+    if seq_parallel:
+        # the router's work is the same on every rank along ep, and the
+        # gather's backward sums over ep: only this rank's sequence block
+        # passes the router's gradient back
+        sb = s // mesh.axis(ep).size
+        pos = torch.arange(s, device=x.device) // sb == mesh.axis(ep).index
+        xr = torch.where(pos.repeat(b)[None, :, None], xt, xt.detach())
+    r = route(xr, router_w, top_k, capacity_factor, forced, mesh=mesh, dp_axes=dp)
     for log in logs:
         log.add(r)
     cap, el = r.cap, w_gate.shape[0]
@@ -344,8 +361,9 @@ def _moe_sharded(x, router_w, w_gate, w_in, w_out, top_k, capacity_factor,
     n_slots = el * cap
 
     # the chunk's tokens and the gates enter this rank's experts: their
-    # gradients there are this rank's part of the whole
-    xt_in = coll.grad_all_reduce(xt, mesh, ep) if ep else xt
+    # gradients there are this rank's part of the whole (under sequence
+    # parallelism the gather's backward sums the tokens')
+    xt_in = coll.grad_all_reduce(xt, mesh, ep) if ep and not seq_parallel else xt
     gate = coll.grad_all_reduce(r.slot_gate, mesh, ep) if ep else r.slot_gate
     xt_pad = torch.cat([xt_in, xt_in.new_zeros(1, 1, d)], dim=1)
     buf = xt_pad[0][r.slot_tok[0, lo:lo + n_slots]]  # (El*cap, D)
@@ -355,7 +373,9 @@ def _moe_sharded(x, router_w, w_gate, w_in, w_out, top_k, capacity_factor,
     pair_slot = torch.empty_like(r.slot).scatter_(1, r.order, r.slot)
     pair_slot = torch.sort(pair_slot.reshape(1, tl, top_k), dim=-1).values - lo
     pair_slot = torch.where((pair_slot >= 0) & (pair_slot < n_slots), pair_slot, n_slots)
-    out = _combine(contrib, pair_slot, top_k)
+    out = _combine(contrib, pair_slot, top_k).reshape(b, s, d)
+    if seq_parallel:  # the partial outputs, in x's dtype: this rank's block of the sum
+        return coll.reduce_scatter_dim(out, mesh, ep, 1), r.aux
     if ep:
         out = coll.all_reduce(out, mesh, ep)  # the partial outputs, in x's dtype
-    return out.reshape(b, s, d), r.aux
+    return out, r.aux

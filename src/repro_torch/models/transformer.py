@@ -25,6 +25,13 @@ then the sum) and so the cross entropy (max, log-sum-exp and the label
 logit reduced over ``model``); the loss a mean over the data axes.  A
 rank attends over its whole heads where ``model`` divides both head
 counts, and otherwise gathers the q/k/v columns over ``model`` first.
+Where ``model`` also divides the sequence (the reference's ``seq_ok``),
+the residuals between layers are sequence-parallel, as the reference's
+``dp_act`` lays them out: each rank holds its sequence block, the norms
+run on it, and an all-gather along the sequence enters the column-parallel
+products and a reduce-scatter leaves the row-parallel ones, in place of
+the identity and the all-reduce (:class:`_TP`).  So the residual each
+layer group's checkpoint keeps is a block (B, S / model, D).
 Under FSDP each layer's weights are all-gathered inside the layer loop
 (their gradients reduce-scattered).  The gradients a rank gets are its
 blocks' partial sums over the data axes (the optimizer's ZeRO-1 step sums
@@ -373,10 +380,17 @@ def forward(params, cfg: LMConfig, tokens: torch.Tensor, mesh=None):
     reference) runs under ``torch.utils.checkpoint``: the backward
     recomputes the group, with the MoE calls routed as in the forward.
     With ``mesh``, ``params`` are this rank's blocks of
-    :func:`param_shardings` and ``tokens`` its rows."""
-    tp = None if mesh is None else _TP(cfg, mesh)
+    :func:`param_shardings` and ``tokens`` its rows; where ``model`` has
+    more than one rank and divides the sequence, the layers pass this
+    rank's sequence block (B, S / model, D) between them
+    (:meth:`_TP.seq_parallel`), and so does the hidden returned."""
     s = tokens.shape[1]
-    x = _embed(params, tokens) if tp is None else tp.embed(params, tokens)
+    tp = None if mesh is None else _TP(cfg, mesh, seq=s)
+    if tp is None:
+        x = _embed(params, tokens)
+    else:
+        x = tp.embed(params, tokens)
+        params = tp.norms_summed(params)
     cos, sin = rope_angles(torch.arange(s, device=x.device), cfg.d_head, cfg.rope_theta)
     g = cfg.remat_group if cfg.remat_group > 1 and cfg.n_layers % cfg.remat_group == 0 else 1
 
@@ -417,17 +431,22 @@ def loss_fn(params, cfg: LMConfig, tokens: torch.Tensor, labels: torch.Tensor,
     if mesh is None:
         logits, lo = logits_of(params, hidden).float(), 0
     else:
-        tp = _TP(cfg, mesh)
+        tp = _TP(cfg, mesh, seq=tokens.shape[1])
         embed = tp.whole(params, "embed")
-        logits = (coll.grad_all_reduce(hidden, mesh, tp.tp) @ embed.to(hidden.dtype).T).float()
+        logits = (tp.enter(hidden) @ embed.to(hidden.dtype).T).float()
         lo = tp.m * embed.shape[0]
     m = logits.max(dim=-1, keepdim=True).values.detach()
     if mesh is not None:
         m = coll.all_reduce_raw(m, mesh, tp.tp, "max") if tp.tp else m
-    sum_exp = torch.exp(logits - m).sum(dim=-1)
     vocab = torch.arange(lo, lo + logits.shape[-1], device=logits.device)
     onehot = labels.to(logits.device)[..., None] == vocab
     label_logit = torch.where(onehot, logits, 0.0).sum(dim=-1)
+    # the label's logit first, then the exponent in place of the shifted
+    # logits, the logits dropped between (no backward needs them): two
+    # (B, S, V) f32 blocks live at a time in the forward, not three
+    shifted = logits - m
+    del logits
+    sum_exp = shifted.exp_().sum(dim=-1)
     if mesh is not None:
         sum_exp = coll.all_reduce(sum_exp, mesh, tp.tp)
         label_logit = coll.all_reduce(label_logit, mesh, tp.tp)
@@ -440,9 +459,21 @@ def loss_fn(params, cfg: LMConfig, tokens: torch.Tensor, labels: torch.Tensor,
 class _TP:
     """One rank's view of the layout of :func:`param_shardings` on a mesh:
     the model axis ``tp`` (None without one) and this rank's index ``m``
-    along it of ``n_tp``, the data axes ``dp`` and their ranks."""
+    along it of ``n_tp``, the data axes ``dp`` and their ranks.
 
-    def __init__(self, cfg: LMConfig, mesh):
+    ``seq`` (the training forward's sequence length) turns on the
+    reference's sequence-parallel residuals (``launch/workloads.py``'s
+    ``dp_act`` where ``seq_ok``) when ``model`` has more than one rank and
+    divides it: between layers ``x`` is this rank's block of the sequence,
+    the norms run on the block, an all-gather along the sequence enters the
+    column-parallel products (q/k/v, the SwiGLU, the MoE dispatch) and a
+    reduce-scatter along it leaves the row-parallel ones (``wo``, the
+    FFN's out, the MoE's combine), in place of the identity and all-reduce
+    over ``model`` (each the conjugate of the other in the backward).
+    The norm scales, replicated but applied to a block, have their
+    gradients summed over ``model`` (:meth:`norms_summed`)."""
+
+    def __init__(self, cfg: LMConfig, mesh, seq: int | None = None):
         self.cfg, self.mesh = cfg, mesh
         self.tp = "model" if "model" in mesh.axis_names else None
         self.dp = data_axes(mesh)
@@ -453,6 +484,35 @@ class _TP:
             self.d_ranks *= mesh.shape[a]
         self.shardings = param_shardings(cfg, mesh, dp=self.dp)
         self.whole_heads = cfg.n_heads % self.n_tp == 0 and cfg.n_kv % self.n_tp == 0
+        self.seq_parallel = seq is not None and self.n_tp > 1 and seq % self.n_tp == 0
+
+    # -- where a replicated activation meets the model-parallel products --------------
+    def enter(self, h: torch.Tensor) -> torch.Tensor:
+        """``h`` into column-parallel work: the sequence gathered from its
+        blocks under sequence parallelism, else ``h`` with its gradient
+        summed over ``model``."""
+        if self.seq_parallel:
+            return coll.all_gather_dim(h, self.mesh, self.tp, 1)
+        return coll.grad_all_reduce(h, self.mesh, self.tp)
+
+    def leave(self, out: torch.Tensor) -> torch.Tensor:
+        """The partial sums of row-parallel work made whole: this rank's
+        sequence block of them under sequence parallelism, else all."""
+        if self.seq_parallel:
+            return coll.reduce_scatter_dim(out, self.mesh, self.tp, 1)
+        return coll.all_reduce(out, self.mesh, self.tp)
+
+    def norms_summed(self, params: dict) -> dict:
+        """Under sequence parallelism, ``params`` with the norm scales'
+        gradients summed over ``model`` (each rank's block gives a part);
+        else ``params``."""
+        if not self.seq_parallel:
+            return params
+        layers = dict(params["layers"])
+        for k in ("attn_norm", "ffn_norm"):
+            layers[k] = coll.grad_all_reduce(layers[k], self.mesh, self.tp)
+        return {**params, "layers": layers,
+                "final_norm": coll.grad_all_reduce(params["final_norm"], self.mesh, self.tp)}
 
     # -- FSDP: the data-axis split undone inside the step ----------------------
     def _unsplit(self, t: torch.Tensor, ents: tuple) -> torch.Tensor:
@@ -496,21 +556,17 @@ class _TP:
         ids = tokens.to(torch.int64) - self.m * v
         mine = (ids >= 0) & (ids < v)
         rows = torch.where(mine[..., None], table[ids.clamp(0, v - 1)], 0.0)
-        return coll.all_reduce(rows, self.mesh, self.tp)
+        return self.leave(rows)
 
     # -- the tensor-parallel decoder block ----------------------------------------
-    def _swiglu(self, h, w_gate, w_in, w_out):
-        out = swiglu(coll.grad_all_reduce(h, self.mesh, self.tp), w_gate, w_in, w_out)
-        return coll.all_reduce(out, self.mesh, self.tp)
-
     def layer(self, x, lp, cos, sin, kv: bool = False):
         """One decoder block on this rank's blocks; with ``kv`` also the
         layer's K/V (B, S, KV heads, Dh): this rank's heads where ``model``
         divides the head counts, else every head."""
         cfg, mesh, tp = self.cfg, self.mesh, self.tp
-        b, s, _ = x.shape
         h = rms_norm(x, lp["attn_norm"])
-        hp = coll.grad_all_reduce(h, mesh, tp)  # into the column-parallel q, k, v
+        hp = self.enter(h)  # into the column-parallel q, k, v
+        b, s, _ = hp.shape
         q, k, v = _qkv(cfg, hp, lp)
         if self.whole_heads:
             n_q, n_kv = cfg.n_heads // self.n_tp, cfg.n_kv // self.n_tp
@@ -525,24 +581,28 @@ class _TP:
         if not self.whole_heads:
             cols = lp["wo"].shape[0]
             attn = attn[..., self.m * cols:(self.m + 1) * cols]
-        x = x + coll.all_reduce(attn @ lp["wo"].to(x.dtype), mesh, tp)
+        x = x + self.leave(attn @ lp["wo"].to(x.dtype))
         x, aux = self._ffn(x, lp)
         return (x, aux, (k, v)) if kv else (x, aux)
 
     def _ffn(self, x, lp):
         """The FFN half of a block (dense or MoE), its residual added."""
-        cfg, mesh, tp = self.cfg, self.mesh, self.tp
+        cfg = self.cfg
         h = rms_norm(x, lp["ffn_norm"])
+        hp = self.enter(h)
         if cfg.is_moe:
+            # under sequence parallelism the chunk is the gathered sequence,
+            # so routing, capacity and aux are those of the whole chunk
             out, aux = moe_ffn(
-                h, lp["router"], lp["e_gate"], lp["e_in"], lp["e_out"],
-                cfg.top_k, cfg.capacity_factor, n_token_shards=cfg.n_token_shards,
-                dp_axes=cfg.dp_axes, ep_axis=tp, mesh=mesh)
+                hp if self.seq_parallel else h, lp["router"], lp["e_gate"], lp["e_in"],
+                lp["e_out"], cfg.top_k, cfg.capacity_factor,
+                n_token_shards=cfg.n_token_shards, dp_axes=cfg.dp_axes, ep_axis=self.tp,
+                mesh=self.mesh, seq_parallel=self.seq_parallel)
             if cfg.n_shared:
-                out = out + self._swiglu(h, lp["s_gate"], lp["s_in"], lp["s_out"])
+                out = out + self.leave(swiglu(hp, lp["s_gate"], lp["s_in"], lp["s_out"]))
         else:
             aux = torch.zeros((), dtype=torch.float32, device=x.device)
-            out = self._swiglu(h, lp["w_gate"], lp["w_in"], lp["w_out"])
+            out = self.leave(swiglu(hp, lp["w_gate"], lp["w_in"], lp["w_out"]))
         return x + out, aux
 
     # -- serving: the KV cache split by sequence over ``model`` --------------------

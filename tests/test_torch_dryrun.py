@@ -5,9 +5,12 @@ Each case joins a ``fake`` process group of the mesh's size as one rank
 the worker sees it) and counts one step of a cell on fake tensors.
 
 * Phase 11 (a) of ``chip_smoke.py`` (Qwen2-1.5B at 8 layers, 2 x 1,024
-  tokens, (data 2, model 2)): the collectives counted a step equal the
-  ones measured on an H100 (PERF.md §6): ``model:all_reduce`` 44 calls
-  and 132 MB, ``data:reduce_scatter`` 608 MB, ``data:all_gather`` 304 MB.
+  tokens, (data 2, model 2), sequence-parallel): the collectives counted
+  a step equal the ones measured on an H100 (PERF.md §6):
+  ``model:reduce_scatter`` 42 calls and 132 MB, ``model:all_gather`` 50
+  calls and 79 MB, ``model:all_reduce`` 5 calls (the loss's sums and the
+  norm scales' gradients), ``data:reduce_scatter`` 608 MB,
+  ``data:all_gather`` 304 MB.
 * ``qwen2-reduced`` at (data 2, model 2): the products' FLOPs summed over
   the four ranks equal the count at one rank, and for the prefill that
   count equals the hand formula below.
@@ -49,10 +52,12 @@ def test_phase11a_collectives_equal_the_card():
                  (2, 2))
     got = rec["collectives"]["by_kind"]
     print({k: v for k, v in got.items()})
-    assert got["model:all_reduce"]["count"] == 44
+    assert got["model:reduce_scatter"]["count"] == 42
+    assert got["model:all_gather"]["count"] == 50
+    assert got["model:all_reduce"]["count"] == 5
     # PERF.md prints the card's bytes a step in MB, rounded
-    for key, mb in (("model:all_reduce", 132), ("data:reduce_scatter", 608),
-                    ("data:all_gather", 304)):
+    for key, mb in (("model:reduce_scatter", 132), ("model:all_gather", 79),
+                    ("data:reduce_scatter", 608), ("data:all_gather", 304)):
         assert round(got[key]["bytes"] / 1e6) == mb, (key, got[key])
 
 

@@ -47,6 +47,10 @@ MODULES = [
     "repro_torch.launch.sharding", "repro_torch.launch.workloads",
     "repro_torch.compat", "repro_torch.launch.costs", "repro_torch.launch.dryrun",
     "repro_torch.launch.roofline", "repro_torch.launch.bufdump",
+    "repro_torch.examples", "repro_torch.examples.quickstart",
+    "repro_torch.examples.materialise_kg", "repro_torch.examples.serve_sparql",
+    "repro_torch.examples.serve_lm", "repro_torch.examples.train_lm",
+    "repro_torch.examples.kg_dedup_gnn",
     "chip_smoke",
 ]
 
