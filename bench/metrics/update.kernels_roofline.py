@@ -1,0 +1,3 @@
+"""The hand-written kernels' share of their frozen least time, change sets (profiler)."""
+
+from bench.lib.readings import kernels_roofline as read  # noqa: F401
