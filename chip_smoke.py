@@ -2105,15 +2105,16 @@ class LaunchCensus:
 
     def by_rows(self, fn: str, graphs) -> dict:
         """Launches of ``fn`` by leading rows: eager, plus each graph's
-        captured ones times its replays."""
+        captured ones times its replays (``graphs``: the engine's
+        ``captured_graphs()``)."""
         out: dict = {}
         for (name, rows), n in self.live.items():
             if name == fn:
                 out[rows] = out.get(rows, 0) + n
         for g in graphs:
-            for (name, rows), n in self.captured.get(id(g.calls), {}).items():
+            for (name, rows), n in self.captured.get(id(g["calls"]), {}).items():
                 if name == fn:
-                    out[rows] = out.get(rows, 0) + n * g.replays
+                    out[rows] = out.get(rows, 0) + n * g["replays"]
         return dict(sorted(out.items()))
 
 
@@ -2269,7 +2270,7 @@ def fullsize_phase(ops, records: dict, kg: dict, later: list) -> dict:
           f"allocated {first['max_memory_allocated']} reserved "
           f"{first['max_memory_reserved']} B", flush=True)
     print(f"  fused, split of the first run {json.dumps(first['split'])}", flush=True)
-    dedup_by_keys = census.by_rows("dedup_order", eng._graphs.values())
+    dedup_by_keys = census.by_rows("dedup_order", eng.captured_graphs())
     if sum(dedup_by_keys.values()) != launches["dedup_order"]:
         raise AssertionError(f"dedup_order census {dedup_by_keys} != "
                              f"{launches['dedup_order']} launches")

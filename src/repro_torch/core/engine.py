@@ -87,6 +87,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.merge import merge_sorted
 
 from . import collectives as coll
+from . import spans
 from .materialise import Contradiction
 from .rules import Program, Rule
 from .stats import DispatchCounter, MatStats
@@ -306,6 +307,7 @@ def _expand_join(cols, valid, spo, ok, bound_items, free_items, out_cap):
         skey = torch.zeros(spo.shape[0], dtype=I64, device=spo.device)
         bkey = torch.zeros(valid.shape[0], dtype=I64, device=spo.device)
     bkey = torch.where(valid, bkey, KEY_MAX)
+    spans.count_sorted(valid)
     border = ops.dedup_order(bkey).to(I64)
     bkey_s = bkey[border]
     lo, hi = ops.search_bounds(skey, bkey_s)
@@ -717,6 +719,7 @@ def _fresh_rows(stream, stream_v, is_refl_row, sorted_keys):
     occurrence of the same fact ahead of them).  No host read."""
     C = sorted_keys.shape[0]
     skeys = torch.where(stream_v, _pack3(stream), KEY_MAX)
+    spans.count_sorted(stream_v)
     order = ops.dedup_order(skeys).to(I64)
     sk = skeys[order]
     uniq = torch.ones_like(stream_v)
@@ -768,6 +771,7 @@ def process_candidates(spo, epoch, marked, n_used, rep, sort_perm, sorted_keys,
      flags) = process_static(spo, epoch, marked, n_used, rep, sort_perm,
                              sorted_keys, cands, cand_valid, r, rewrite_cap,
                              mesh=mesh, route_cap=route_cap, pair_cap=pair_cap)
+    spans.stage("rew.flags", spo.device)
     window = min(_stream_rows(cands.shape[0], rewrite_cap, mesh, route_cap),
                  delta_window)
     j = torch.arange(window, device=spo.device)
@@ -779,6 +783,7 @@ def process_candidates(spo, epoch, marked, n_used, rep, sort_perm, sorted_keys,
         delta_rows=torch.where(delta_valid[:, None], rows, 0),
         delta_valid=delta_valid,
     )
+    spans.stage_end(spo.device)
     return spo, epoch, new_marked, n_used, new_rep, sort_perm, sorted_keys, flags
 
 
@@ -814,6 +819,10 @@ def process_static(spo, epoch, marked, n_used, rep, sort_perm, sorted_keys,
     gathered stream's contradiction are the same on every rank); the
     caller reduces them.
 
+    With the spans on, steps 1-3, 4 and 5-9 are the stages ``rew.merge``,
+    ``rew.sweep`` and ``rew.dedup`` (:func:`repro_torch.core.spans.stage`);
+    the caller marks the rest of its body and its end.
+
     ``epoch`` is updated in place and ``spo`` too; the rest comes back
     new.  Returns ``(spo, epoch, marked, n_used, rep, sort_perm,
     sorted_keys, flags)`` with ``flags`` the tensors ``contradiction``,
@@ -829,10 +838,12 @@ def process_static(spo, epoch, marked, n_used, rep, sort_perm, sorted_keys,
         cands, cand_valid = _gather_rows(cands, cand_valid, mesh)
 
     # 1)-3) normalise, merge sameAs pairs, re-normalise under the new rho
+    spans.stage("rew.merge", dev)
     rep, cands, n_pairs, ov_pair = _merge_round(rep, cands, cand_valid, mesh,
                                                 route_cap, pair_cap)
 
     # 4) sweep the store, every round
+    spans.stage("rew.sweep", dev)
     rewritten, changed = ops.rewrite_triples(spo, rep, epoch=epoch, marked=marked)
     marked = marked | changed
     rw_cols, rw_valid, rw_overflow = _compact(
@@ -848,6 +859,7 @@ def process_static(spo, epoch, marked, n_used, rep, sort_perm, sorted_keys,
     all_v = torch.cat([cand_valid, rw_valid], dim=0)
 
     # 5)-6) contradiction check, reflexivity; the rows each rank inserts
+    spans.stage("rew.dedup", dev)
     stream, stream_v, contradiction = _round_stream(all_c, all_v)
     is_refl_row = all_c.shape[0]
     ov_route = torch.zeros((), dtype=torch.bool, device=dev)
@@ -951,6 +963,7 @@ def _rebuild_index(spo, epoch, marked):
     capacity growth of the store."""
     live = (epoch >= 0) & ~marked
     keys = torch.where(live, _pack3(spo), KEY_MAX)
+    spans.count_sorted(live)
     perm = ops.dedup_order(keys)
     return perm, keys[perm.to(I64)]
 
@@ -1155,7 +1168,8 @@ def state_to_arrays(state: EngineState) -> dict:
 
 
 class RoundLog:
-    """The wall split of one ``materialise_state`` call (host clock).
+    """The wall split of one ``materialise_state`` call or update (host
+    clock).
 
     ``setup_s`` runs from the entry to the first round; each round records
     its wall, the time the host spent blocked on the device inside it
@@ -1163,10 +1177,18 @@ class RoundLog:
     time between rounds (a fused loop's exit handling) goes to
     ``between_s``, and the rest after the last round to ``stats_s``.  A
     round's wall less its wait is the host's time in it: launching its work
-    and everything else on the host.  A capacity restart starts a new log.
+    and everything else on the host.  ``wait_s`` sums every read of the
+    call, in rounds or not, the synchronise and the copy; with ``tags`` (the
+    engine's :class:`DispatchCounter`) ``phase_wait_s`` splits it by the
+    phase tag each read ran under.  A capacity restart starts a new log,
+    handed the one before as ``prior``: its rounds start anew, its
+    ``wait_s`` and ``phase_wait_s`` go on summing the reads of every
+    attempt.  With the spans on each round is a ``rew.round`` range and
+    each read a ``rew.read`` one.
     """
 
-    def __init__(self, device: torch.device) -> None:
+    def __init__(self, device: torch.device, tags: DispatchCounter | None = None,
+                 prior: RoundLog | None = None) -> None:
         self.stream = (torch.cuda.current_stream(device)
                        if device.type == "cuda" else None)
         self.t0 = time.perf_counter()
@@ -1175,10 +1197,15 @@ class RoundLog:
         self.between_s = 0.0
         self.stats_s = 0.0
         self.reads = 0  # reads outside rounds
+        self.wait_s = prior.wait_s if prior is not None else 0.0  # every read's time
+        self.tags = tags
+        self.phase_wait: dict[str | None, float] = (
+            dict(prior.phase_wait) if prior is not None else {})
         self._t: float | None = None
         self._end: float | None = None
         self._wait = 0.0
         self._reads = 0
+        self._span = None
 
     def begin_round(self) -> None:
         now = time.perf_counter()
@@ -1187,24 +1214,34 @@ class RoundLog:
         elif self._end is not None:
             self.between_s += now - self._end
         self._t, self._wait, self._reads = now, 0.0, 0
+        self._span = spans.open_span("rew.round")
 
     def read(self, fn):
         """``fn()`` after the device has caught up; timed and counted."""
-        t = time.perf_counter()
-        if self.stream is not None:
-            self.stream.synchronize()
-        if self._t is None:
-            self.reads += 1
-        else:
-            self._wait += time.perf_counter() - t
-            self._reads += 1
-        return fn()
+        with spans.span("rew.read"):
+            t = time.perf_counter()
+            if self.stream is not None:
+                self.stream.synchronize()
+            if self._t is None:
+                self.reads += 1
+            else:
+                self._wait += time.perf_counter() - t
+                self._reads += 1
+            out = fn()
+        took = time.perf_counter() - t
+        self.wait_s += took
+        if self.tags is not None:
+            tag = self.tags.phase
+            self.phase_wait[tag] = self.phase_wait.get(tag, 0.0) + took
+        return out
 
     def end_round(self) -> None:
         self._end = time.perf_counter()
         self.rounds.append(dict(wall_s=self._end - self._t, wait_s=self._wait,
                                 reads=self._reads))
         self._t = None
+        spans.close_span(self._span)
+        self._span = None
 
     def finish(self) -> dict:
         """The split as a dict, the stats time counted from the last round."""
@@ -1213,14 +1250,18 @@ class RoundLog:
             self.setup_s = now - self.t0
         self.stats_s = now - (self._end if self._end is not None
                               else self.t0 + self.setup_s)
-        return dict(
+        out = dict(
             setup_s=self.setup_s,
             rounds=self.rounds,
             between_s=self.between_s,
             stats_s=self.stats_s,
             wall_s=now - self.t0,
             reads=sum(r["reads"] for r in self.rounds) + self.reads,
+            wait_s=self.wait_s,
         )
+        if self.tags is not None:
+            out["phase_wait_s"] = dict(self.phase_wait)
+        return out
 
 
 # what the host loop reads of process_candidates' flags each round
@@ -1323,6 +1364,7 @@ class TorchEngine:
         self.last_split: dict | None = None
         self.last_publish: dict | None = None  # stage times of publish_snapshot
         self._log = RoundLog(self.device)
+        self._sorts: torch.Tensor | None = None  # the spans' sort counter
 
     # -- buffers and capacities ----------------------------------------------
     def _set_update_buffers(self, updating: bool) -> None:
@@ -1368,6 +1410,18 @@ class TorchEngine:
     def captures(self) -> int:
         """Graphs captured by this engine."""
         return sum(self.dispatches.compiles.values())
+
+    def captured_graphs(self) -> list[dict]:
+        """Each graph this engine holds that has been captured: its
+        ``family`` (``"fforward"`` a round, ``"fwave"`` a wave), ``key``,
+        ``replays``, ``capture_s``, ``calls`` (a replay's launches by C
+        entry point: the capture's own dict, which an ``ops.traced`` tracer
+        was handed at each launch it recorded; read it, do not change it)
+        and ``stages`` (the stage markers a replay runs, in order; empty
+        for a graph captured with the spans off)."""
+        return [dict(family=g.family, key=g.key, replays=g.replays,
+                     capture_s=g.capture_s, calls=g.calls, stages=g.stages)
+                for g in self._graphs.values() if g.graph is not None]
 
     def _free_graphs(self) -> None:
         """Drop every captured graph (their capacities are outgrown)."""
@@ -1478,9 +1532,10 @@ class TorchEngine:
         if self.mesh is not None:
             me = coll.axis_index(self.mesh)
             rows = rows[me * width:(me + 1) * width]
-        cands = torch.zeros((width, 3), dtype=I32, device=self.device)
-        cands[: rows.shape[0]] = torch.from_numpy(rows).to(self.device)
-        cand_valid = torch.arange(width, device=self.device) < rows.shape[0]
+        with spans.span("rew.upload"):
+            cands = torch.zeros((width, 3), dtype=I32, device=self.device)
+            cands[: rows.shape[0]] = torch.from_numpy(rows).to(self.device)
+            cand_valid = torch.arange(width, device=self.device) < rows.shape[0]
         return cands, cand_valid
 
     @staticmethod
@@ -1488,11 +1543,13 @@ class TorchEngine:
         """The valid rows of a padded stream as sorted keys on its device
         (the stable dedup order of the packed keys) and the mask of each
         key's first occurrence."""
-        keys = torch.where(cand_valid, _pack3(cands), KEY_MAX)
-        sk = keys[ops.dedup_order(keys).to(I64)]
-        first = torch.ones_like(cand_valid)
-        first[1:] = sk[1:] != sk[:-1]
-        return sk, first & (sk < KEY_MAX)
+        with spans.span("rew.distinct"):
+            keys = torch.where(cand_valid, _pack3(cands), KEY_MAX)
+            spans.count_sorted(cand_valid)
+            sk = keys[ops.dedup_order(keys).to(I64)]
+            first = torch.ones_like(cand_valid)
+            first[1:] = sk[1:] != sk[:-1]
+            return sk, first & (sk < KEY_MAX)
 
     def _grow_state_arena(self, state: EngineState, old_cap: int) -> None:
         """Re-layout the arena after ``capacity`` grew: the new rows are
@@ -1563,10 +1620,11 @@ class TorchEngine:
         state.index_dirty = False
         state.stats.index_rebuilds += 1
 
-    def _barrier(self, state: EngineState) -> None:
-        """An update's fixpoint is complete (no-effect updates too)."""
+    def _barrier(self, state: EngineState, sorts: torch.Tensor | None = None) -> dict:
+        """An update's fixpoint is complete (no-effect updates too); returns
+        :meth:`_refresh_stats`' sort counts."""
         state.update_epoch += 1
-        self._refresh_stats(state)
+        return self._refresh_stats(state, sorts)
 
     def _grow_rep(self, state: EngineState, hi: int) -> None:
         """Extend rho with identities up to id ``hi`` (exclusive)."""
@@ -1623,17 +1681,37 @@ class TorchEngine:
             values = coll.psum(values, self.mesh)
         return self._log.read(values.cpu().numpy)
 
-    def _refresh_stats(self, state: EngineState) -> None:
-        """The store's counters, in one host read (the rows of every rank's
-        shard; rho is the same on each)."""
+    def _refresh_stats(self, state: EngineState,
+                       sorts: torch.Tensor | None = None) -> dict:
+        """The store's counters, in one host read of the call's log (the
+        rows of every rank's shard; rho is the same on each).  The same
+        read takes the call's sort counter ``sorts`` where it has one
+        (:meth:`_sort_counter`, spans on): returns ``{"sort_keys",
+        "sort_pad_keys"}``, else an empty dict."""
         ids = torch.arange(state.n_res, dtype=I32, device=self.device)
         stats = state.stats
         used = state.n_used.sum().to(I64)
         if self.mesh is not None:
             used = coll.psum(used, self.mesh)
-        stats.triples_total, stats.merged_resources = torch.stack([
-            used, (state.rep != ids).sum()]).tolist()
+        vals = [used, (state.rep != ids).sum()]
+        if sorts is not None:
+            vals += [sorts[0], sorts[0] - sorts[1]]
+        stats.triples_total, stats.merged_resources, *counts = self._log.read(
+            torch.stack(vals).tolist)
         stats.triples_explicit = int(state.explicit.shape[0])
+        return dict(zip(("sort_keys", "sort_pad_keys"), counts))
+
+    def _sort_counter(self) -> torch.Tensor | None:
+        """With the spans on, this engine's sort counter, zeroed for a new
+        call (``int64 [keys, valid keys]``, made once so that every graph
+        captured by the engine adds into it); else None."""
+        if not spans.enabled():
+            return None
+        if self._sorts is None:
+            self._sorts = torch.zeros(2, dtype=I64, device=self.device)
+        else:
+            self._sorts.zero_()
+        return self._sorts
 
     def gathered_state(self, state: EngineState) -> EngineState:
         """Under a mesh, the state with every rank's shard of the arena,
@@ -1755,27 +1833,28 @@ class TorchEngine:
         full_q)``: ``[(rule, anchor atom)]`` for merge-targeted evaluation
         (only while updating in "targeted" mode) and the rules requeued
         for full evaluation."""
-        rep = self._log.read(lambda: self.state_rep(state))
-        p_old = state.program
-        p_new, changed_idx = p_old.rewrite(rep)
-        merge_q: list[tuple[int, int]] = []
-        full_q: list[int] = []
-        if changed_idx:
-            stats.rule_rewrites += 1
-            stats.rules_requeued += len(changed_idx)
-            targeted = self._updating and self.rederive_mode == "targeted"
-            for k in changed_idx:
-                if not targeted:
-                    full_q.append(k)
-                    continue
-                how, anchor = classify_remerge(p_old.rules[k], p_new.rules[k])
-                if how == "anchor":
-                    merge_q.append((k, anchor))
-                elif how == "full":
-                    full_q.append(k)
-                    stats.remerge_full_fallback += 1
-        state.program = p_new
-        return merge_q, full_q
+        with spans.span("rew.rewrite_program"):
+            rep = self._log.read(lambda: self.state_rep(state))
+            p_old = state.program
+            p_new, changed_idx = p_old.rewrite(rep)
+            merge_q: list[tuple[int, int]] = []
+            full_q: list[int] = []
+            if changed_idx:
+                stats.rule_rewrites += 1
+                stats.rules_requeued += len(changed_idx)
+                targeted = self._updating and self.rederive_mode == "targeted"
+                for k in changed_idx:
+                    if not targeted:
+                        full_q.append(k)
+                        continue
+                    how, anchor = classify_remerge(p_old.rules[k], p_new.rules[k])
+                    if how == "anchor":
+                        merge_q.append((k, anchor))
+                    elif how == "full":
+                        full_q.append(k)
+                        stats.remerge_full_fallback += 1
+            state.program = p_new
+            return merge_q, full_q
 
     def _program_tables(self, program: Program):
         """The program's constant tables on the device, made once a program."""
@@ -2126,37 +2205,46 @@ class TorchEngine:
                           max_rounds: int = 10_000) -> EngineState:
         """Base REW fixpoint, restarting with grown capacities on overflow.
         The explicit set is kept on the device as the facts' sorted
-        distinct keys, sorted by the dedup kernel."""
-        t0 = time.perf_counter()
-        facts = np.asarray(facts, np.int32).reshape(-1, 3)
-        restarts = 0
-        while True:
-            self._log = RoundLog(self.device)
-            try:
-                self._set_update_buffers(False)
-                state = self._fresh_state(program)
-                cands, cand_valid = self._pad_cands(facts)
-                if self.mesh is None:
-                    sk, first = self._distinct_keys(cands, cand_valid)
-                else:  # every rank keeps the whole explicit set
-                    all_f = torch.from_numpy(facts).to(self.device)
-                    sk, first = self._distinct_keys(
-                        all_f, torch.ones(all_f.shape[0], dtype=torch.bool,
-                                          device=self.device))
-                self._forward(state, cands, cand_valid, [], max_rounds)
-                break
-            except CapacityError as e:
-                self._grow_for(str(e))
-                restarts += 1
-        state.stats.capacity_retries = restarts
-        state.explicit = self._log.read(lambda: sk[first])
-        self._refresh_stats(state)
-        state.stats.wall_seconds += time.perf_counter() - t0
-        self.last_split = self._log.finish()
-        self.last_split.update(self._graphs_note())
-        if self._graph is not None:
-            self.last_split["capture_s"] = self._graph.capture_s
-        return state
+        distinct keys, sorted by the dedup kernel.  With the spans on the
+        call is a ``rew.materialise`` range and ``last_split`` also holds
+        the keys handed to ``dedup_order`` and the padding among them
+        (``sort_keys``, ``sort_pad_keys``, summed over every attempt, as
+        ``wait_s`` is)."""
+        sorts = self._sort_counter()
+        with spans.span("rew.materialise"), spans.counting_sorts(sorts):
+            t0 = time.perf_counter()
+            facts = np.asarray(facts, np.int32).reshape(-1, 3)
+            restarts = 0
+            prior = None
+            while True:
+                self._log = RoundLog(self.device, prior=prior)
+                try:
+                    self._set_update_buffers(False)
+                    state = self._fresh_state(program)
+                    cands, cand_valid = self._pad_cands(facts)
+                    if self.mesh is None:
+                        sk, first = self._distinct_keys(cands, cand_valid)
+                    else:  # every rank keeps the whole explicit set
+                        all_f = torch.from_numpy(facts).to(self.device)
+                        sk, first = self._distinct_keys(
+                            all_f, torch.ones(all_f.shape[0], dtype=torch.bool,
+                                              device=self.device))
+                    self._forward(state, cands, cand_valid, [], max_rounds)
+                    break
+                except CapacityError as e:
+                    self._grow_for(str(e))
+                    restarts += 1
+                    prior = self._log
+            state.stats.capacity_retries = restarts
+            with spans.span("rew.stats"):
+                state.explicit = self._log.read(lambda: sk[first])
+                counts = self._refresh_stats(state, sorts)
+            state.stats.wall_seconds += time.perf_counter() - t0
+            self.last_split = self._log.finish()
+            self.last_split.update(self._graphs_note(), **counts)
+            if self._graph is not None:
+                self.last_split["capture_s"] = self._graph.capture_s
+            return state
 
     def _graphs_note(self) -> dict:
         """Whether the rounds ran as CUDA graphs, and why not if not."""
@@ -2188,37 +2276,50 @@ class TorchEngine:
         ``last_split`` gets, on the host clock, the time from the last
         attempt's start to each phase label, the earlier attempts' time
         (``retries_s``) and the last attempt's (``attempt_s``, the snapshot
-        included), and the graphs captured."""
+        included), the whole call's (``call_s``), every attempt's reads
+        (``wait_s``, and ``phase_wait_s`` by phase tag; the barrier's under
+        None), and the graphs captured.  With the spans on the call is a ``maint.add`` or
+        ``maint.delete`` range holding ``maint.snapshot``, each phase's
+        range and ``maint.barrier``, and ``last_split`` holds the sort
+        counts as :meth:`materialise_state`'s does."""
         from .incremental_spmd import spmd_add_phases, spmd_delete_phases
 
-        t0 = time.perf_counter()
-        captures0 = self.captures
-        self._maybe_reset_fallback(state)
-        phases = spmd_add_phases if op == "add" else spmd_delete_phases
-        attempts = 0
-        while True:
-            ta = time.perf_counter()
-            snap = self._snapshot(state)
-            attempts += 1
-            self._log = RoundLog(self.device)
-            marks = []
-            try:
-                self._set_update_buffers(True)
-                for label in phases(self, state, delta, max_rounds):
-                    marks.append((label, time.perf_counter() - ta))
-                break
-            except CapacityError as e:
-                if not retry:
-                    raise
-                self._recover_capacity(state, snap, e)
-        end = time.perf_counter()
-        self._barrier(state)
-        state.stats.wall_seconds += time.perf_counter() - t0
-        self.last_split = dict(self._log.finish(), op=op, phases=marks,
-                               retries_s=ta - t0, attempt_s=end - ta,
-                               attempts=attempts, captures=self.captures - captures0,
-                               **self._graphs_note())
-        return state
+        sorts = self._sort_counter()
+        with spans.span(f"maint.{op}"), spans.counting_sorts(sorts):
+            t0 = time.perf_counter()
+            captures0 = self.captures
+            self._maybe_reset_fallback(state)
+            phases = spmd_add_phases if op == "add" else spmd_delete_phases
+            attempts = 0
+            prior = None
+            while True:
+                ta = time.perf_counter()
+                with spans.span("maint.snapshot"):
+                    snap = self._snapshot(state)
+                attempts += 1
+                self._log = RoundLog(self.device, self.dispatches, prior)
+                marks = []
+                try:
+                    self._set_update_buffers(True)
+                    for label in phases(self, state, delta, max_rounds):
+                        marks.append((label, time.perf_counter() - ta))
+                    break
+                except CapacityError as e:
+                    if not retry:
+                        raise
+                    self._recover_capacity(state, snap, e)
+                    prior = self._log
+            end = time.perf_counter()
+            with spans.span("maint.barrier"):
+                counts = self._barrier(state, sorts)
+            done = time.perf_counter()
+            state.stats.wall_seconds += done - t0
+            self.last_split = dict(self._log.finish(), op=op, phases=marks,
+                                   retries_s=ta - t0, attempt_s=end - ta,
+                                   call_s=done - t0, attempts=attempts,
+                                   captures=self.captures - captures0,
+                                   **self._graphs_note(), **counts)
+            return state
 
     def materialise_incremental(self, facts, program: Program, updates,
                                 max_rounds: int = 10_000, on_device: bool = True):

@@ -66,6 +66,7 @@ import torch
 from repro_torch.kernels import ops
 
 from . import collectives as coll
+from . import spans
 from .engine import (
     I32,
     I64,
@@ -262,7 +263,10 @@ def forward_round(c: dict, t: dict, plans: tuple, *, rewrite_cap: int,
     at round ``r + 1``, evaluate every delta plan at ``r + 2`` (at
     :data:`_NULL_ROUND` when the round stops the loop), and fold the
     round's counts and bits into ``c["flags"]`` (reduced over the ranks
-    under a ``mesh``).  Makes no host read."""
+    under a ``mesh``).  Makes no host read.  With the spans on, the plan
+    evaluation is the stage ``rew.join`` and the fold and the carry copies
+    ``rew.flags`` (the stream's processing marks its own), and the body's
+    end is marked."""
     width = c["cands"].shape[0]
     r = c["r"] + 1
     spo, epoch, marked, n_used, rep, perm, keys, fl = process_static(
@@ -270,6 +274,7 @@ def forward_round(c: dict, t: dict, plans: tuple, *, rewrite_cap: int,
         c["sort_perm"], c["sorted_keys"], c["cands"], c["cand_valid"], r,
         rewrite_cap, mesh=mesh, route_cap=route_cap, pair_cap=pair_cap,
     )
+    spans.stage("rew.join", spo.device)
     cv = t["const_vals"]
     consts_changed = (
         t["const_valid"] & (rep[cv.clamp(0, rep.shape[0] - 1).to(I64)] != cv)
@@ -282,6 +287,7 @@ def forward_round(c: dict, t: dict, plans: tuple, *, rewrite_cap: int,
         t["head_consts"], plans, width, bind_cap=bind_cap,
         plan_out_cap=plan_out_cap, mesh=mesh,
     )
+    spans.stage("rew.flags", spo.device)
     now = {
         "iters": torch.ones((), dtype=I64, device=spo.device),
         "have_cands": valid.any(), "n_deriv": n_deriv, "n_appl": n_appl,
@@ -300,6 +306,7 @@ def forward_round(c: dict, t: dict, plans: tuple, *, rewrite_cap: int,
     c["cands"].copy_(heads)
     c["cand_valid"].copy_(valid)
     c["r"].copy_(r)
+    spans.stage_end(spo.device)
 
 
 class _Captured:
@@ -312,7 +319,8 @@ class _Captured:
     launches no kernel through :mod:`repro_torch.kernels.ops`, so each adds
     the capture's launch counts to ``ops.LAUNCHES`` (the capture itself
     counts nothing); ``replays`` counts them.  ``family`` is the dispatch
-    family of a step.
+    family of a step; ``stages`` lists the stage markers the capture
+    recorded (none when the spans were off), which each replay runs.
 
     The capture runs in the thread-local error mode, on PyTorch's capture
     stream: another thread may launch, copy to the host and synchronise
@@ -332,6 +340,7 @@ class _Captured:
         self.launches: dict[str, int] = {}  # ... and by kernel
         self.capture_s = 0.0
         self.captured_now = False  # the last run through it captured
+        self.stages: tuple = ()  # the stage markers the capture recorded
 
     def _body(self) -> None:
         raise NotImplementedError
@@ -339,9 +348,11 @@ class _Captured:
     def _capture(self) -> None:
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
-        with ops.recording() as calls, torch.cuda.graph(
-                graph, capture_error_mode="thread_local"):
+        with spans.span("rew.capture"), spans.marks_recorded() as marks, \
+                ops.recording() as calls, torch.cuda.graph(
+                    graph, capture_error_mode="thread_local"):
             self._body()
+        self.stages = tuple(marks)
         self.calls = calls
         self.launches = ops.by_kernel(calls)
         self.graph = graph
@@ -520,16 +531,19 @@ def delete_wave(c: dict, k: dict, t: dict, plans: tuple, *, bind_cap: int,
     the loop constants ``k``: every tombstone plan at wave ``w + 1``,
     squeezed to ``plan_out_cap`` rows, then the od step without its masks;
     the flags are reduced over the ranks under a ``mesh``.  Makes no host
-    read."""
+    read.  With the spans on, the plans are the stage ``maint.tomb_join``
+    and the od step and the fold ``maint.od_step``, and the end is marked."""
     from .incremental_spmd import _od_step  # the module imports this one
 
     w = c["w"] + 1
+    spans.stage("maint.tomb_join", w.device)
     heads, hv, _nd, _na, ov_bind, ov_out, ov_squeeze = eval_plans(
         k["spo"], k["epoch"], k["marked"], k["sorted_keys"], k["sort_perm"], w,
         t["atom_consts"], t["head_consts"], plans, plan_out_cap,
         bind_cap=bind_cap, plan_out_cap=plan_out_cap, tomb=c["tomb"],
         mesh=mesh,
     )
+    spans.stage("maint.od_step", w.device)
     tomb, suspect, n_new, ov_route, ov_refl, _masks = _od_step(
         k["spo"], k["epoch"], k["marked"], c["tomb"], k["sorted_keys"],
         k["sort_perm"], k["rep"], k["sizes"], c["suspect"], heads, hv, w,
@@ -546,6 +560,7 @@ def delete_wave(c: dict, k: dict, t: dict, plans: tuple, *, bind_cap: int,
     c["tomb"].copy_(tomb)
     c["suspect"].copy_(suspect)
     c["w"].copy_(w)
+    spans.stage_end(w.device)
 
 
 class WaveGraph(_Captured):

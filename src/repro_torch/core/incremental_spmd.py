@@ -46,7 +46,10 @@ The generators tag ``engine.dispatches.phase`` with the reference's phase
 names (``add:prepare`` ... ``delete:forward``), so every dispatch counts
 under the phase that made it; :func:`static_dispatch_profile` states which
 families each phase may dispatch, and the module registers the trace
-builders of its device steps with the audit.
+builders of its device steps with the audit.  ``delete:split`` is the
+port's own tag, between ``delete:finalize`` and ``delete:rederive``: the
+split dispatches nothing, so no count falls under it, but with the spans
+on its host work (rho read back, the program rewritten) is its own range.
 """
 
 from __future__ import annotations
@@ -58,6 +61,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.merge import merge_sorted
 
 from . import collectives as coll
+from . import spans
 from .engine import (
     I32,
     I64,
@@ -176,6 +180,7 @@ def _od_step(spo, epoch, marked, tomb, sorted_keys, sort_perm, rep, sizes,
 
     # dedup the stream (the stable dedup order of its keys)
     keys = torch.where(sv, _pack3(stream), KEY_MAX)
+    spans.count_sorted(sv)
     order = ops.dedup_order(keys).to(I64)
     sk = keys[order]
     uniq = torch.ones_like(sv)
@@ -500,6 +505,7 @@ def _delete_phases(engine, state: EngineState, delta, max_rounds: int, tag):
     n_od = int(engine._psum_host(n_od.to(I64).reshape(1))[0])
     state.stats.overdeleted += n_od
     yield "overdeleted"
+    tag.phase = "delete:split"  # no dispatch: its host work gets its own span
 
     # -- split: suspect cliques revert to singletons -------------------------
     state.stats.suspects_split += log.read(lambda: int(suspect.sum()))

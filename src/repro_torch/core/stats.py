@@ -13,6 +13,8 @@ import dataclasses
 import threading
 from collections import Counter
 
+from . import spans
+
 
 class DispatchCounter:
     """Runtime side of the dispatch auditor (``TorchEngine.dispatches``).
@@ -30,7 +32,9 @@ class DispatchCounter:
 
     ``phase`` is thread-local (the serving tier's maintenance worker tags
     its phases while reader threads dispatch their ``"query"`` work), and
-    the increments take a lock, so totals stay exact across threads.
+    the increments take a lock, so totals stay exact across threads.  With
+    the spans on (:mod:`repro_torch.core.spans`), setting it also closes the
+    previous phase's range on this thread and opens the new one's.
     """
 
     def __init__(self) -> None:
@@ -47,6 +51,8 @@ class DispatchCounter:
     @phase.setter
     def phase(self, value: str | None) -> None:
         self._phase.value = value
+        if spans.enabled():
+            spans.phase(value)
 
     @property
     def total(self) -> int:

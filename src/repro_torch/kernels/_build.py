@@ -1,11 +1,13 @@
 """Build the hand-written CUDA kernels with nvcc and load them with ctypes.
 
-Each ``csrc/*.cu`` file is compiled on its own into a shared library with a
-plain C interface, ``build/kernels/<name>-<digest>.so`` under the checkout,
-where the digest covers the source and the flags, so an edited source or a
-changed flag rebuilds and an unchanged one is reused.  All missing libraries
-are compiled at once, one ``nvcc`` process per source, at first use.  Nothing
-is built or imported when the module is imported: the CPU never needs it.
+Each ``csrc/*.cu`` file, and the spans' stage marker
+(``marks/span_mark.cu``), is compiled on its own into a shared library with
+a plain C interface, ``build/kernels/<name>-<digest>.so`` under the
+checkout, where the digest covers the source and the flags, so an edited
+source or a changed flag rebuilds and an unchanged one is reused.  All
+missing libraries are compiled at once, one ``nvcc`` process per source, at
+first use.  Nothing is built or imported when the module is imported: the
+CPU never needs it.
 """
 
 from __future__ import annotations
@@ -20,9 +22,15 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
+MARKS = Path(__file__).resolve().parent / "marks"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("dedup_order", "search_bounds", "rewrite_triples", "union_find",
-           "flash_attention", "fm_interact", "segment_sum", "embedding_bag")
+# each library's source: the ported kernels, then every file of marks/
+SOURCES = {
+    **{name: CSRC / f"{name}.cu" for name in (
+        "dedup_order", "search_bounds", "rewrite_triples", "union_find",
+        "flash_attention", "fm_interact", "segment_sum", "embedding_bag")},
+    **{path.stem: path for path in sorted(MARKS.glob("*.cu"))},
+}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -45,7 +53,7 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     digest = hashlib.sha256(
-        (CSRC / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()
+        SOURCES[name].read_bytes() + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:12]
     return BUILD_DIR / f"{name}-{digest}.so"
 
@@ -65,7 +73,7 @@ def build_all(verbose: bool = False) -> dict:
     for name in todo:
         tmp = _target(name).with_suffix(f".tmp{os.getpid()}")
         cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-               "-o", str(tmp), str(CSRC / f"{name}.cu")]
+               "-o", str(tmp), str(SOURCES[name])]
         procs[name] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         ))
@@ -73,7 +81,7 @@ def build_all(verbose: bool = False) -> dict:
     for name, (tmp, proc) in procs.items():
         out, _ = proc.communicate()
         if proc.returncode != 0:
-            failed.append(f"{name}.cu:\n{out}")
+            failed.append(f"{SOURCES[name].name}:\n{out}")
             continue
         os.replace(tmp, _target(name))
         ptxas[name] = out

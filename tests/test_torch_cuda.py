@@ -1267,3 +1267,98 @@ def test_checkpoint_of_card_tensors(dev, tmp_path):
     for k in want:
         assert out[k].device == tree[k].device and out[k].dtype == want[k].dtype
         assert torch.equal(out[k], want[k])
+
+
+ROUND_MARKS = ("rew.merge", "rew.sweep", "rew.dedup", "rew.join", "rew.flags",
+               "body.end")
+WAVE_MARKS = ("maint.tomb_join", "maint.od_step", "body.end")
+
+
+def _profiled(fn):
+    """``fn()`` under torch.profiler; its device kernels' names and every
+    host event's name, each in time order."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = sorted(prof.events(), key=lambda e: e.time_range.start)
+    device = [e.name for e in evs if e.device_type == torch.autograd.DeviceType.CUDA]
+    return device, [e.name for e in evs if e.device_type != torch.autograd.DeviceType.CUDA]
+
+
+def _marks(names):
+    """The stages of the marker kernels among ``names``, in order: the
+    instance of ``span_mark_kernel`` named after each of ``spans.MARKS``
+    (``rew.sweep`` -> ``span_mark_kernel<rew::sweep>``)."""
+    from repro_torch.core.spans import MARKS
+
+    kernel = {f"span_mark_kernel<{m.replace('.', '::')}>": m for m in MARKS}
+    return [m for n in names for k, m in kernel.items() if k in n]
+
+
+def _run_stream(eng, facts, program, events):
+    state = eng.materialise_state(facts, program)
+    for op, delta in events:
+        (eng.add_facts if op == "add" else eng.delete_facts)(state, delta)
+    return state
+
+
+def test_span_markers_replay_in_stage_order(dev):
+    """With the spans on, the captured round and wave graphs record their
+    stage markers, and a replay runs them in stage order on the device:
+    every round of a rerun is one replay of the round's six markers; the
+    sort counter counts the rerun's sorted keys."""
+    from repro_torch.core import spans
+
+    facts, program, n_res, events = _update_stream(n_events=6, seed=1)
+    spans.enable(True)
+    try:
+        eng = TorchEngine(n_res, device=dev)
+        _run_stream(eng, facts, program, events)
+        graphs = eng.captured_graphs()
+        assert {g["family"] for g in graphs} == {"fforward", "fwave"}
+        for g in graphs:
+            assert g["stages"] == (ROUND_MARKS if g["family"] == "fforward" else WAVE_MARKS)
+        device, host = _profiled(lambda: eng.materialise_state(facts, program))
+        split = eng.last_split
+    finally:
+        spans.enable(False)
+    rounds = len(split["rounds"])
+    assert rounds >= 2 and all(r["reads"] == 1 for r in split["rounds"])
+    assert _marks(device) == list(ROUND_MARKS) * rounds
+    assert "rew.materialise" in host and "rew.round" in host
+    assert 0 < split["sort_pad_keys"] < split["sort_keys"]
+
+
+def test_graphs_captured_with_spans_off_hold_no_marker(dev):
+    """With the spans off, a materialisation and a delete under the
+    profiler show no program span and no marker, and every graph records
+    the launches a graph captured with the spans on records."""
+    facts, program, n_res, events = _update_stream(n_events=6, seed=1)
+    off = TorchEngine(n_res, device=dev)
+    _run_stream(off, facts, program, events)
+    delete = next(d for op, d in events if op == "delete")
+
+    def rerun():
+        st = off.materialise_state(facts, program)
+        off.delete_facts(st, delete)
+
+    device, host = _profiled(rerun)
+    assert _marks(device) == [] and not any("span_mark" in n for n in device)
+    assert not any(n.startswith(("rew.", "maint.")) for n in host)
+    assert "sort_keys" not in off.last_split
+    from repro_torch.core import spans
+
+    spans.enable(True)
+    try:
+        on = TorchEngine(n_res, device=dev)
+        _run_stream(on, facts, program, events)
+    finally:
+        spans.enable(False)
+    calls_off = {(g["family"], g["key"]): (g["calls"], g["stages"])
+                 for g in off.captured_graphs()}
+    calls_on = {(g["family"], g["key"]): g["calls"] for g in on.captured_graphs()}
+    assert set(calls_on) <= set(calls_off) and calls_on
+    for k, calls in calls_on.items():
+        assert calls_off[k] == (calls, ())
